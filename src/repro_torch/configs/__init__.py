@@ -1,0 +1,8 @@
+from repro_torch.configs.base import (
+    ARCH_IDS,
+    ModelConfig,
+    get_config,
+    get_tiny_config,
+)
+
+__all__ = ["ARCH_IDS", "ModelConfig", "get_config", "get_tiny_config"]

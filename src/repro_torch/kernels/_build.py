@@ -1,0 +1,80 @@
+"""Build the port's CUDA sources at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C entry point (no PyTorch headers) and
+is compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repo
+root, a directory git ignores. The library's file name carries a hash of
+the source and the flags, so an edited source is rebuilt and a stale
+library is never loaded. Several sources build in parallel, one ``nvcc``
+each. With no ``nvcc``, or a failed build, this raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "from csrc/ at first use and need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def log_path(name: str) -> Path:
+    return library_path(name).with_suffix(".log")
+
+
+def build(names) -> dict[str, Path]:
+    """Compile every named source that has no current library, all at once.
+    Returns {name: library path}; raises with nvcc's output on a failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {n: library_path(n) for n in names}
+    todo = {n: p for n, p in targets.items() if not p.exists()}
+    if todo:
+        compiler = nvcc()
+        procs = {}
+        for name, out in todo.items():
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True),
+                           tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            out.with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return targets
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu``, building it if needed."""
+    return ctypes.CDLL(str(build([name])[name]))

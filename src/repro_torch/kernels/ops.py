@@ -1,0 +1,37 @@
+"""Dispatching wrappers: the Hopper kernel for a CUDA tensor, the plain
+PyTorch version for a CPU tensor.
+
+The model code calls these. ``force`` picks a path explicitly: ``"kernel"``
+(raises on a CPU tensor) or ``"ref"`` (the plain version, on any device).
+There is no fallback: a CUDA tensor reaches the kernel or an exception.
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+_FORCES = (None, "kernel", "ref")
+_KERNELS = {"flash_attention": flash_attention_cuda}
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                    force: str | None = None):
+    """GQA flash attention. force in {None, 'kernel', 'ref'}."""
+    if force not in _FORCES:
+        raise ValueError(f"force must be one of {_FORCES}, got {force!r}")
+    if force == "ref" or (force is None and not q.is_cuda):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per kernel since the last reset."""
+    return {name: fn.launches for name, fn in _KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _KERNELS.values():
+        fn.launches = 0

@@ -1,0 +1,190 @@
+"""Serving engine + launcher: batched prefill + KV-cache decode loop.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
+        --requests 8 --prompt-len 512 --gen 32
+
+:class:`ServeEngine` is the importable core: one constructed engine is a
+serving session (config resolved, params initialized on the device) that
+:meth:`generate`\\ s batches on demand. The workloads serving tier of the
+reference drives it in-process like its own engine: attach it to a
+``Service`` through ``WorkloadPlane.attach_engine`` and each invoke lands
+in :meth:`infer`. It runs on the card (``device="cuda"``) unless the
+caller asks for another device; with no CUDA it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from repro_torch.configs import get_config, get_tiny_config
+from repro_torch.models import steps
+
+PHASES = ("prefill", "decode")  # profiler ranges of ``generate``
+
+
+def resolve_device(device) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("repro_torch runs on a CUDA card by default and none "
+                           "is available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ServeEngine:
+    """One in-process serving session for an arch.
+
+    Construction is the expensive part (params on the device); ``generate``
+    is the per-batch hot path: prefill → fixed-capacity KV cache → greedy
+    decode.
+    """
+
+    def __init__(self, arch: str, tiny: bool = True, seed: int = 0,
+                 device=None, params: Optional[dict] = None):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # nn/policy.py: interior products accumulate in fp32.
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        self.arch = arch
+        self.cfg = get_tiny_config(arch) if tiny else get_config(arch)
+        self._gen = torch.Generator(device="cpu").manual_seed(seed)
+        self.params = (params if params is not None
+                       else steps.init_params(self.cfg, seed, self.device))
+        self._prefill = steps.make_prefill_step(self.cfg)
+        self._decode = steps.make_decode_step(self.cfg)
+
+    def synthetic_prompts(self, batch: int, prompt_len: int) -> torch.Tensor:
+        """(batch, prompt_len) token ids drawn from the engine's generator."""
+        return torch.randint(0, self.cfg.vocab_size, (batch, prompt_len),
+                             generator=self._gen)
+
+    # -- the per-batch hot path -------------------------------------------
+    @torch.inference_mode()
+    def generate(self, prompts, gen: int) -> dict:
+        """Prefill ``prompts`` (B, S) and decode ``gen`` tokens. Returns
+        ``{"tokens": (B, gen) CPU tensor, "prefill_s": float, "decode_s":
+        float}``; throughput is the caller's division to do."""
+        prompts = torch.as_tensor(prompts, dtype=torch.long).to(self.device)
+        B, S = prompts.shape
+        t0 = time.perf_counter()
+        with record_function("prefill"):
+            tok, pf_states, _ = self._prefill(self.params, {"tokens": prompts})
+            _sync(self.device)
+        t_pf = time.perf_counter() - t0
+        # move prefill KV into the fixed-capacity decode cache
+        states = steps.decode_state(self.cfg, B, S + gen, self.device)
+        states = _install_prefill(states, pf_states)
+        generated = [tok]
+        t0 = time.perf_counter()
+        with record_function("decode"):
+            for i in range(gen - 1):
+                tok, states = self._decode(self.params, tok, states, S + i)
+                generated.append(tok)
+            _sync(self.device)
+        t_dec = time.perf_counter() - t0
+        return {"tokens": torch.cat(generated, dim=1).cpu(),
+                "prefill_s": t_pf, "decode_s": t_dec}
+
+    # -- serving-tier adapter ---------------------------------------------
+    def infer(self, payload=None) -> dict:
+        """One inference request, as the workloads serving tier calls it.
+        The payload is a dict of knobs: ``prompt_len`` (default 16), ``gen``
+        (default 8), ``batch`` (default 1); prompts are synthetic, drawn
+        from the engine's generator."""
+        p = payload or {}
+        B = int(p.get("batch", 1))
+        S = int(p.get("prompt_len", 16))
+        gen = max(2, int(p.get("gen", 8)))
+        out = self.generate(self.synthetic_prompts(B, S), gen)
+        return {"arch": self.arch, "tokens": out["tokens"][0].tolist(),
+                "batch": B, "prompt_len": S,
+                "decode_ms_per_token": out["decode_s"] / max(gen - 1, 1) * 1e3}
+
+
+def _install_prefill(states, pf_states):
+    """Write prefill K/V into the decode cache at positions [0, S).
+
+    In place: the decode cache is allocated once per batch at capacity
+    S+gen, and the prompt's K/V are copied into its first S slots."""
+    pairs = zip(states, pf_states) if isinstance(states, list) \
+        else [(states, pf_states)]
+    for slot, new in pairs:
+        s = new.k.shape[-2]
+        slot.k[..., :s, :].copy_(new.k)
+        slot.v[..., :s, :].copy_(new.v)
+    return states
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--tiny", action="store_true")
+    ap.add_argument("--requests", type=int, default=8, help="batch size")
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--profile", action="store_true",
+                    help="after one warm-up batch, trace one more with "
+                         "torch.profiler and print where the time goes")
+    args = ap.parse_args(argv)
+
+    engine = ServeEngine(args.arch, tiny=args.tiny, seed=args.seed,
+                         device=args.device)
+    B, S = args.requests, args.prompt_len
+    prompts = engine.synthetic_prompts(B, S)
+    out = engine.generate(prompts, args.gen)
+    toks, t_pf, t_dec = out["tokens"], out["prefill_s"], out["decode_s"]
+
+    where = (torch.cuda.get_device_name(engine.device)
+             if engine.device.type == "cuda" else str(engine.device))
+    print(f"arch={engine.cfg.name} device={where} requests={B} prompt={S} "
+          f"generated={toks.shape[1]}")
+    print(f"prefill: {B * S / t_pf:,.0f} tok/s ({t_pf*1e3:.1f} ms)")
+    print(f"decode:  {B * (args.gen - 1) / max(t_dec, 1e-9):,.0f} tok/s "
+          f"({t_dec / max(args.gen - 1, 1) * 1e3:.2f} ms/token)")
+    print(f"sample continuation (req 0): {toks[0, :12].tolist()}")
+    if args.profile:
+        _print_profile(engine, prompts, args.gen)
+
+
+def _print_profile(engine, prompts, gen):
+    """Trace one generate: device time by kernel, and each phase's wall
+    time beside the device time spent in it (the rest is the device idle,
+    waiting on the host)."""
+    cuda = engine.device.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        engine.generate(prompts, gen)
+    sort = "self_cuda_time_total" if cuda else "self_cpu_time_total"
+    print(prof.key_averages().table(sort_by=sort, row_limit=25))
+    if not cuda:
+        return
+    events = prof.events()
+    for phase in PHASES:
+        span = [e for e in events if e.name == phase
+                and e.device_type == DeviceType.CPU]
+        if not span:
+            continue
+        lo, hi = span[0].time_range.start, span[0].time_range.end
+        busy = sum(e.time_range.elapsed_us() for e in events
+                   if e.device_type == DeviceType.CUDA and e.name not in PHASES
+                   and lo <= e.time_range.start and e.time_range.end <= hi)
+        wall = hi - lo
+        print(f"profile {phase}: wall {wall / 1e3:.3f} ms, device busy "
+              f"{busy / 1e3:.3f} ms ({100 * busy / max(wall, 1):.1f}%), "
+              f"idle {100 * (1 - busy / max(wall, 1)):.1f}%")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,133 @@
+"""GQA attention: prefill through the flash kernel, decode against a KV
+cache.
+
+Prefill calls ``kernels.ops.flash_attention``: the Hopper kernel for a CUDA
+tensor, its plain version for a CPU one. This is where the reference calls
+its chunked jnp twin of the Pallas kernel. Decode attention has no kernel
+in the reference either and stays plain PyTorch.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.nn import params as prm
+from repro_torch.nn.layers import apply_rope
+from repro_torch.nn.policy import interior_einsum
+
+NEG_INF = -1e30
+
+
+def def_gqa(d_model, n_heads, n_kv_heads, head_dim):
+    return {
+        "wq": prm.ParamDef((d_model, n_heads, head_dim), ("embed", "heads", "head_dim"),
+                           init="scaled_fan_in"),
+        "wk": prm.ParamDef((d_model, n_kv_heads, head_dim), ("embed", "kv_heads", "head_dim"),
+                           init="scaled_fan_in"),
+        "wv": prm.ParamDef((d_model, n_kv_heads, head_dim), ("embed", "kv_heads", "head_dim"),
+                           init="scaled_fan_in"),
+        "wo": prm.ParamDef((n_heads, head_dim, d_model), ("heads", "head_dim", "embed"),
+                           init="scaled_fan_in"),
+    }
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, n_kv, S_max, head_dim)
+    v: torch.Tensor  # (B, n_kv, S_max, head_dim)
+
+
+def _project_qkv(p, x, positions, rope_theta, use_rope=True):
+    """x: (B, S, d) → q (B, H, S, hd), k/v (B, KV, S, hd), contiguous."""
+    q = interior_einsum("bsd,dhk->bhsk", x, p["wq"])
+    k = interior_einsum("bsd,dhk->bhsk", x, p["wk"])
+    v = interior_einsum("bsd,dhk->bhsk", x, p["wv"])
+    if use_rope:
+        q = apply_rope(q, positions[:, None, :], rope_theta)
+        k = apply_rope(k, positions[:, None, :], rope_theta)
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def _group_q(q, n_kv):
+    """(B, H, S, D) → (B, KV, G, S, D) grouping query heads per kv head."""
+    b, h, s, d = q.shape
+    return q.reshape(b, n_kv, h // n_kv, s, d)
+
+
+def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0):
+    """Reference O(S^2)-memory attention with the reference model's
+    rounding points (oracle for tests)."""
+    b, h, sq, d = q.shape
+    n_kv, skv = k.shape[1], k.shape[2]
+    qg = _group_q(q, n_kv) * (d ** -0.5)
+    s = torch.einsum("bkgsd,bkcd->bkgsc", qg.float(), k.float())
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    k_pos = torch.arange(skv, device=q.device)
+    if causal:
+        s = s.masked_fill(q_pos[:, None] < k_pos[None, :], NEG_INF)
+    if window > 0:
+        s = s.masked_fill(q_pos[:, None] - k_pos[None, :] >= window, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgsc,bkcd->bkgsd", p.to(v.dtype).float(), v.float())
+    return o.reshape(b, h, sq, d).to(q.dtype)
+
+
+def decode_attention(q, cache: KVCache, cache_len: int, *, window=0):
+    """Single-step attention against a KV cache.
+
+    q: (B, H, 1, D); cache.k/v: (B, KV, S_max, D); ``cache_len`` valid
+    entries (the new token's k/v already written at cache_len - 1). Scores
+    are computed in the cache's dtype, the softmax in fp32.
+    """
+    b, h, _, d = q.shape
+    n_kv, s_max = cache.k.shape[1], cache.k.shape[2]
+    qg = _group_q(q * (d ** -0.5), n_kv)
+    s = torch.einsum("bkgsd,bkcd->bkgsc", qg, cache.k).float()  # (B,KV,G,1,S_max)
+    pos = torch.arange(s_max, device=q.device)
+    valid = pos < cache_len
+    if window > 0:
+        valid &= pos >= cache_len - window
+    s = s.masked_fill(~valid, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgsc,bkcd->bkgsd", p.to(cache.v.dtype), cache.v)
+    return o.reshape(b, h, 1, d).to(q.dtype)
+
+
+def gqa_attention(
+    p,
+    x,
+    *,
+    positions,
+    rope_theta: float = 10000.0,
+    use_rope: bool = True,
+    causal: bool = True,
+    window: int = 0,
+    cache: Optional[KVCache] = None,
+    cache_len: Optional[int] = None,
+    mode: str = "prefill",  # prefill | decode
+    force: Optional[str] = None,
+):
+    """Full GQA attention block. Returns (y, cache_or_None).
+
+    ``force`` is passed to ``kernels.ops.flash_attention`` for prefill.
+    """
+    q, k, v = _project_qkv(p, x, positions, rope_theta, use_rope)
+    if mode == "decode":
+        if cache is None or cache_len is None:
+            raise ValueError("decode needs a cache and cache_len")
+        # In place: the cache is preallocated at capacity, and this step's
+        # k/v land at position cache_len; then attend cache_len+1 entries.
+        cache.k[:, :, cache_len:cache_len + 1] = k
+        cache.v[:, :, cache_len:cache_len + 1] = v
+        new_cache = cache
+        o = decode_attention(q, cache, cache_len + 1, window=window)
+    elif mode == "prefill":
+        o = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                force=force)
+        new_cache = KVCache(k, v)
+    else:
+        raise ValueError(f"mode must be prefill or decode, got {mode!r}")
+    y = interior_einsum("bhsk,hkd->bsd", o, p["wo"])
+    return y, new_cache

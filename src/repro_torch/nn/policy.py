@@ -1,0 +1,26 @@
+"""Matmul precision policy.
+
+Interior products (projections, MLP) accumulate in fp32 and are then cast
+back to the residual dtype; fp32 is kept where it matters (logits, softmax
+internals, RMS norms).
+
+PyTorch's bf16 GEMMs already work that way: on the card cuBLAS accumulates
+in fp32 and rounds the result once (``ServeEngine`` turns off the
+reduced-precision split-K reduction that would otherwise be allowed), and
+on the CPU the bf16 GEMM accumulates in fp32 too. So an interior product
+runs in its operands' dtype, with no fp32 copy of the weights.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def interior_pref() -> torch.dtype:
+    """Accumulation dtype of interior products."""
+    return torch.float32
+
+
+def interior_einsum(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum`` accumulated in ``interior_pref()``, result in x's dtype."""
+    return torch.einsum(eq, x, w)

@@ -14,6 +14,7 @@ def rng_key():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skips without one")
     # Per-test wall cap so a parked long-poll/SSE wait can never hang the
     # suite. Gated on the pytest-timeout plugin actually being installed
     # (it is in requirements-dev.txt / CI; local runs without it keep

@@ -1,0 +1,135 @@
+"""The port's flash-attention (repro_torch.kernels) against the JAX
+package's: the plain PyTorch version against ``kernels/ref.py`` and the
+Pallas kernel in interpret mode, the dispatcher's routing and launch
+counter, and, on a card only, the CUDA kernel against its plain version.
+
+Inputs are made with numpy from a fixed seed and handed to both packages;
+JAX stays on the CPU.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.ops import flash_attention as jax_flash
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+# (B, H, KV, S, D, causal, window), as in tests/test_kernels.py
+FLASH_CASES = [
+    (2, 4, 2, 256, 64, True, 0),     # GQA causal
+    (1, 8, 8, 128, 128, True, 0),    # MHA, wide head
+    (2, 4, 1, 256, 64, True, 64),    # MQA + local window
+    (1, 2, 2, 128, 64, False, 0),    # bidirectional (encoder)
+    (1, 15, 5, 128, 64, True, 0),    # smollm-style 15H/5KV grouping
+    (2, 2, 2, 512, 32, True, 128),   # long window
+]
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _qkv_np(b, h, kv, sq, d, skv=None, seed=0):
+    rng = np.random.default_rng(seed)
+    skv = sq if skv is None else skv
+    return (rng.standard_normal((b, h, sq, d), np.float32),
+            rng.standard_normal((b, kv, skv, d), np.float32),
+            rng.standard_normal((b, kv, skv, d), np.float32))
+
+
+def _both(arrays, dtype):
+    jdt, tdt, _ = DTYPES[dtype]
+    return ([jnp.asarray(a).astype(jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+def _close(port, jax_out, tol):
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(jax_out, np.float32),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_matches_jax_ref(b, h, kv, s, d, causal, window, dtype):
+    (jq, jk, jv), (q, k, v) = _both(_qkv_np(b, h, kv, s, d), dtype)
+    out = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    _close(out, jref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                         window=window), DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_q_offset_suffix_matches_jax_ref(dtype):
+    """q as a suffix of the kv sequence (tests/test_kernels.py:60)."""
+    b, h, s, d = 1, 4, 256, 64
+    q_np, k_np, v_np = _qkv_np(b, h, h, s, d)
+    (jq, jk, jv), (q, k, v) = _both((q_np[:, :, -64:], k_np, v_np), dtype)
+    out = ref.flash_attention_ref(q, k, v, causal=True, q_offset=s - 64)
+    _close(out, jref.flash_attention_ref(jq, jk, jv, causal=True,
+                                         q_offset=s - 64), DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("sq,skv,q_offset,window", [(200, 200, 0, 0),
+                                                    (37, 100, 63, 32)])
+def test_plain_ragged_lengths_match_jax_ref(sq, skv, q_offset, window):
+    """Lengths that no 64- or 128-block divides (the Pallas kernel raises
+    on them; the port's kernel masks the tail)."""
+    (jq, jk, jv), (q, k, v) = _both(_qkv_np(2, 6, 2, sq, 16, skv), "float32")
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    _close(ref.flash_attention_ref(q, k, v, **kw),
+           jref.flash_attention_ref(jq, jk, jv, **kw), 2e-5)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_matches_pallas_interpret(dtype):
+    """The smollm 15H/5KV grouping through the Pallas kernel itself."""
+    (jq, jk, jv), (q, k, v) = _both(_qkv_np(1, 15, 5, 128, 64, seed=1), dtype)
+    out = ref.flash_attention_ref(q, k, v, causal=True)
+    _close(out, jax_flash(jq, jk, jv, causal=True, force="interpret"),
+           DTYPES[dtype][2])
+
+
+def test_dispatcher_cpu_uses_plain_and_counts_nothing():
+    _, (q, k, v) = _both(_qkv_np(1, 4, 2, 64, 16), "float32")
+    before = ops.launch_counts()
+    out = ops.flash_attention(q, k, v, causal=True)
+    assert ops.launch_counts() == before
+    assert torch.equal(out, ref.flash_attention_ref(q, k, v, causal=True))
+    assert torch.equal(ops.flash_attention(q, k, v, force="ref"), out)
+
+
+def test_dispatcher_force_kernel_on_cpu_raises():
+    _, (q, k, v) = _both(_qkv_np(1, 4, 2, 64, 16), "float32")
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(q, k, v, force="kernel")
+    with pytest.raises(ValueError, match="force"):
+        ops.flash_attention(q, k, v, force="interpret")
+    assert ops.launch_counts() == before
+
+
+def test_reset_launch_counts():
+    flash_attention_cuda.launches = 5
+    ops.reset_launch_counts()
+    assert ops.launch_counts() == {"flash_attention": 0}
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernel is built and run there "
+                    "(python3 chip_smoke.py covers the full case list)")
+    cases = FLASH_CASES + [(2, 4, 2, 200, 16, True, 0), (1, 4, 2, 1000, 128, True, 256)]
+    for b, h, kv, s, d, causal, window in cases:
+        for dtype in DTYPES:
+            _, tdt, tol = DTYPES[dtype]
+            q, k, v = (torch.from_numpy(a).to("cuda", tdt)
+                       for a in _qkv_np(b, h, kv, s, d))
+            out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                      force="kernel")
+            want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(out.float().cpu().numpy(),
+                                       want.float().cpu().numpy(),
+                                       atol=tol, rtol=tol)
