@@ -119,7 +119,7 @@ class ModelConfig:
 
 
 # Archs the port runs so far; ROADMAP.md queues the rest.
-ARCH_IDS = ["smollm-360m"]
+ARCH_IDS = ["smollm-360m", "recurrentgemma-2b"]
 
 
 def _module_for(arch_id: str):

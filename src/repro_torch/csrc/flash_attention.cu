@@ -21,9 +21,14 @@
 // above either floor. What the design does about that:
 //   * one block owns 64 query rows of one (batch, q head); each K/V tile
 //     is read from device memory once per block and then reused from
-//     shared memory by all 128 threads;
-//   * each thread keeps a 4x8 register tile of scores and a 4x(D/8) tile
-//     of the accumulator, so 12 shared loads feed 32 FMAs; rows of Q, K and
+//     shared memory by all of the block's threads;
+//   * each thread keeps an RPTx8 register tile of scores and an RPTx(D/8)
+//     tile of the accumulator; RPT = 4 rows (128 threads) up to D = 128, so
+//     12 shared loads feed 32 FMAs. At D = 256 a 4x32 accumulator, the 4x8
+//     scores and the operands in flight would crowd the 255 registers a
+//     thread may have, so there RPT = 2 and the block has 256 threads: the
+//     same 64 rows, half the registers a thread (the shared-memory tiles
+//     fill 213,760 of the 232,448 bytes a block may have). Rows of Q, K and
 //     P are padded by one float so the row-strided reads hit distinct banks;
 //   * row max and row sum are warp shuffles among the 8 lanes of a row;
 //   * only tiles the mask leaves anything in are visited (causal diagonal,
@@ -41,10 +46,16 @@ namespace {
 
 constexpr int BQ = 64;         // query rows per block
 constexpr int BK = 64;         // keys per kv tile
-constexpr int THREADS = 128;   // 16 row groups x 8 column lanes
-constexpr int RPT = BQ / 16;   // rows per thread (4)
 constexpr int CPT = BK / 8;    // score columns per thread (8)
 constexpr float NEG_INF = -1e30f;
+
+// Rows per thread and threads per block at head dim D: BQ / RPT row groups
+// of 8 column lanes each.
+template <int D>
+struct Tile {
+  static constexpr int RPT = D >= 256 ? 2 : 4;
+  static constexpr int THREADS = BQ / RPT * 8;
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -59,7 +70,7 @@ constexpr size_t smem_floats() {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Tile<D>::THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int H, int KV,
                  int Sq, int Skv, int causal, int window, int q_offset,
@@ -67,6 +78,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int LDQ = D + 1;   // padded row stride of Q and K tiles
   constexpr int LDP = BK + 1;  // padded row stride of the P tile
   constexpr int DPT = D / 8;   // output columns per thread
+  constexpr int RPT = Tile<D>::RPT;
+  constexpr int THREADS = Tile<D>::THREADS;
   extern __shared__ float smem[];
   float* Qs = smem;             // BQ x LDQ
   float* Ks = Qs + BQ * LDQ;    // BK x LDQ
@@ -75,7 +88,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int tx = tid & 7;   // column lane: score columns tx + 8c, output columns tx + 8c
-  const int ty = tid >> 3;  // row group: rows ty * RPT + i
+  const int ty = tid >> 3;  // row group: rows ty * RPT + i (the 8 lanes of a row share a warp)
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -218,7 +231,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, D><<<grid, Tile<D>::THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), H, KV, Sq, Skv, causal, window, q_offset, scale);
   return cudaGetLastError();
@@ -237,6 +250,8 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o
       return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, q_offset, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, q_offset, scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, q_offset, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -252,6 +267,7 @@ extern "C" int flash_attention_smem_bytes(int D) {
     case 32: return (int)(smem_floats<32>() * sizeof(float));
     case 64: return (int)(smem_floats<64>() * sizeof(float));
     case 128: return (int)(smem_floats<128>() * sizeof(float));
+    case 256: return (int)(smem_floats<256>() * sizeof(float));
     default: return -1;
   }
 }

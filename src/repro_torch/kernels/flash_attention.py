@@ -4,7 +4,7 @@ ctypes.
 It replaces the TPU kernel ``repro/kernels/flash_attention.py:_flash_kernel``
 and computes what that kernel does (GQA; causal, local-window or
 bidirectional masks; absolute ``q_offset``; fp32 online softmax), for fp32
-and bf16, head_dim 16, 32, 64 and 128, and any sequence lengths. The source's
+and bf16, head_dim 16, 32, 64, 128 and 256, and any sequence lengths. The source's
 header says what bounds it on the card and what the design does about it.
 Its plain version is ``repro_torch.kernels.ref.flash_attention_ref``.
 
@@ -21,8 +21,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
 @functools.cache
 def _fwd():
     """The C entry point, typed; the library is built at the first call."""

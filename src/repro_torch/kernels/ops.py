@@ -10,21 +10,36 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.rglru import rglru_scan_cuda
 
 _FORCES = (None, "kernel", "ref")
-_KERNELS = {"flash_attention": flash_attention_cuda}
+_KERNELS = {"flash_attention": flash_attention_cuda,
+            "rglru_scan": rglru_scan_cuda}
+
+
+def _plain(x, force) -> bool:
+    """Whether the plain version runs: forced, or x lies off the card."""
+    if force not in _FORCES:
+        raise ValueError(f"force must be one of {_FORCES}, got {force!r}")
+    return force == "ref" or (force is None and not x.is_cuda)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                     force: str | None = None):
     """GQA flash attention. force in {None, 'kernel', 'ref'}."""
-    if force not in _FORCES:
-        raise ValueError(f"force must be one of {_FORCES}, got {force!r}")
-    if force == "ref" or (force is None and not q.is_cuda):
+    if _plain(q, force):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        q_offset=q_offset)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset)
+
+
+def rglru_scan(a, b, h0=None, *, force: str | None = None):
+    """Linear recurrence h_t = a_t*h_{t-1} + b_t over axis 1. Returns
+    (h in b's dtype, h_last fp32). force in {None, 'kernel', 'ref'}."""
+    if _plain(a, force):
+        return ref.rglru_scan_ref(a, b, h0)
+    return rglru_scan_cuda(a, b, h0)
 
 
 def launch_counts() -> dict[str, int]:

@@ -27,3 +27,18 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgsc,bkcd->bkgsd", p, v.float())
     return o.reshape(b, h, sq, d).to(q.dtype)
+
+
+def rglru_scan_ref(a, b, h0=None):
+    """Step-by-step linear recurrence h_t = a_t * h_{t-1} + b_t.
+
+    a, b: (B, S, W); h0: (B, W) or None. The loop runs in fp32. Returns
+    (h (B, S, W) in b.dtype, h_last (B, W) fp32).
+    """
+    af, bf = a.float(), b.float()
+    h = torch.zeros_like(bf[:, 0]) if h0 is None else h0.float()
+    hs = []
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(b.dtype), h

@@ -24,6 +24,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch.configs import get_config, get_tiny_config
 from repro_torch.models import steps
+from repro_torch.nn.attention import KVCache
 
 PHASES = ("prefill", "decode")  # profiler ranges of ``generate``
 
@@ -45,8 +46,8 @@ class ServeEngine:
     """One in-process serving session for an arch.
 
     Construction is the expensive part (params on the device); ``generate``
-    is the per-batch hot path: prefill → fixed-capacity KV cache → greedy
-    decode.
+    is the per-batch hot path: prefill → fixed-capacity KV cache (and
+    recurrent states) → greedy decode.
     """
 
     def __init__(self, arch: str, tiny: bool = True, seed: int = 0,
@@ -112,17 +113,23 @@ class ServeEngine:
 
 
 def _install_prefill(states, pf_states):
-    """Write prefill K/V into the decode cache at positions [0, S).
+    """Write prefill K/V into the decode cache at positions [0, S), and
+    pass recurrent state dicts through from prefill.
 
-    In place: the decode cache is allocated once per batch at capacity
-    S+gen, and the prompt's K/V are copied into its first S slots."""
-    pairs = zip(states, pf_states) if isinstance(states, list) \
-        else [(states, pf_states)]
-    for slot, new in pairs:
+    In place for the KV caches: each is allocated once per batch at
+    capacity S+gen, and the prompt's K/V are copied into its first S slots."""
+
+    def install(slot, new):
+        if not isinstance(slot, KVCache):
+            return new
         s = new.k.shape[-2]
         slot.k[..., :s, :].copy_(new.k)
         slot.v[..., :s, :].copy_(new.v)
-    return states
+        return slot
+
+    if isinstance(states, list):
+        return [install(slot, new) for slot, new in zip(states, pf_states)]
+    return install(states, pf_states)
 
 
 def main(argv=None):

@@ -23,8 +23,9 @@ def def_lm(cfg: ModelConfig):
 
 
 def lm_apply(p, tokens, cfg: ModelConfig, *, mode="prefill", states=None,
-             cache_len=None, attn_force=None):
-    """tokens: (B, S) integer → (logits (B, S, V) fp32, states)."""
+             cache_len=None, force=None):
+    """tokens: (B, S) integer → (logits (B, S, V) fp32, states). ``force``
+    goes to the kernels' dispatchers (``kernels.ops``)."""
     b, s = tokens.shape
     if mode == "decode":
         positions = torch.full((b, s), cache_len, dtype=torch.long,
@@ -34,7 +35,7 @@ def lm_apply(p, tokens, cfg: ModelConfig, *, mode="prefill", states=None,
     x = embed_lookup(p["embed"], tokens).to(prm.torch_dtype(cfg.dtype))
     x, new_states = stack_apply(p["blocks"], x, cfg, positions=positions,
                                 mode=mode, states=states, cache_len=cache_len,
-                                attn_force=attn_force)
+                                force=force)
     x = rmsnorm(p["final_norm"], x)
     table = p["embed"] if cfg.tie_embeddings else p["unembed"]
     return unembed(table, x), new_states

@@ -19,15 +19,16 @@ def init_params(cfg: ModelConfig, seed: int, device="cpu"):
                            device)
 
 
-def make_prefill_step(cfg: ModelConfig, attn_force=None):
+def make_prefill_step(cfg: ModelConfig, force=None):
     """Returns fn(params, batch) → (next_token (B,1), states, last_logits).
 
-    ``attn_force`` goes to ``kernels.ops.flash_attention`` ("ref" runs the
-    plain attention, to hold the kernel's path against it)."""
+    ``force`` goes to ``kernels.ops.flash_attention`` and
+    ``kernels.ops.rglru_scan`` ("ref" runs both plain versions, to hold the
+    kernels' path against them)."""
 
     def prefill(params, batch):
         logits, states = lm.lm_apply(params, batch["tokens"], cfg,
-                                     mode="prefill", attn_force=attn_force)
+                                     mode="prefill", force=force)
         nxt = torch.argmax(logits[:, -1:], dim=-1)
         return nxt, states, logits[:, -1]
 
@@ -48,6 +49,7 @@ def make_decode_step(cfg: ModelConfig):
 
 
 def decode_state(cfg: ModelConfig, batch: int, s_max: int, device="cpu"):
-    """Zeroed decode-time state at capacity ``s_max``."""
+    """Zeroed decode-time state at capacity ``s_max``: a KV cache per
+    attention block, a conv/h dict per recurrent block."""
     return init_stack_state(cfg, batch, s_max, prm.torch_dtype(cfg.dtype),
                             device)

@@ -1,10 +1,14 @@
-"""Attention blocks and the layer stack.
+"""Per-layer blocks and the layer stack.
+
+Block kinds ported so far (``cfg.block_pattern`` entries):
+  * ``attn``  — GQA attention + dense MLP
+  * ``rglru`` — Griffin recurrent block (+ dense MLP)
 
 Two parameter layouts load, as in the reference: the stacked
-``blocks/scan/...`` tree with a leading layers axis (``scan_layers``, the
-full config) and the ``blocks/layers/<i>/...`` list (the tiny config). The
-stacked layout runs as a Python loop over its layers axis. Only ``attn``
-blocks with a dense MLP are ported so far.
+``blocks/scan/...`` tree with a leading layers axis (``scan_layers`` with
+a pure ``attn`` pattern) and the ``blocks/layers/<i>/...`` list, which
+follows ``cfg.pattern_for_layers()``. The stacked layout runs as a Python
+loop over its layers axis.
 """
 
 from __future__ import annotations
@@ -12,18 +16,31 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import params as prm
 from repro_torch.nn.attention import KVCache, def_gqa, gqa_attention
-from repro_torch.nn.layers import def_rmsnorm, rmsnorm
+from repro_torch.nn.layers import activation, def_rmsnorm, rmsnorm
 from repro_torch.nn.mlp import def_mlp, mlp
+from repro_torch.nn.policy import interior_einsum
+from repro_torch.nn.recurrent import (
+    causal_conv,
+    causal_conv_step,
+    conv_state_init,
+    def_causal_conv,
+    def_rglru,
+    rglru,
+    rglru_step,
+)
 from repro_torch.utils.trees import tree_map_with_path
+
+_PORTED_KINDS = ("attn", "rglru")
 
 
 def _check_ported(cfg: ModelConfig):
     unported = []
-    if set(cfg.pattern_for_layers()) != {"attn"}:
+    if not set(cfg.pattern_for_layers()) <= set(_PORTED_KINDS):
         unported.append(f"block pattern {cfg.block_pattern}")
     if cfg.is_moe:
         unported.append("MoE")
@@ -40,6 +57,10 @@ def _check_ported(cfg: ModelConfig):
             f"{cfg.name}: {', '.join(unported)} not ported yet (see ROADMAP.md)")
 
 
+# --------------------------------------------------------------------------
+# defs
+# --------------------------------------------------------------------------
+
 def def_attn_block(cfg: ModelConfig):
     _check_ported(cfg)
     return {
@@ -50,25 +71,104 @@ def def_attn_block(cfg: ModelConfig):
     }
 
 
-def init_block_state(cfg: ModelConfig, batch: int, s_max: int,
-                     dtype=torch.bfloat16, device="cpu") -> KVCache:
-    shape = (batch, cfg.n_kv_heads, s_max, cfg.hd)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+def def_rglru_block(cfg: ModelConfig):
+    _check_ported(cfg)
+    w = cfg.lru_width or cfg.d_model
+    return {
+        "norm1": def_rmsnorm(cfg.d_model),
+        "w_gate": prm.matrix(cfg.d_model, w, "embed", "lru"),
+        "w_x": prm.matrix(cfg.d_model, w, "embed", "lru"),
+        "conv": def_causal_conv(cfg.conv_width, w),
+        "lru": def_rglru(w, cfg.n_heads),
+        "w_out": prm.matrix(w, cfg.d_model, "lru", "embed"),
+        "norm2": def_rmsnorm(cfg.d_model),
+        "mlp": def_mlp(cfg.d_model, cfg.d_ff),
+    }
 
+
+_DEFS = {"attn": def_attn_block, "rglru": def_rglru_block}
+
+
+def def_block(cfg: ModelConfig, kind: str):
+    return _DEFS[kind](cfg)
+
+
+# --------------------------------------------------------------------------
+# state init (decode)
+# --------------------------------------------------------------------------
+
+def init_block_state(cfg: ModelConfig, kind: str, batch: int, s_max: int,
+                     dtype=torch.bfloat16, device="cpu"):
+    """Zeroed decode state of one block. An attention block's KV cache is
+    allocated at the full ``s_max``, window or not, so that decode indexes
+    it by absolute position (the reference's executed-serving layout)."""
+    if kind == "attn":
+        shape = (batch, cfg.n_kv_heads, s_max, cfg.hd)
+        return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device))
+    if kind == "rglru":
+        w = cfg.lru_width or cfg.d_model
+        return {"conv": conv_state_init(batch, cfg.conv_width, w, dtype, device),
+                "h": torch.zeros((batch, w), dtype=torch.float32, device=device)}
+    raise ValueError(kind)
+
+
+# --------------------------------------------------------------------------
+# block apply — mode in {prefill, decode}
+# --------------------------------------------------------------------------
 
 def apply_attn_block(p, x, cfg: ModelConfig, *, positions, mode="prefill",
                      state: Optional[KVCache] = None, cache_len=None,
-                     attn_force=None):
-    """Returns (x, cache)."""
+                     force=None):
+    """Returns (x, cache). ``force`` goes to the prefill flash kernel."""
     h = rmsnorm(p["norm1"], x)
     attn_out, new_cache = gqa_attention(
         p["attn"], h, positions=positions, rope_theta=cfg.rope_theta,
         use_rope=cfg.use_rope, causal=True, window=cfg.local_window,
-        cache=state, cache_len=cache_len, mode=mode, force=attn_force)
+        cache=state, cache_len=cache_len, mode=mode, force=force)
     x = x + attn_out
     x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x), cfg.act)
     return x, new_cache
+
+
+def apply_rglru_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None,
+                      force=None):
+    """Returns (x, {"conv": (B, width-1, W), "h": (B, W) fp32}). Prefill's
+    conv state is the last width-1 *pre-conv* inputs; ``force`` goes to the
+    scan kernel."""
+    h = rmsnorm(p["norm1"], x)
+    gate = activation("gelu")(
+        interior_einsum("bsd,dw->bsw", h, p["w_gate"]).float()).to(x.dtype)
+    u = interior_einsum("bsd,dw->bsw", h, p["w_x"])
+    if mode == "decode":
+        u1, conv_state = causal_conv_step(p["conv"], u[:, 0], state["conv"])
+        r, h_new = rglru_step(p["lru"], u1, state["h"], cfg.n_heads)
+        r = r[:, None]
+        new_state = {"conv": conv_state, "h": h_new}
+    elif mode == "prefill":
+        # the last width-1 inputs, zeros before the prompt's start
+        width = p["conv"]["w"].shape[0]
+        conv_state = F.pad(u[:, -(width - 1):],
+                           (0, 0, max(0, width - 1 - u.shape[1]), 0))
+        r, h_last = rglru(p["lru"], causal_conv(p["conv"], u), cfg.n_heads,
+                          h0=state["h"] if state is not None else None,
+                          force=force)
+        new_state = {"conv": conv_state, "h": h_last}
+    else:
+        raise ValueError(f"mode must be prefill or decode, got {mode!r}")
+    x = x + interior_einsum("bsw,wd->bsd", (r * gate).to(x.dtype), p["w_out"])
+    x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x), cfg.act)
+    return x, new_state
+
+
+def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions=None,
+                mode="prefill", state=None, cache_len=None, force=None):
+    if kind == "attn":
+        return apply_attn_block(p, x, cfg, positions=positions, mode=mode,
+                                state=state, cache_len=cache_len, force=force)
+    if kind == "rglru":
+        return apply_rglru_block(p, x, cfg, mode=mode, state=state, force=force)
+    raise ValueError(kind)
 
 
 # --------------------------------------------------------------------------
@@ -89,15 +189,17 @@ def def_stack(cfg: ModelConfig):
                                 init=d.init, scale=d.scale, dtype=d.dtype)
 
         return {"scan": tree_map_with_path(add_layer_axis, def_attn_block(cfg))}
-    return {"layers": [def_attn_block(cfg) for _ in range(cfg.n_layers)]}
+    return {"layers": [def_block(cfg, k) for k in cfg.pattern_for_layers()]}
 
 
 def stack_apply(p, x, cfg: ModelConfig, *, positions, mode="prefill",
-                states=None, cache_len=None, attn_force=None):
+                states=None, cache_len=None, force=None):
     """Run all decoder blocks. Returns (x, states).
 
-    Prefill returns fresh caches (a list, or one stacked KVCache for the
-    stacked layout); decode writes ``states`` in place and returns it.
+    Prefill returns fresh states (a list, or one stacked KVCache for the
+    stacked layout); decode writes KV caches in place and returns the
+    states, with each recurrent block's state dict replaced. ``force`` goes
+    to both kernels (``kernels.ops``).
     """
     if _stackable(cfg):
         ks, vs = [], []
@@ -106,7 +208,7 @@ def stack_apply(p, x, cfg: ModelConfig, *, positions, mode="prefill",
             st = KVCache(states.k[i], states.v[i]) if mode == "decode" else None
             x, cache = apply_attn_block(layer_p, x, cfg, positions=positions,
                                         mode=mode, state=st, cache_len=cache_len,
-                                        attn_force=attn_force)
+                                        force=force)
             if mode == "prefill":
                 ks.append(cache.k)
                 vs.append(cache.v)
@@ -115,12 +217,12 @@ def stack_apply(p, x, cfg: ModelConfig, *, positions, mode="prefill",
         return x, states
 
     new_states = []
-    for i, layer_p in enumerate(p["layers"]):
+    for i, kind in enumerate(cfg.pattern_for_layers()):
         st = states[i] if states is not None else None
-        x, cache = apply_attn_block(layer_p, x, cfg, positions=positions,
-                                    mode=mode, state=st, cache_len=cache_len,
-                                    attn_force=attn_force)
-        new_states.append(cache)
+        x, state = apply_block(p["layers"][i], x, cfg, kind, positions=positions,
+                               mode=mode, state=st, cache_len=cache_len,
+                               force=force)
+        new_states.append(state)
     return x, new_states
 
 
@@ -131,5 +233,5 @@ def init_stack_state(cfg: ModelConfig, batch: int, s_max: int,
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, s_max, cfg.hd)
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                        v=torch.zeros(shape, dtype=dtype, device=device))
-    return [init_block_state(cfg, batch, s_max, dtype, device)
-            for _ in range(cfg.n_layers)]
+    return [init_block_state(cfg, kind, batch, s_max, dtype, device)
+            for kind in cfg.pattern_for_layers()]

@@ -67,5 +67,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # Activations
 # --------------------------------------------------------------------------
 
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation.
+    return F.gelu(x, approximate="tanh")
+
+
 def activation(name: str):
-    return {"silu": F.silu}[name]
+    return {"silu": F.silu, "gelu": _gelu}[name]

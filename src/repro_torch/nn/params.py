@@ -94,6 +94,10 @@ def matrix(d_in: int, d_out: int, ax_in: str, ax_out: str, **kw) -> ParamDef:
     return ParamDef((d_in, d_out), (ax_in, ax_out), init="scaled_fan_in", **kw)
 
 
+def bias(d: int, ax: str) -> ParamDef:
+    return ParamDef((d,), (ax,), init="zeros")
+
+
 def norm_scale(d: int, ax: str = "embed") -> ParamDef:
     # Norm scales stay fp32 for numerical robustness.
     return ParamDef((d,), (ax,), init="ones", dtype="float32")

@@ -36,7 +36,8 @@ def _imported_modules(tree):
 def test_port_files_exist():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*")}
     for want in ("kernels/flash_attention.py", "kernels/ops.py", "kernels/ref.py",
-                 "csrc/flash_attention.cu", "launch/serve.py", "convert.py"):
+                 "csrc/flash_attention.cu", "launch/serve.py", "convert.py",
+                 "kernels/rglru.py", "csrc/rglru.cu", "nn/recurrent.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
 

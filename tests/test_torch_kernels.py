@@ -1,7 +1,8 @@
-"""The port's flash-attention (repro_torch.kernels) against the JAX
-package's: the plain PyTorch version against ``kernels/ref.py`` and the
-Pallas kernel in interpret mode, the dispatcher's routing and launch
-counter, and, on a card only, the CUDA kernel against its plain version.
+"""The port's kernels (repro_torch.kernels: flash attention and the RG-LRU
+scan) against the JAX package's: the plain PyTorch versions against
+``kernels/ref.py`` and the Pallas kernels in interpret mode, the
+dispatchers' routing and launch counters, and, on a card only, the CUDA
+kernels against their plain versions.
 
 Inputs are made with numpy from a fixed seed and handed to both packages;
 JAX stays on the CPU.
@@ -14,8 +15,10 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.ops import flash_attention as jax_flash
+from repro.kernels.ops import rglru_scan as jax_rglru_scan
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.rglru import rglru_scan_cuda
 
 # (B, H, KV, S, D, causal, window), as in tests/test_kernels.py
 FLASH_CASES = [
@@ -28,6 +31,10 @@ FLASH_CASES = [
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+# (B, S, W), as in tests/test_kernels.py, and lengths no Pallas block divides
+RGLRU_CASES = [(8, 256, 128), (2, 512, 256), (1, 128, 512), (16, 64, 128)]
+RGLRU_RAGGED = [(3, 100, 200), (1, 37, 96)]
+RGLRU_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
 def _qkv_np(b, h, kv, sq, d, skv=None, seed=0):
@@ -111,8 +118,87 @@ def test_dispatcher_force_kernel_on_cpu_raises():
 
 def test_reset_launch_counts():
     flash_attention_cuda.launches = 5
+    rglru_scan_cuda.launches = 3
     ops.reset_launch_counts()
-    assert ops.launch_counts() == {"flash_attention": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "rglru_scan": 0}
+
+
+def test_plain_head_dim_256_mqa_window_matches_jax_ref():
+    """recurrentgemma's attention: head_dim 256, 10 q heads on 1 kv head, a
+    local window shorter than the sequence, ragged length."""
+    kw = dict(causal=True, window=48)
+    for dtype in DTYPES:
+        (jq, jk, jv), (q, k, v) = _both(_qkv_np(2, 10, 1, 130, 256, seed=2), dtype)
+        _close(ref.flash_attention_ref(q, k, v, **kw),
+               jref.flash_attention_ref(jq, jk, jv, **kw), DTYPES[dtype][2])
+
+
+# --------------------------------------------------------------------------
+# RG-LRU scan
+# --------------------------------------------------------------------------
+
+def _scan_np(b, s, w, seed=0):
+    """a in (0.79, 0.99) as the model's decays are, b ~ 0.1 N(0, 1), h0."""
+    rng = np.random.default_rng(seed)
+    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((b, s, w)))) * 0.2 + 0.79
+    return (a.astype(np.float32),
+            (0.1 * rng.standard_normal((b, s, w))).astype(np.float32),
+            rng.standard_normal((b, w)).astype(np.float32))
+
+
+def _scan_both(b, s, w, dtype, with_h0, seed=0):
+    a, bb, h0 = _scan_np(b, s, w, seed)
+    jdt, tdt, _ = DTYPES[dtype]
+    jax_in = (jnp.asarray(a).astype(jdt), jnp.asarray(bb).astype(jdt),
+              jnp.asarray(h0) if with_h0 else None)
+    port_in = (torch.from_numpy(a).to(tdt), torch.from_numpy(bb).to(tdt),
+               torch.from_numpy(h0) if with_h0 else None)
+    return jax_in, port_in
+
+
+def _scan_close(port, jax_out, dtype):
+    (h, h_last), (jh, jh_last) = port, jax_out
+    assert h.dtype == DTYPES[dtype][1] and h_last.dtype == torch.float32
+    tol = RGLRU_TOL[dtype]
+    _close(h, jh, tol)
+    _close(h_last, jh_last, tol)
+
+
+@pytest.mark.parametrize("b,s,w", RGLRU_CASES + RGLRU_RAGGED)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_plain_rglru_scan_matches_jax_ref(b, s, w, dtype, with_h0):
+    jax_in, port_in = _scan_both(b, s, w, dtype, with_h0)
+    _scan_close(ref.rglru_scan_ref(*port_in), jref.rglru_scan_ref(*jax_in), dtype)
+
+
+@pytest.mark.parametrize("b,s,w", RGLRU_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_plain_rglru_scan_matches_pallas_interpret(b, s, w, dtype, with_h0):
+    jax_in, port_in = _scan_both(b, s, w, dtype, with_h0, seed=1)
+    _scan_close(ref.rglru_scan_ref(*port_in),
+                jax_rglru_scan(*jax_in, force="interpret"), dtype)
+
+
+def test_rglru_dispatcher_cpu_uses_plain_and_counts_nothing():
+    _, (a, b, h0) = _scan_both(2, 20, 16, "float32", True)
+    before = ops.launch_counts()
+    h, h_last = ops.rglru_scan(a, b, h0)
+    assert ops.launch_counts() == before
+    want = ref.rglru_scan_ref(a, b, h0)
+    assert torch.equal(h, want[0]) and torch.equal(h_last, want[1])
+    assert torch.equal(ops.rglru_scan(a, b, h0, force="ref")[0], h)
+
+
+def test_rglru_dispatcher_force_kernel_on_cpu_raises():
+    _, (a, b, _) = _scan_both(2, 20, 16, "float32", False)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.rglru_scan(a, b, force="kernel")
+    with pytest.raises(ValueError, match="force"):
+        ops.rglru_scan(a, b, force="interpret")
+    assert ops.launch_counts() == before
 
 
 @pytest.mark.gpu
@@ -133,3 +219,23 @@ def test_kernel_matches_plain_on_card():
             np.testing.assert_allclose(out.float().cpu().numpy(),
                                        want.float().cpu().numpy(),
                                        atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_rglru_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the RG-LRU kernel is built and run there "
+                    "(python3 chip_smoke.py covers the full case list)")
+    for b, s, w in RGLRU_CASES + RGLRU_RAGGED:
+        for dtype in DTYPES:
+            for with_h0 in (False, True):
+                _, port_in = _scan_both(b, s, w, dtype, with_h0)
+                a, bb, h0 = (None if t is None else t.cuda() for t in port_in)
+                h, h_last = ops.rglru_scan(a, bb, h0, force="kernel")
+                want, want_last = ref.rglru_scan_ref(a, bb, h0)
+                torch.cuda.synchronize()
+                tol = RGLRU_TOL[dtype]
+                for got, exp in ((h, want), (h_last, want_last)):
+                    np.testing.assert_allclose(got.float().cpu().numpy(),
+                                               exp.float().cpu().numpy(),
+                                               atol=tol, rtol=tol)

@@ -79,7 +79,7 @@ def test_unported_arch_raises_naming_roadmap():
 
 @pytest.mark.parametrize("change", [{"n_experts": 4}, {"qk_norm": True},
                                     {"rms_norm": False}, {"act": "gelu"},
-                                    {"block_pattern": ("attn", "rglru")}])
+                                    {"block_pattern": ("attn", "mlstm")}])
 def test_unported_model_features_raise(change):
     _, cfg = _cfgs(**change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
