@@ -1,24 +1,26 @@
-// Flash-attention forward for Hopper (sm_90a), written by hand.
+// Flash-attention forward in fp32 for Hopper (sm_90a), on the CUDA cores.
+// Written by hand.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:_flash_kernel
-// (reached through flash_attention_tpu). Same function: GQA attention over
+// (reached through flash_attention_tpu) for fp32 inputs; bf16 inputs take
+// the tensor-core kernel in flash_attention_sm90.cu. Same function: GQA attention over
 // q (B, H, Sq, D) and k/v (B, KV, Skv, D), with causal, local-window
 // (q_pos - k_pos < window) or bidirectional masks and an absolute q_offset.
 // q is cast to fp32 and scaled, k/v are cast to fp32; scores, running max,
 // normalizer and the P.V accumulator are all fp32; masked scores are -1e30
 // (not -inf: a tile whose entries are all masked must not give inf - inf);
-// the output is acc / max(l, 1e-30) in q's dtype. The kv walk runs over the
+// the output is acc / max(l, 1e-30) in fp32. The kv walk runs over the
 // tiles [lo, hi): hi stops at the causal diagonal, lo starts at
 // q_start - window. Unlike the TPU kernel it takes any Sq and Skv: the
 // ragged tail of the last tile is masked (its probabilities are exactly 0).
 //
-// What bounds it on this card. At the serving prefill shape of smollm-360m
-// (B=8, H=15, KV=5, S=512, D=64, bf16) the function needs about 4 GFLOP and
-// 21 MB, so the card's floor is the memory time (about 6 us at 3.35 TB/s);
-// at S=2048 it is about 64 GFLOP and the tensor-core rate bounds it. This
-// first design does its products on the fp32 CUDA cores out of shared
-// memory, so it is bound by shared-memory traffic and fp32 issue, well
-// above either floor. What the design does about that:
+// What bounds it on this card. The serving paths run bf16; in fp32, at the
+// smollm-360m prefill shape (B=8, H=15, KV=5, S=512, D=64) the function needs
+// about 4 GFLOP and 42 MB, and 4 GFLOP over the 67 TFLOP/s of the fp32 CUDA
+// cores bounds it (about 60 us). Tensor cores cannot hold fp32's 2e-5
+// tolerance (nor can TF32), so the products run on the CUDA cores out of
+// shared memory, bound by shared-memory traffic and fp32 issue. What the
+// design does about that:
 //   * one block owns 64 query rows of one (batch, q head); each K/V tile
 //     is read from device memory once per block and then reused from
 //     shared memory by all of the block's threads;
@@ -36,10 +38,8 @@
 // GQA: the block for q head h reads kv head h / (H / KV); K/V are never
 // duplicated in memory (the group's blocks share them through L2). No
 // atomics: the result is deterministic. The kernel allocates nothing and
-// launches on the caller's stream. wgmma, TMA and a bf16 tensor-core path
-// are later work.
+// launches on the caller's stream.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -58,9 +58,7 @@ struct Tile {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 template <int D>
 constexpr size_t smem_floats() {
@@ -272,19 +270,15 @@ extern "C" int flash_attention_smem_bytes(int D) {
   }
 }
 
-// dtype: 0 = float32, 1 = bfloat16. All tensors contiguous, (B, heads, S, D).
-// Returns cudaGetLastError() after the launch (0 on success).
+// fp32 tensors, contiguous, (B, heads, S, D). Returns cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int B, int H, int KV, int Sq, int Skv,
-                                   int D, int dtype, int causal, int window,
-                                   int q_offset, float scale, void* stream) {
+                                   int D, int causal, int window, int q_offset,
+                                   float scale, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Skv <= 0 ||
       q_offset < 0 || window < 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_d<float>(D, q, k, v, o, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-  if (dtype == 1)
-    return (int)launch_d<__nv_bfloat16>(D, q, k, v, o, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_d<float>(D, q, k, v, o, B, H, KV, Sq, Skv, causal, window,
+                              q_offset, scale, static_cast<cudaStream_t>(stream));
 }

@@ -1,15 +1,21 @@
-"""Hopper flash-attention forward: ``csrc/flash_attention.cu``, bound with
-ctypes.
+"""Hopper flash-attention forward, two routes bound with ctypes:
 
-It replaces the TPU kernel ``repro/kernels/flash_attention.py:_flash_kernel``
-and computes what that kernel does (GQA; causal, local-window or
-bidirectional masks; absolute ``q_offset``; fp32 online softmax), for fp32
-and bf16, head_dim 16, 32, 64, 128 and 256, and any sequence lengths. The source's
-header says what bounds it on the card and what the design does about it.
-Its plain version is ``repro_torch.kernels.ref.flash_attention_ref``.
+- bf16 takes ``csrc/flash_attention_sm90.cu``: wgmma on the tensor cores,
+  TMA loads into swizzled shared memory, a two-stage K/V ring on mbarriers;
+- fp32 takes ``csrc/flash_attention.cu``: products on the fp32 CUDA cores
+  (tensor cores cannot hold fp32's tolerance).
 
-The library is built at the first launch (``_build``). The wrapper checks
-what the kernel takes and raises on anything else; it never falls back.
+Both replace the TPU kernel ``repro/kernels/flash_attention.py:_flash_kernel``
+and compute what that kernel does (GQA; causal, local-window or
+bidirectional masks; absolute ``q_offset``; fp32 online softmax), at head_dim
+16, 32, 64, 128 and 256, and any sequence lengths. Each source's header says
+what bounds it on the card and what its design does about it. Their plain
+version is ``repro_torch.kernels.ref.flash_attention_ref``.
+
+A library is built at its route's first launch (``_build``). The wrapper
+checks what the kernels take (among it a 16-byte-aligned pointer, which TMA
+needs) and raises on anything else; it never falls back to the other route
+or to the plain version.
 """
 
 from __future__ import annotations
@@ -22,22 +28,27 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype -> (source in csrc/, which is also its C entry points' prefix; route name)
+ROUTES = {torch.bfloat16: ("flash_attention_sm90", "cuda-wgmma"),
+          torch.float32: ("flash_attention", "cuda-fp32")}
 
 
 @functools.cache
-def _fwd():
-    """The C entry point, typed; the library is built at the first call."""
-    fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+def _fwd(dtype):
+    """The route's C entry point, typed; its library is built at the first call."""
+    source, _ = ROUTES[dtype]
+    fn = getattr(_build.load(source), f"{source}_fwd")
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def smem_bytes(head_dim: int) -> int:
-    """Dynamic shared memory of one block at ``head_dim``, from the source."""
-    fn = _build.load("flash_attention").flash_attention_smem_bytes
+def smem_bytes(head_dim: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of ``dtype``'s route at
+    ``head_dim``, from the source."""
+    source, _ = ROUTES[dtype]
+    fn = getattr(_build.load(source), f"{source}_smem_bytes")
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return fn(head_dim)
 
@@ -53,9 +64,12 @@ def _check(q, k, v):
             raise ValueError(f"flash_attention_cuda: {name} must be contiguous")
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError("flash_attention_cuda: q, k, v differ in dtype or device")
-    if q.dtype not in _DTYPE_CODES:
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_cuda: {name} starts at a pointer that is "
+                             "not 16-byte aligned (TMA needs it); pass a fresh contiguous copy")
+    if q.dtype not in ROUTES:
         raise ValueError(f"flash_attention_cuda: dtype {q.dtype} not supported "
-                         f"(takes {list(_DTYPE_CODES)})")
+                         f"(takes {list(ROUTES)})")
     b, h, sq, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash_attention_cuda: shapes q {tuple(q.shape)}, "
@@ -70,7 +84,8 @@ def _check(q, k, v):
 
 
 def flash_attention_cuda(q, k, v, *, causal=True, window=0, q_offset=0):
-    """q: (B, H, Sq, D); k/v: (B, KV, Skv, D), CUDA, contiguous, one dtype.
+    """q: (B, H, Sq, D); k/v: (B, KV, Skv, D), CUDA, contiguous, 16-byte
+    aligned, one dtype: bf16 takes the wgmma route, fp32 the CUDA-core one.
     Returns (B, H, Sq, D) in q's dtype, on q's device and current stream."""
     _check(q, k, v)
     if window < 0 or q_offset < 0:
@@ -79,12 +94,12 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, q_offset=0):
     n_kv, skv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = _fwd()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     b, h, n_kv, sq, skv, d, _DTYPE_CODES[q.dtype],
-                     int(bool(causal)), int(window), int(q_offset),
-                     float(d ** -0.5), torch.cuda.current_stream().cuda_stream)
+        err = _fwd(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                            b, h, n_kv, sq, skv, d, int(bool(causal)), int(window),
+                            int(q_offset), float(d ** -0.5),
+                            torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
+        raise RuntimeError(f"{ROUTES[q.dtype][0]}_fwd launch failed: cudaError {err}")
     flash_attention_cuda.launches += 1
     return o
 

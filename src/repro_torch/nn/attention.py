@@ -74,6 +74,54 @@ def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     return o.reshape(b, h, sq, d).to(q.dtype)
 
 
+def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0, chunk=512):
+    """The reference model's attention (``repro/nn/attention.py:
+    flash_attention``, the chunked twin of the Pallas kernel) with its
+    rounding points: q.scale in q's dtype, scores fp32, the unnormalized
+    probabilities rounded to v's dtype for P.V, m, l and the accumulator
+    fp32, the same chunks and kv-chunk bounds (oracle for tests and for
+    ``chip_smoke.py``'s bounds; the model's prefill calls the kernel)."""
+    b, h, sq, d = q.shape
+    n_kv, skv = k.shape[1], k.shape[2]
+
+    def pick(n):  # largest divisor of n that is <= chunk
+        c = min(chunk, n)
+        while n % c:
+            c -= 1
+        return c
+
+    cq, ck = pick(sq), pick(skv)
+    qg = _group_q((q * (d ** -0.5)).to(q.dtype), n_kv)
+    outs = []
+    for i in range(sq // cq):
+        qi = qg[:, :, :, i * cq:(i + 1) * cq].float()
+        q_pos = q_offset + i * cq + torch.arange(cq, device=q.device)
+        hi = skv // ck if not causal else min(skv // ck, (q_offset + (i + 1) * cq + ck - 1) // ck)
+        lo = max(0, (q_offset + i * cq - window) // ck) if window > 0 else 0
+        m = torch.full(qi.shape[:-1], NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        o = torch.zeros(qi.shape, device=q.device)
+        for j in range(lo, hi):
+            kj, vj = k[:, :, j * ck:(j + 1) * ck], v[:, :, j * ck:(j + 1) * ck]
+            k_pos = j * ck + torch.arange(ck, device=q.device)
+            ok = torch.ones((cq, ck), dtype=torch.bool, device=q.device)
+            if causal:
+                ok &= q_pos[:, None] >= k_pos[None, :]
+            if window > 0:
+                ok &= q_pos[:, None] - k_pos[None, :] < window
+            s = torch.einsum("bkgsd,bkcd->bkgsc", qi, kj.float()).masked_fill(~ok, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p_ = torch.exp(s - m_new[..., None])
+            l = l * alpha + p_.sum(-1)
+            pv = torch.einsum("bkgsc,bkcd->bkgsd", p_.to(v.dtype).float(), vj.float())
+            o = o * alpha[..., None] + pv
+            m = m_new
+        o = (o / l.clamp(min=1e-30)[..., None]).to(q.dtype)
+        outs.append(o.reshape(b, h, cq, d))
+    return torch.cat(outs, dim=2)
+
+
 def decode_attention(q, cache: KVCache, cache_len: int, *, window=0):
     """Single-step attention against a KV cache.
 

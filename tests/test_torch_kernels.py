@@ -16,9 +16,11 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.ops import flash_attention as jax_flash
 from repro.kernels.ops import rglru_scan as jax_rglru_scan
+from repro.nn.attention import flash_attention as jax_chunked_twin
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.rglru import rglru_scan_cuda
+from repro_torch.nn import attention
 
 # (B, H, KV, S, D, causal, window), as in tests/test_kernels.py
 FLASH_CASES = [
@@ -95,6 +97,49 @@ def test_plain_matches_pallas_interpret(dtype):
     out = ref.flash_attention_ref(q, k, v, causal=True)
     _close(out, jax_flash(jq, jk, jv, causal=True, force="interpret"),
            DTYPES[dtype][2])
+
+
+# (B, H, KV, Sq, Skv, D, causal, window, q_offset, chunk): several chunks,
+# a window across chunks, a chunk that the length picks (200 -> 50), an
+# offset suffix
+TWIN_CASES = [(2, 4, 2, 256, 256, 64, True, 0, 0, 64),
+              (2, 4, 1, 256, 256, 64, True, 96, 0, 64),
+              (1, 2, 2, 128, 128, 64, False, 0, 0, 64),
+              (1, 15, 5, 200, 200, 16, True, 0, 0, 64),
+              (2, 6, 2, 100, 300, 32, True, 96, 200, 512)]
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal,window,q_offset,chunk", TWIN_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_chunked_attention_matches_jax_chunked_twin(b, h, kv, sq, skv, d, causal, window,
+                                                    q_offset, chunk, dtype):
+    """The port's copy of the reference model's attention (the oracle that
+    ``chip_smoke.py`` holds the bf16 route's rounding to) against
+    ``repro/nn/attention.py:flash_attention`` itself."""
+    (jq, jk, jv), (q, k, v) = _both(_qkv_np(b, h, kv, sq, d, skv), dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, chunk=chunk)
+    _close(attention.chunked_attention(q, k, v, **kw),
+           jax_chunked_twin(jq, jk, jv, **kw), DTYPES[dtype][2])
+
+
+def test_reference_rounding_stays_within_the_bf16_route_bound():
+    """The per-layer bound ``chip_smoke.py`` holds the bf16 kernel to
+    (TOL plus 2^-8 softmax.|V| for its bf16 probabilities) holds for the
+    reference model's own chunked twin, on inputs as large as the default
+    init's (|v| up to about 250, nearly one-hot scores), where TOL alone
+    does not."""
+    import chip_smoke
+
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(8 * rng.standard_normal((1, 4, 300, 64), np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 2, 300, 64), np.float32))
+    v = torch.from_numpy(80 * rng.standard_normal((1, 2, 300, 64), np.float32))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    kw = dict(causal=True, window=128)
+    twin = attention.chunked_attention(q, k, v, chunk=64, **kw)
+    _, n_outside_bound = chip_smoke.attention_within(twin, q, k, v, **kw)
+    assert n_outside_bound == 0
+    assert chip_smoke.outside_tol(twin, ref.flash_attention_ref(q, k, v, **kw)) > 0
 
 
 def test_dispatcher_cpu_uses_plain_and_counts_nothing():
@@ -206,9 +251,19 @@ def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the flash kernel is built and run there "
                     "(python3 chip_smoke.py covers the full case list)")
-    cases = FLASH_CASES + [(2, 4, 2, 200, 16, True, 0), (1, 4, 2, 1000, 128, True, 256)]
-    for b, h, kv, s, d, causal, window in cases:
-        for dtype in DTYPES:
+    both = list(DTYPES)
+    cases = [(c, both) for c in FLASH_CASES + [(2, 4, 2, 200, 16, True, 0),
+                                              (1, 4, 2, 1000, 128, True, 256)]]
+    # bf16 (the wgmma route): the main paths' prefill shapes, a ragged MQA
+    # window case at head_dim 256 and a head_dim 16 case
+    cases += [(c, ["bfloat16"]) for c in [(8, 15, 5, 512, 64, True, 0),
+                                          (8, 15, 5, 2048, 64, True, 0),
+                                          (8, 10, 1, 512, 256, True, 2048),
+                                          (1, 10, 1, 3072, 256, True, 2048),
+                                          (2, 10, 1, 1000, 256, True, 256),
+                                          (1, 4, 2, 300, 16, True, 0)]]
+    for (b, h, kv, s, d, causal, window), dtypes in cases:
+        for dtype in dtypes:
             _, tdt, tol = DTYPES[dtype]
             q, k, v = (torch.from_numpy(a).to("cuda", tdt)
                        for a in _qkv_np(b, h, kv, s, d))
