@@ -13,19 +13,27 @@ Phases; any failure makes the script exit non-zero:
    and spills; a spill, or ptxas's advisory that wgmma instructions are
    serialized, fails the phase, and so does a bf16 flash library whose
    SASS (cuobjdump) holds no HGMMA. Prints each flash route's dynamic
-   shared memory per block at each head dim.
+   shared memory per block at each head dim, and the RG-LRU scan's per
+   dtype.
 3. Kernels against plain: each kernel against its plain PyTorch version on
    the card over a case list (flash: 2e-5 in fp32, 2e-2 in bf16, with bf16
    cases at every head dim whose lengths no tile divides; RG-LRU scan:
-   1e-5 in fp32, 2e-2 in bf16); a misaligned contiguous view must raise
-   ValueError; two flash launches on the same inputs must agree bit for
-   bit at each main-path shape. Then CUDA-event times of the kernel, the
+   1e-5 in fp32, 2e-2 in bf16, and equal bit for bit, with cases at the
+   edges of its ring: one step, fewer steps than a stage, widths off its
+   16-lane tile and off 16-byte rows, exact a = 0 and a = 1, a view that
+   starts off 16 bytes); a misaligned contiguous view must raise
+   ValueError in flash; two launches on the same inputs must agree bit
+   for bit at each main-path shape of both kernels. Then CUDA-event times
+   of the kernel, the
    plain version and, where there is one, the one PyTorch call that
    computes the same function (kernel and library call: device time over
    a replayed CUDA graph, and the eager time of a call, host included),
    beside the card's least time for the work,
    at the shapes the main paths give each kernel (flash: the bf16 wgmma
-   route at its four shapes and the fp32 route at smollm's S512).
+   route at its four shapes and the fp32 route at smollm's S512), with the
+   scan's GB/s, its share of the bound and, as a yardstick of the rate the
+   card reaches for the same bytes, an elementwise ``torch.add`` of a and b
+   into h.
 4. smollm-360m at full width: ``ServeEngine("smollm-360m", tiny=False)``
    (32 layers, stacked layout, seeded random weights) serves 3 ``infer``
    requests and one ``generate`` of 8 prompts of 512 tokens, 32 new tokens
@@ -41,7 +49,8 @@ Phases; any failure makes the script exit non-zero:
    must launch the RG-LRU scan once per rglru layer and the flash kernel
    once per attention layer. Then each layer's kernel against its plain
    version on that layer's own inputs, and the last logits through both
-   kernels against both plain versions.
+   kernels against both plain versions; the scan must equal its plain
+   version bit for bit on every layer.
 6. One JSON line ``{"kernels": [...]}``, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -66,6 +75,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import HEAD_DIMS, ROUTES, smem_bytes  # noqa: E402
+from repro_torch.kernels.rglru import smem_bytes as scan_smem_bytes  # noqa: E402
+from repro_torch.kernels.rglru import uses_tma  # noqa: E402
 from repro_torch.launch.serve import ServeEngine  # noqa: E402
 from repro_torch.models import steps  # noqa: E402
 from repro_torch.nn import attention, blocks, layers, recurrent  # noqa: E402
@@ -117,9 +128,19 @@ FLASH_MAIN = {
     "recurrentgemma B8 S512": (8, 10, 1, 512, 256, True, 2048),
     "recurrentgemma B1 S3072": (1, 10, 1, 3072, 256, True, 2048),
 }
-# (B, S, W): tests/test_kernels.py's cases, ragged ones, and the main paths'
+# (B, S, W): tests/test_kernels.py's cases, ragged ones, the edges of the
+# kernel's ring (16-lane tiles, 64-step stages, TMA only on 16-byte rows),
+# and the main paths'
 RGLRU_CASES = [(8, 256, 128), (2, 512, 256), (1, 128, 512), (16, 64, 128),
-               (3, 100, 200), (1, 37, 96)]
+               (3, 100, 200), (1, 37, 96),
+               (2, 1, 256),    # one step
+               (2, 40, 128),   # fewer steps than one stage
+               (1, 200, 64),   # steps not a multiple of the stage
+               (2, 70, 37),    # odd width: rows off 16 bytes, a ragged lane tile
+               (1, 1, 37),     # both
+               (5, 64, 24),    # the last block of each row half empty
+               (2, 65, 36),    # fp32 rows on 16 bytes, bf16 rows not
+               (1, 700, 40)]   # the ring wraps 2.7 times
 RGLRU_MAIN = {"recurrentgemma B8 S512": (8, 512, 2560),
               "recurrentgemma B1 S3072": (1, 3072, 2560)}
 INFER_PAYLOADS = [{"prompt_len": 128, "gen": 8, "batch": 2},
@@ -270,6 +291,8 @@ def phase_build(failures):
                 failures.append(f"ptxas {name}: {line.strip()}")
     if not names:
         failures.append("no kernel sources found")
+    print("  rglru (cuda) dynamic shared memory per block: " + ", ".join(
+        f"{str(dt).split('.')[-1]}: {scan_smem_bytes(dt)} B" for dt in (torch.float32, torch.bfloat16)))
     wgmma_lib = ROUTES[torch.bfloat16][0]
     sass = subprocess.run([str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass",
                            str(_build.library_path(wgmma_lib))],
@@ -403,9 +426,9 @@ def phase_flash(failures):
 
 
 def phase_rglru(failures):
-    """The RG-LRU scan kernel against its plain version; times at the main
-    path's shapes (no PyTorch call computes a linear recurrence: no library
-    time)."""
+    """The RG-LRU scan kernel against its plain version, within SCAN_TOL and
+    bit for bit; times at the main path's shapes (no PyTorch call computes
+    a linear recurrence: no library time)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = 0.0
 
@@ -417,13 +440,14 @@ def phase_rglru(failures):
         tol = SCAN_TOL[a.dtype]
         err, ok = max_err(h, want, tol)
         err_last, ok_last = max_err(h_last, want_last, tol)
-        ok = ok and ok_last and h.dtype == b.dtype and h_last.dtype == torch.float32
+        equal = torch.equal(h, want) and torch.equal(h_last, want_last)
+        ok = ok and ok_last and equal and h.dtype == b.dtype and h_last.dtype == torch.float32
         err = max(err, err_last)
         worst = max(worst, err)
-        print(f"case rglru {label}: max_abs_err={err:.3e} tol={tol:g} "
-              f"{'ok' if ok else 'FAIL'}")
+        print(f"case rglru {label} [loads: {'tma' if uses_tma(a, b) else 'ld/st'}]: "
+              f"max_abs_err={err:.3e} tol={tol:g} bit-equal={equal} {'ok' if ok else 'FAIL'}")
         if not ok:
-            failures.append(f"rglru_scan {label}: max_abs_err {err:.3e}")
+            failures.append(f"rglru_scan {label}: max_abs_err {err:.3e}, bit-equal {equal}")
         return err
 
     for b, s, w in RGLRU_CASES:
@@ -431,20 +455,44 @@ def phase_rglru(failures):
             for with_h0 in (False, True):
                 check(f"B{b} S{s} W{w} {str(dtype).split('.')[-1]} h0={with_h0}",
                       *scan_inputs(gen, b, s, w, dtype, with_h0))
+    for dtype in (torch.float32, torch.bfloat16):
+        a, bb, h0 = scan_inputs(gen, 2, 300, 96, dtype, True)
+        a[..., 0::3], a[..., 1::3] = 0.0, 1.0
+        check(f"B2 S300 W96 {str(dtype).split('.')[-1]} h0=True, a exactly 0 and 1 on two "
+              "lanes in three", a, bb, h0)
+    # a contiguous view that starts 4 bytes past an aligned pointer
+    a, bb, h0 = scan_inputs(gen, 2, 300, 96, torch.float32, True)
+    shifted = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)[1:].view(a.shape)
+    shifted.copy_(a)
+    check("B2 S300 W96 float32 h0=True, a a view at storage offset 1", shifted, bb, h0)
 
     timings = {}
     for label, (b, s, w) in RGLRU_MAIN.items():
         a, bb, _ = scan_inputs(gen, b, s, w, torch.float32, False)
         err = check(f"main path {label} W{w} float32 h0=False", a, bb, None)
+        first, second = (ops.rglru_scan(a, bb, force="kernel") for _ in range(2))
+        same = all(torch.equal(x, y) for x, y in zip(first, second))
+        print(f"case rglru determinism {label}: two launches "
+              f"{'equal bit for bit' if same else 'DIFFER'}")
+        if not same:
+            failures.append(f"rglru_scan {label}: two launches differ")
+        del first, second
+        out = torch.empty_like(bb)
         row = {"shape": f"B{b} S{s} W{w} fp32, no h0", "route": "cuda", "max_abs_err": err,
                "ms": device_ms(lambda: ops.rglru_scan(a, bb, force="kernel")),
                "eager_ms": time_ms(lambda: ops.rglru_scan(a, bb, force="kernel")),
                "plain_ms": time_ms(lambda: ref.rglru_scan_ref(a, bb), iters=3, warmup=1),
-               "library_ms": None, **scan_bound(b, s, w, torch.float32)}
+               "library_ms": None,
+               "same_bytes_add_ms": device_ms(lambda: torch.add(a, bb, out=out)),
+               **scan_bound(b, s, w, torch.float32)}
+        row["gb_s"] = row["bytes"] / row["ms"] / 1e6
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
         print(f"rglru {label} ({row['shape']}): kernel {row['ms']:.4f} ms (eager "
-              f"{row['eager_ms']:.4f}), plain "
-              f"{row['plain_ms']:.4f} ms, library none, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}: {row['bytes'] / 1e6:.2f} MB)")
+              f"{row['eager_ms']:.4f}), {row['gb_s']:.0f} GB/s, {100 * row['share_of_bound']:.1f}% "
+              f"of the bound; plain {row['plain_ms']:.4f} ms, library none, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {row['bytes'] / 1e6:.2f} MB); "
+              f"torch.add a + b -> h (the same bytes) {row['same_bytes_add_ms']:.4f} ms "
+              f"({3 * a.numel() * 4 / row['same_bytes_add_ms'] / 1e6:.0f} GB/s)")
         timings[label] = row
     print(f"rglru_scan: worst max_abs_err over all cases {worst:.3e}")
     return timings, worst
@@ -573,7 +621,8 @@ def check_per_layer(engine, tokens, failures):
                 (hk, lk), (hr, lr) = (ops.rglru_scan(a, bb, force=f) for f in ("kernel", "ref"))
                 (err, ok), (err_l, ok_l) = (max_err(hk, hr, SCAN_TOL[torch.float32]),
                                             max_err(lk, lr, SCAN_TOL[torch.float32]))
-                err, ok = max(err, err_l), ok and ok_l
+                err = max(err, err_l)
+                ok = ok and ok_l and torch.equal(hk, hr) and torch.equal(lk, lr)
             worst[kind] = max(worst[kind], err)
             if not ok:
                 bad.append((i, kind))
@@ -583,7 +632,8 @@ def check_per_layer(engine, tokens, failures):
     print(f"{label} per layer, kernel vs plain on each layer's own inputs "
           f"({len(cfg.pattern_for_layers())} layers; attention bf16 tol "
           f"{TOL[torch.bfloat16]} + {P_ROUNDING:g} softmax.|V|, scan fp32 tol "
-          f"{SCAN_TOL[torch.float32]}): worst max_abs_err attention {worst['attn']:.3e}, "
+          f"{SCAN_TOL[torch.float32]} and bit for bit): worst max_abs_err attention "
+          f"{worst['attn']:.3e}, "
           f"scan {worst['rglru']:.3e}; layers out of tolerance {bad}")
     if "attn" in cfg.pattern_for_layers():
         print(f"{label} attention elements outside tol {TOL[torch.bfloat16]} alone, against "
@@ -727,14 +777,14 @@ def kernel_entry(name, source, replaces, launches, timings, primary, worst):
     shape's numbers, and every main-path shape under "shapes"."""
     row = timings[primary]
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-    eager = ("eager_ms", "eager_library_ms")
+    extra = ("eager_ms", "eager_library_ms", "same_bytes_add_ms", "gb_s", "share_of_bound")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.values()), "launches_by_path": launches,
             "max_abs_err": row["max_abs_err"], "worst_case_max_abs_err": worst,
             **{k: row[k] for k in keys}, "shape": row["shape"],
             "shapes": {label: {"shape": t["shape"], "route": t["route"],
                                "max_abs_err": t["max_abs_err"],
-                               **{k: t[k] for k in keys + eager if k in t}}
+                               **{k: t[k] for k in keys + extra if k in t}}
                        for label, t in timings.items()}}
 
 

@@ -4,9 +4,17 @@ It replaces the TPU kernel ``repro/kernels/rglru.py:_rglru_kernel`` and
 computes what that kernel does: the linear recurrence h_t = a_t·h_{t-1} +
 b_t over axis 1 of (B, S, W), a and b both fp32 or both bf16, an optional
 fp32 h0, h in b's dtype and h_last in fp32, fp32 inside. It takes any B, S
-and W. The source's header says what bounds it on the card and what the
-design does about it. Its plain version is
-``repro_torch.kernels.ref.rglru_scan_ref``.
+and W.
+
+The scan is bound by bytes. A block owns one batch row and 16 consecutive
+lanes of W and walks all of S; a producer warp keeps a deep ring of time
+tiles of a and b in flight in shared memory (TMA boxes where the row stride
+and the pointers lie on 16 bytes, the producer's own loads elsewhere), and
+each consumer thread walks one lane with h in a register, rounding
+``a·h`` and then ``+ b`` like the plain version: the kernel equals
+``repro_torch.kernels.ref.rglru_scan_ref`` bit for bit, and two launches
+give the same bits. The source's header has the numbers and the designs
+that were not taken.
 
 The library is built at the first launch (``_build``). The wrapper checks
 what the kernel takes and raises on anything else; it never falls back.
@@ -31,6 +39,22 @@ def _fwd():
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def smem_bytes(dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block at ``dtype``, from the source."""
+    fn = _build.load("rglru").rglru_scan_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(_DTYPE_CODES[dtype])
+
+
+def uses_tma(a, b) -> bool:
+    """Whether a launch on ``a``, ``b`` loads its tiles with TMA (else with
+    the producer warp's ordinary loads)."""
+    fn = _build.load("rglru").rglru_scan_uses_tma
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return bool(fn(a.data_ptr(), b.data_ptr(), a.shape[-1], _DTYPE_CODES[a.dtype]))
 
 
 def _check(a, b, h0):

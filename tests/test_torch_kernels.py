@@ -33,9 +33,19 @@ FLASH_CASES = [
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
-# (B, S, W), as in tests/test_kernels.py, and lengths no Pallas block divides
+# (B, S, W), as in tests/test_kernels.py, and lengths no Pallas block divides,
+# among them the edges of the CUDA kernel's ring (16-lane tiles, 64-step
+# stages, TMA only where a row is a multiple of 16 bytes)
 RGLRU_CASES = [(8, 256, 128), (2, 512, 256), (1, 128, 512), (16, 64, 128)]
-RGLRU_RAGGED = [(3, 100, 200), (1, 37, 96)]
+RGLRU_RAGGED = [(3, 100, 200), (1, 37, 96),
+                (2, 1, 256),    # one step
+                (2, 40, 128),   # fewer steps than one stage
+                (1, 200, 64),   # steps not a multiple of the stage
+                (2, 70, 37),    # odd width: rows off 16 bytes, a ragged lane tile
+                (1, 1, 37),     # both
+                (5, 64, 24),    # the last block of each row half empty
+                (2, 65, 36),    # fp32 rows on 16 bytes, bf16 rows not
+                (1, 700, 40)]   # the ring wraps
 RGLRU_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
@@ -191,8 +201,10 @@ def _scan_np(b, s, w, seed=0):
             rng.standard_normal((b, w)).astype(np.float32))
 
 
-def _scan_both(b, s, w, dtype, with_h0, seed=0):
+def _scan_both(b, s, w, dtype, with_h0, seed=0, exact=False):
     a, bb, h0 = _scan_np(b, s, w, seed)
+    if exact:  # decays of exactly 0 and 1 on two lanes in three
+        a[..., 0::3], a[..., 1::3] = 0.0, 1.0
     jdt, tdt, _ = DTYPES[dtype]
     jax_in = (jnp.asarray(a).astype(jdt), jnp.asarray(bb).astype(jdt),
               jnp.asarray(h0) if with_h0 else None)
@@ -214,6 +226,13 @@ def _scan_close(port, jax_out, dtype):
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_plain_rglru_scan_matches_jax_ref(b, s, w, dtype, with_h0):
     jax_in, port_in = _scan_both(b, s, w, dtype, with_h0)
+    _scan_close(ref.rglru_scan_ref(*port_in), jref.rglru_scan_ref(*jax_in), dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_plain_rglru_scan_with_exact_zero_and_one_decays_matches_jax_ref(dtype, with_h0):
+    jax_in, port_in = _scan_both(2, 300, 96, dtype, with_h0, seed=3, exact=True)
     _scan_close(ref.rglru_scan_ref(*port_in), jref.rglru_scan_ref(*jax_in), dtype)
 
 
@@ -281,16 +300,22 @@ def test_rglru_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the RG-LRU kernel is built and run there "
                     "(python3 chip_smoke.py covers the full case list)")
-    for b, s, w in RGLRU_CASES + RGLRU_RAGGED:
+    cases = [(c, False) for c in RGLRU_CASES + RGLRU_RAGGED] + [((2, 300, 96), True)]
+    for (b, s, w), exact in cases:
         for dtype in DTYPES:
             for with_h0 in (False, True):
-                _, port_in = _scan_both(b, s, w, dtype, with_h0)
+                _, port_in = _scan_both(b, s, w, dtype, with_h0, exact=exact)
                 a, bb, h0 = (None if t is None else t.cuda() for t in port_in)
                 h, h_last = ops.rglru_scan(a, bb, h0, force="kernel")
                 want, want_last = ref.rglru_scan_ref(a, bb, h0)
+                again = ops.rglru_scan(a, bb, h0, force="kernel")
                 torch.cuda.synchronize()
                 tol = RGLRU_TOL[dtype]
                 for got, exp in ((h, want), (h_last, want_last)):
                     np.testing.assert_allclose(got.float().cpu().numpy(),
                                                exp.float().cpu().numpy(),
                                                atol=tol, rtol=tol)
+                # the kernel rounds as the plain version does, and no launch
+                # depends on another's timing
+                assert torch.equal(h, want) and torch.equal(h_last, want_last)
+                assert torch.equal(again[0], h) and torch.equal(again[1], h_last)
