@@ -12,9 +12,10 @@ Phases; any failure makes the script exit non-zero:
    once, and prints the build time and ptxas's registers, shared memory
    and spills; a spill, or ptxas's advisory that wgmma instructions are
    serialized, fails the phase, and so does a bf16 flash library whose
-   SASS (cuobjdump) holds no HGMMA. Prints each flash route's dynamic
-   shared memory per block at each head dim, and the RG-LRU scan's per
-   dtype.
+   SASS (cuobjdump) holds no HGMMA or an fp32 flash library whose SASS
+   holds no TF32 tensor-core instruction (HMMA or HGMMA on TF32). Prints
+   each flash route's dynamic shared memory per block at each head dim,
+   and the RG-LRU scan's per dtype.
 3. Kernels against plain: each kernel against its plain PyTorch version on
    the card over a case list (flash: 2e-5 in fp32, 2e-2 in bf16, with bf16
    cases at every head dim whose lengths no tile divides; RG-LRU scan:
@@ -23,17 +24,19 @@ Phases; any failure makes the script exit non-zero:
    16-lane tile and off 16-byte rows, exact a = 0 and a = 1, a view that
    starts off 16 bytes); a misaligned contiguous view must raise
    ValueError in flash; two launches on the same inputs must agree bit
-   for bit at each main-path shape of both kernels. Then CUDA-event times
-   of the kernel, the
+   for bit at each main-path shape of both kernels and at both fp32 flash
+   shapes. Then CUDA-event times of the kernel, the
    plain version and, where there is one, the one PyTorch call that
    computes the same function (kernel and library call: device time over
    a replayed CUDA graph, and the eager time of a call, host included),
    beside the card's least time for the work,
    at the shapes the main paths give each kernel (flash: the bf16 wgmma
-   route at its four shapes and the fp32 route at smollm's S512), with the
-   scan's GB/s, its share of the bound and, as a yardstick of the rate the
-   card reaches for the same bytes, an elementwise ``torch.add`` of a and b
-   into h.
+   route at its four shapes, and the fp32 split-TF32 route at the two
+   shapes the fp32 logits checks of phases 4-5 give it, smollm's B8 S512
+   and recurrentgemma's B8 S512, beside both its split-TF32 bound and the
+   fp32 CUDA-core bound), with the scan's GB/s, its share of the bound
+   and, as a yardstick of the rate the card reaches for the same bytes, an
+   elementwise ``torch.add`` of a and b into h.
 4. smollm-360m at full width: ``ServeEngine("smollm-360m", tiny=False)``
    (32 layers, stacked layout, seeded random weights) serves 3 ``infer``
    requests and one ``generate`` of 8 prompts of 512 tokens, 32 new tokens
@@ -41,7 +44,9 @@ Phases; any failure makes the script exit non-zero:
    prefill must launch the flash kernel once per layer. Then per-layer
    attention (within 2e-2 plus the bound of its bf16 probabilities) and
    prefill's last logits through the kernel are held against the plain
-   versions (``force="ref"``).
+   versions (``force="ref"``), in bf16 and in fp32; the fp32 run (the
+   fp32 route's main path) must launch the flash kernel once per layer,
+   with fp32 inputs, counted from 0 just before it.
 5. recurrentgemma-2b at full width (26 layers: 18 rglru + 8 local
    attention, head_dim 256, MQA; list layout; seeded random weights): the
    same 3 ``infer`` requests, one ``generate`` of 8 × 512 → 32 tokens and
@@ -49,8 +54,9 @@ Phases; any failure makes the script exit non-zero:
    must launch the RG-LRU scan once per rglru layer and the flash kernel
    once per attention layer. Then each layer's kernel against its plain
    version on that layer's own inputs, and the last logits through both
-   kernels against both plain versions; the scan must equal its plain
-   version bit for bit on every layer.
+   kernels against both plain versions, the fp32 run again counted (8
+   flash, 18 scan launches); the scan must equal its plain version bit for
+   bit on every layer.
 6. One JSON line ``{"kernels": [...]}``, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -86,9 +92,12 @@ from repro_torch.utils.trees import tree_flatten_with_paths, tree_map_with_path 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SCAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # The card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s of HBM3 and
-# FLOP/s by operand type (bf16 on tensor cores, fp32 on CUDA cores).
+# FLOP/s by operand type (bf16 and TF32 on tensor cores, fp32 on CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
+# The fp32 flash route does its fp32-accurate work as three TF32 products
+# (lo.hi' + hi.lo' + hi.hi', csrc/flash_attention.cu).
+SPLIT_TF32_PRODUCTS = 3
 # Prefill logits through the kernels vs the plain versions, at full depth:
 # in bf16 each path rounds its fp32 results to bf16 on its own, and the
 # residual stream carries those one-ulp differences through every layer
@@ -128,6 +137,8 @@ FLASH_MAIN = {
     "recurrentgemma B8 S512": (8, 10, 1, 512, 256, True, 2048),
     "recurrentgemma B1 S3072": (1, 10, 1, 3072, 256, True, 2048),
 }
+# The fp32 route's shapes: those the fp32 logits checks give it
+FLASH_FP32 = ("smollm B8 S512", "recurrentgemma B8 S512")
 # (B, S, W): tests/test_kernels.py's cases, ragged ones, the edges of the
 # kernel's ring (16-lane tiles, 64-step stages, TMA only on 16-byte rows),
 # and the main paths'
@@ -240,10 +251,11 @@ def time_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes, flops, dtype):
+def bound(nbytes, flops, kind):
     """Least time on the card: the larger of the bytes over HBM bandwidth
-    and the operations over the peak rate for their type."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    and the operations over the peak rate for their type (``kind``, a key
+    of PEAK_FLOPS)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[kind]
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "flops": flops, "bytes": nbytes}
@@ -251,7 +263,9 @@ def bound(nbytes, flops, dtype):
 
 def attention_bound(b, h, kv, sq, d, causal, window, dtype, skv=None, q_offset=0):
     """q, k, v read once, o written once; 2 products of 2 FLOP per unmasked
-    (query, key) pair and head dim."""
+    (query, key) pair and head dim. bf16 runs them on the tensor cores; the
+    fp32 route runs each as SPLIT_TF32_PRODUCTS TF32 products, and its row
+    also gives the bound of the same work on the fp32 CUDA cores."""
     skv = sq if skv is None else skv
     qpos = q_offset + np.arange(sq)
     hi = np.minimum(qpos + 1, skv) if causal else np.full(sq, skv)
@@ -259,14 +273,20 @@ def attention_bound(b, h, kv, sq, d, causal, window, dtype, skv=None, q_offset=0
     pairs = int(np.clip(hi - lo, 0, None).sum())
     itemsize = torch.tensor([], dtype=dtype).element_size()
     nbytes = (2 * b * h * sq * d + 2 * b * kv * skv * d) * itemsize
-    return bound(nbytes, 4 * d * pairs * b * h, dtype)
+    flops = 4 * d * pairs * b * h
+    if dtype == torch.bfloat16:
+        return bound(nbytes, flops, "bf16")
+    cuda_cores = bound(nbytes, flops, "fp32")
+    return {**bound(nbytes, SPLIT_TF32_PRODUCTS * flops, "tf32"),
+            "cuda_core_bound_ms": cuda_cores["bound_ms"],
+            "cuda_core_bound_by": cuda_cores["bound_by"]}
 
 
 def scan_bound(b, s, w, dtype):
     """a, b read once, h written once, h_last (fp32) written once; one FMA
     (2 FLOP, fp32) per element."""
     itemsize = torch.tensor([], dtype=dtype).element_size()
-    return bound(3 * b * s * w * itemsize + 4 * b * w, 2 * b * s * w, torch.float32)
+    return bound(3 * b * s * w * itemsize + 4 * b * w, 2 * b * s * w, "fp32")
 
 
 def window_mask(s, window, device):
@@ -293,14 +313,18 @@ def phase_build(failures):
         failures.append("no kernel sources found")
     print("  rglru (cuda) dynamic shared memory per block: " + ", ".join(
         f"{str(dt).split('.')[-1]}: {scan_smem_bytes(dt)} B" for dt in (torch.float32, torch.bfloat16)))
-    wgmma_lib = ROUTES[torch.bfloat16][0]
-    sass = subprocess.run([str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass",
-                           str(_build.library_path(wgmma_lib))],
-                          capture_output=True, text=True, check=True, timeout=120).stdout
-    n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
-    print(f"  {wgmma_lib} SASS: {n_hgmma} HGMMA instructions (cuobjdump -sass)")
-    if not n_hgmma:
-        failures.append(f"{wgmma_lib}: no HGMMA in its SASS")
+    for dtype, want in ((torch.bfloat16, ("HGMMA",)), (torch.float32, ("TF32",))):
+        lib = ROUTES[dtype][0]
+        sass = subprocess.run([str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass",
+                               str(_build.library_path(lib))],
+                              capture_output=True, text=True, check=True, timeout=120).stdout
+        # tensor-core instructions, and among them those on the route's operands
+        mma = [line for line in sass.splitlines() if "HGMMA" in line or "HMMA" in line]
+        n = sum(all(w in line for w in want) for line in mma)
+        print(f"  {lib} SASS: {len(mma)} tensor-core instructions (HMMA/HGMMA), {n} of them "
+              f"{'/'.join(want)} (cuobjdump -sass)")
+        if not n:
+            failures.append(f"{lib}: no {'/'.join(want)} tensor-core instruction in its SASS")
     for dtype, (source, route) in ROUTES.items():
         print(f"  {source} ({route}, {str(dtype).split('.')[-1]}) dynamic shared memory per "
               "block: " + ", ".join(f"D={d}: {smem_bytes(d, dtype)} B" for d in HEAD_DIMS))
@@ -316,27 +340,31 @@ def flash_row(q, k, v, kw, err, library, route, shape):
            "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), iters=5),
            "library_ms": device_ms(library), "eager_library_ms": time_ms(library),
            **attention_bound(b, h, k.shape[1], sq, d, kw["causal"], kw["window"], q.dtype)}
+    ops_kind = "split-TF32 " if "cuda_core_bound_ms" in row else ""
+    cuda_cores = (f", fp32 CUDA-core bound {row['cuda_core_bound_ms']:.4f} ms "
+                  f"({row['cuda_core_bound_by']}), kernel/that bound "
+                  f"{row['ms'] / row['cuda_core_bound_ms']:.2f}" if ops_kind else "")
     print(f"flash {shape} [{route}]: kernel {row['ms']:.4f} ms (eager {row['eager_ms']:.4f}), "
           f"plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms (eager "
-          f"{row['eager_library_ms']:.4f}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
-          f"{row['flops'] / 1e9:.2f} GFLOP, {row['bytes'] / 1e6:.2f} MB); kernel/sdpa "
-          f"{row['ms'] / row['library_ms']:.2f} "
+          f"{row['eager_library_ms']:.4f}), {ops_kind}bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}: {row['flops'] / 1e9:.2f} {ops_kind}GFLOP, "
+          f"{row['bytes'] / 1e6:.2f} MB), kernel/bound {row['ms'] / row['bound_ms']:.2f}"
+          f"{cuda_cores}; kernel/sdpa {row['ms'] / row['library_ms']:.2f} "
           f"(eager {row['eager_ms'] / row['eager_library_ms']:.2f})")
     return row
 
 
 def phase_flash(failures):
     """The flash kernel against its plain version; times at the main paths'
-    shapes."""
+    shapes. Returns ({dtype: {label: timed row}}, {dtype: worst error})."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst = 0.0
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
 
     def check(label, q, k, v, want, **kw):
-        nonlocal worst
         out = ops.flash_attention(q, k, v, force="kernel", **kw)
         torch.cuda.synchronize()
         err, ok = max_err(out, want)
-        worst = max(worst, err)
+        worst[q.dtype] = max(worst[q.dtype], err)
         print(f"case flash {label}: max_abs_err={err:.3e} tol={TOL[q.dtype]:g} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -386,42 +414,42 @@ def phase_flash(failures):
     if not ok:
         failures.append("flash_attention: a misaligned view did not raise ValueError")
 
-    timings = {}
-    for label, (b, h, kv, s, d, causal, window) in FLASH_MAIN.items():
-        q, k, v = qkv(gen, b, h, kv, s, d, torch.bfloat16)
-        kw = dict(causal=causal, window=window)
-        want = ref.flash_attention_ref(q, k, v, **kw)
-        err = check(f"main path {label} H{h} KV{kv} D{d} window={window} bfloat16",
-                    q, k, v, want, **kw)
-        del want
-        first, second = (ops.flash_attention(q, k, v, force="kernel", **kw) for _ in range(2))
-        same = torch.equal(first, second)
-        print(f"case flash determinism {label}: two launches "
-              f"{'equal bit for bit' if same else 'DIFFER'}")
-        if not same:
-            failures.append(f"flash_attention {label}: two launches differ")
-        del first, second
-        if window and window < s:
-            mask = window_mask(s, window, q.device)
-            library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, attn_mask=mask, enable_gqa=True)
-        else:
-            library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, is_causal=True, enable_gqa=True)
-        timings[label] = flash_row(q, k, v, kw, err, library, ROUTES[torch.bfloat16][1],
-                                   f"B{b} H{h} KV{kv} S{s} D{d} bf16 causal window={window}")
-    # the fp32 route at smollm's S512 shape (no main path runs it)
-    b, h, kv, s, d, causal, window = FLASH_MAIN["smollm B8 S512"]
-    q, k, v = qkv(gen, b, h, kv, s, d, torch.float32)
-    kw = dict(causal=causal, window=window)
-    err = check(f"fp32 route smollm B8 S512 H{h} KV{kv} D{d} float32", q, k, v,
-                ref.flash_attention_ref(q, k, v, **kw), **kw)
-    timings["smollm B8 S512 fp32"] = flash_row(
-        q, k, v, kw, err,
-        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                                 enable_gqa=True),
-        ROUTES[torch.float32][1], f"B{b} H{h} KV{kv} S{s} D{d} fp32 causal window={window}")
-    print(f"flash_attention: worst max_abs_err over all cases {worst:.3e}")
+    # Each route at the shapes its main path gives it: bf16 at the serving
+    # paths' four, fp32 at the two of the fp32 logits checks (SDPA in fp32
+    # with TF32 off, as main() sets it).
+    timings = {torch.bfloat16: {}, torch.float32: {}}
+    for dtype, labels in ((torch.bfloat16, FLASH_MAIN), (torch.float32, FLASH_FP32)):
+        dt = str(dtype).split(".")[-1]
+        for label in labels:
+            b, h, kv, s, d, causal, window = FLASH_MAIN[label]
+            q, k, v = qkv(gen, b, h, kv, s, d, dtype)
+            kw = dict(causal=causal, window=window)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            err = check(f"main path {label} H{h} KV{kv} D{d} window={window} {dt}",
+                        q, k, v, want, **kw)
+            del want
+            first, second = (ops.flash_attention(q, k, v, force="kernel", **kw)
+                             for _ in range(2))
+            same = torch.equal(first, second)
+            print(f"case flash determinism {label} {dt}: two launches "
+                  f"{'equal bit for bit' if same else 'DIFFER'}")
+            if not same:
+                failures.append(f"flash_attention {label} {dt}: two launches differ")
+            del first, second
+            if window and window < s:
+                mask = window_mask(s, window, q.device)
+                library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+            else:
+                library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, is_causal=True, enable_gqa=True)
+            timings[dtype][label] = flash_row(
+                q, k, v, kw, err, library, ROUTES[dtype][1],
+                f"B{b} H{h} KV{kv} S{s} D{d} {'bf16' if dt == 'bfloat16' else 'fp32'} causal "
+                f"window={window}")
+    for dtype, err in worst.items():
+        print(f"flash_attention {str(dtype).split('.')[-1]}: worst max_abs_err over all cases "
+              f"{err:.3e} (tol {TOL[dtype]:g})")
     return timings, worst
 
 
@@ -562,8 +590,9 @@ def phase_smollm(failures):
                     {"flash_attention": engine.cfg.n_layers * n_prefills,
                      "rglru_scan": 0}, failures)
     metrics.update(check_per_layer(engine, prompts[0], failures))
-    metrics.update(check_logits(engine.cfg, engine.params, prompts[0], failures))
-    return launches, metrics
+    logits, fp32_launches = check_logits(engine.cfg, engine.params, prompts[0], failures)
+    metrics.update(logits)
+    return launches, fp32_launches, metrics
 
 
 def phase_recurrentgemma(failures):
@@ -577,8 +606,9 @@ def phase_recurrentgemma(failures):
                      "rglru_scan": kinds.count("rglru") * n_prefills}, failures)
     for tokens in prompts:
         metrics.update(check_per_layer(engine, tokens, failures))
-    metrics.update(check_logits(engine.cfg, engine.params, prompts[0], failures))
-    return launches, metrics
+    logits, fp32_launches = check_logits(engine.cfg, engine.params, prompts[0], failures)
+    metrics.update(logits)
+    return launches, fp32_launches, metrics
 
 
 def check_per_layer(engine, tokens, failures):
@@ -718,9 +748,20 @@ def check_logits(cfg, params, tokens, failures):
     attention functions rounds it: ``naive_attention`` and the chunked twin
     the model runs), since a kernel cannot be held closer to one correct
     rounding than another correct rounding is. Reported only: the default
-    init, and, where the model runs both kernels, one kernel at a time."""
+    init, and, where the model runs both kernels, one kernel at a time.
+
+    The fp32 run is the fp32 flash route's main path: its launches are
+    counted from 0 just before it and read just after, and must be one
+    flash launch per attention layer (one scan launch per rglru layer), all
+    on fp32 inputs. Returns (metrics, those launches)."""
     fan_in = true_fan_in(params, cfg)
     scan_plain = {"rglru_scan": plain("rglru_scan")}
+    flash_dtypes, flash_attention = [], ops.flash_attention
+
+    def flash_recording(q, k, v, **kw):  # the kernel path, recording q's dtype
+        flash_dtypes.append(q.dtype)
+        return flash_attention(q, k, v, **kw)
+
     spread_runs = {
         "true fan-in, bf16, plain with the reference model's attention rounding":
             {"flash_attention": reference_rounding, **scan_plain},
@@ -732,16 +773,28 @@ def check_logits(cfg, params, tokens, failures):
             ("true fan-in, bf16", cfg, fan_in, "spread", {}),
             ("true fan-in, fp32", cfg.replace(dtype="float32"),
              tree_map_with_path(lambda _, t: t.float(), fan_in),
-             LOGITS_TOL[torch.float32], {})]
+             LOGITS_TOL[torch.float32], {"flash_attention": flash_recording})]
     if "rglru" in cfg.pattern_for_layers():
         runs += [("true fan-in, bf16, flash kernel only", cfg, fan_in, None,
                   {"rglru_scan": plain("rglru_scan")}),
                  ("true fan-in, bf16, scan kernel only", cfg, fan_in, None,
                   {"flash_attention": plain("flash_attention")})]
-    out = {}
+    out, fp32_launches = {}, {}
     for label, run_cfg, run_params, tol, fns in runs:
+        fp32 = run_cfg.dtype == "float32"
+        if fp32:
+            ops.reset_launch_counts()
         with swapped(fns):
             last = last_logits(run_cfg, run_params, tokens, None)
+        if fp32:
+            fp32_launches = ops.launch_counts()
+            kinds = cfg.pattern_for_layers()
+            expect_launches(f"{cfg.name} fp32 prefill (the fp32 flash route's main path)",
+                            fp32_launches, {"flash_attention": kinds.count("attn"),
+                                            "rglru_scan": kinds.count("rglru")}, failures)
+            if set(flash_dtypes) != {torch.float32}:
+                failures.append(f"{cfg.name} fp32 prefill: flash inputs of dtypes "
+                                f"{sorted(map(str, set(flash_dtypes)))}, want float32 only")
         want = last_logits(run_cfg, run_params, tokens, "ref")
         torch.cuda.synchronize()
         err = (last - want).abs().max().item()
@@ -769,7 +822,7 @@ def check_logits(cfg, params, tokens, failures):
             failures.append(f"{cfg.name} prefill logits ({label}): err {err:.3e} "
                             f"(tol {tol}), argmax differs on "
                             f"{int((~same & decided).sum())} decided rows")
-    return out
+    return out, fp32_launches
 
 
 def kernel_entry(name, source, replaces, launches, timings, primary, worst):
@@ -777,7 +830,8 @@ def kernel_entry(name, source, replaces, launches, timings, primary, worst):
     shape's numbers, and every main-path shape under "shapes"."""
     row = timings[primary]
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-    extra = ("eager_ms", "eager_library_ms", "same_bytes_add_ms", "gb_s", "share_of_bound")
+    extra = ("eager_ms", "eager_library_ms", "same_bytes_add_ms", "gb_s", "share_of_bound",
+             "cuda_core_bound_ms", "cuda_core_bound_by")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.values()), "launches_by_path": launches,
             "max_abs_err": row["max_abs_err"], "worst_case_max_abs_err": worst,
@@ -805,16 +859,22 @@ def main() -> int:
     phase_build(failures)
     flash_t, flash_worst = phase_flash(failures)
     scan_t, scan_worst = phase_rglru(failures)
-    sm_launches, sm_metrics = phase_smollm(failures)
+    sm_launches, sm_fp32_launches, sm_metrics = phase_smollm(failures)
     torch.cuda.empty_cache()
-    rg_launches, rg_metrics = phase_recurrentgemma(failures)
+    rg_launches, rg_fp32_launches, rg_metrics = phase_recurrentgemma(failures)
 
     kernels = [
         kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention_sm90.cu",
                      "src/repro/kernels/flash_attention.py:36",
                      {"smollm-360m": sm_launches["flash_attention"],
                       "recurrentgemma-2b": rg_launches["flash_attention"]},
-                     flash_t, "smollm B8 S512", flash_worst),
+                     flash_t[torch.bfloat16], "smollm B8 S512", flash_worst[torch.bfloat16]),
+        # the fp32 route, launched by the fp32 prefills of check_logits
+        kernel_entry("flash_attention_fp32", "src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:36",
+                     {"smollm-360m fp32 prefill": sm_fp32_launches["flash_attention"],
+                      "recurrentgemma-2b fp32 prefill": rg_fp32_launches["flash_attention"]},
+                     flash_t[torch.float32], "smollm B8 S512", flash_worst[torch.float32]),
         kernel_entry("rglru_scan", "src/repro_torch/csrc/rglru.cu",
                      "src/repro/kernels/rglru.py:31",
                      {"recurrentgemma-2b": rg_launches["rglru_scan"]},

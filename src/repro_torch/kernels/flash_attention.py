@@ -2,8 +2,10 @@
 
 - bf16 takes ``csrc/flash_attention_sm90.cu``: wgmma on the tensor cores,
   TMA loads into swizzled shared memory, a two-stage K/V ring on mbarriers;
-- fp32 takes ``csrc/flash_attention.cu``: products on the fp32 CUDA cores
-  (tensor cores cannot hold fp32's tolerance).
+- fp32 takes ``csrc/flash_attention.cu``: mma.sync on the tensor cores, each
+  fp32 product as three TF32 products of split operands (hi = tf32(x),
+  lo = x - hi), which hold fp32's tolerance where one TF32 product does
+  not; a two-stage cp.async ring of K/V tiles.
 
 Both replace the TPU kernel ``repro/kernels/flash_attention.py:_flash_kernel``
 and compute what that kernel does (GQA; causal, local-window or
@@ -85,7 +87,7 @@ def _check(q, k, v):
 
 def flash_attention_cuda(q, k, v, *, causal=True, window=0, q_offset=0):
     """q: (B, H, Sq, D); k/v: (B, KV, Skv, D), CUDA, contiguous, 16-byte
-    aligned, one dtype: bf16 takes the wgmma route, fp32 the CUDA-core one.
+    aligned, one dtype: bf16 takes the wgmma route, fp32 the split-TF32 one.
     Returns (B, H, Sq, D) in q's dtype, on q's device and current stream."""
     _check(q, k, v)
     if window < 0 or q_offset < 0:

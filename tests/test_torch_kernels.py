@@ -178,6 +178,84 @@ def test_reset_launch_counts():
     assert ops.launch_counts() == {"flash_attention": 0, "rglru_scan": 0}
 
 
+# --------------------------------------------------------------------------
+# The fp32 route's arithmetic: split-TF32 products (csrc/flash_attention.cu)
+# --------------------------------------------------------------------------
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32`` on the int32 bits of fp32 ``x``: keep 10 mantissa
+    bits, rounding the magnitude to nearest with ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(eq, x, y, products):
+    """x.y in fp32 from TF32 operands: with 3 products each operand is split
+    into hi = tf32(x) and lo = tf32(x - hi), summed lo.hi' + hi.lo' + hi.hi'
+    (small terms first) as the kernel's mma triple does; with 1, hi.hi'."""
+    x_hi, y_hi = _tf32(x), _tf32(y)
+    if products == 1:
+        return torch.einsum(eq, x_hi, y_hi)
+    x_lo, y_lo = _tf32(x - x_hi), _tf32(y - y_hi)
+    return (torch.einsum(eq, x_lo, y_hi) + torch.einsum(eq, x_hi, y_lo)
+            + torch.einsum(eq, x_hi, y_hi))
+
+
+def _tf32_attention(q, k, v, *, causal, window, q_offset=0, products=3):
+    """A model of the fp32 route's arithmetic (not of its tile schedule):
+    q scaled in fp32 and then split, both products from TF32 operands, the
+    fp32 probabilities split for P.V, the output acc / max(l, 1e-30)."""
+    b, h, sq, d = q.shape
+    n_kv, skv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, n_kv, h // n_kv, sq, d).float() * (d ** -0.5)
+    s = _tf32_product("bkgsd,bkcd->bkgsc", qg, k.float(), products)
+    q_pos = q_offset + torch.arange(sq)
+    k_pos = torch.arange(skv)
+    if causal:
+        s = s.masked_fill(q_pos[:, None] < k_pos[None, :], ref.NEG_INF)
+    if window > 0:
+        s = s.masked_fill(q_pos[:, None] - k_pos[None, :] >= window, ref.NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    acc = _tf32_product("bkgsc,bkcd->bkgsd", p, v.float(), products)
+    o = acc / p.sum(-1, keepdim=True).clamp(min=1e-30)
+    return o.reshape(b, h, sq, d)
+
+
+# FLASH_CASES plus head_dim 16 and recurrentgemma's head_dim 256 with MQA and
+# a window, at lengths no tile divides
+SPLIT_TF32_CASES = FLASH_CASES + [(2, 4, 2, 200, 16, True, 0),
+                                  (1, 10, 1, 300, 256, True, 96)]
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window", SPLIT_TF32_CASES)
+def test_split_tf32_products_hold_fp32_tolerance(b, h, kv, s, d, causal, window):
+    """Three TF32 products per fp32 product meet fp32's 2e-5 against the JAX
+    reference: why the fp32 route may run on the tensor cores."""
+    arrays = _qkv_np(b, h, kv, s, d, seed=4)
+    (jq, jk, jv), (q, k, v) = _both(arrays, "float32")
+    _close(_tf32_attention(q, k, v, causal=causal, window=window),
+           jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window), 2e-5)
+
+
+def test_one_tf32_product_misses_fp32_tolerance():
+    """One TF32 product (hi.hi' alone) misses 2e-5 by far: why the fp32 route
+    splits its operands."""
+    (jq, jk, jv), (q, k, v) = _both(_qkv_np(1, 15, 5, 256, 64, seed=4), "float32")
+    want = jref.flash_attention_ref(jq, jk, jv, causal=True)
+    one = _tf32_attention(q, k, v, causal=True, window=0, products=1)
+    with pytest.raises(AssertionError):
+        _close(one, want, 2e-5)
+    assert np.abs(one.numpy() - np.asarray(want)).max() > 10 * 2e-5
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    """The emulation's rounding: 10 mantissa bits kept, ties away from zero."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2.0 ** -23,
+                      1 + 3 * ulp / 2, 3.0], dtype=torch.float32)
+    assert _tf32(x).tolist() == [1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0]
+
+
 def test_plain_head_dim_256_mqa_window_matches_jax_ref():
     """recurrentgemma's attention: head_dim 256, 10 q heads on 1 kv head, a
     local window shorter than the sequence, ragged length."""
