@@ -57,7 +57,30 @@ Phases; any failure makes the script exit non-zero:
    kernels against both plain versions, the fp32 run again counted (8
    flash, 18 scan launches); the scan must equal its plain version bit for
    bit on every layer.
-6. One JSON line ``{"kernels": [...]}``, then, as the last line,
+6. The flash backward (run right after phase 3): the kernel against its
+   plain version over a case list (fp32 and bf16, head_dim 16 to 128, GQA,
+   MQA and MHA, causal, window and bidirectional, ragged lengths, Sq !=
+   Skv with an offset), each gradient within 2e-5 (fp32) or 2e-2 (bf16) of
+   the largest magnitude of that gradient, given the forward kernel's o
+   and lse; the forward's lse within 1e-5 of the plain logsumexp; two
+   launches bit-equal; head_dim 256 raises. Times at the train path's
+   shapes (B8 H15 KV5 S512 and S2048, D64, bf16, causal) beside SDPA's
+   backward (fwd+bwd minus fwd, both over replayed graphs). Then, with
+   grad on, a flash output's grad_fn must be FlashAttentionFn and the
+   scan kernel, which has no backward, must raise.
+7. smollm-360m training at full width (after both serving phases):
+   deterministic algorithms on, 32 layers, remat full, true-fan-in
+   attention projections, B8 x S512. The first step's loss and grad norm
+   within 2e-2 of the same step on the plain versions; 3 steps with the
+   launch counts set to 0 just before and read just after (64 forward and
+   32 backward flash launches a step); the same 3 steps again must end on
+   bit-equal state; one profiled step gives the device's busy share. Then
+   the platform's learner, ``TorchLearner``, on the card at the tiny
+   config: a job of 60 steps killed at step 30 and resumed from its
+   checkpoint must end on the uninterrupted job's state bit for bit (the
+   learner's context and object store are in memory here: the platform
+   itself lives in the JAX package).
+8. One JSON line ``{"kernels": [...]}``, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package. With no CUDA, or outside
@@ -67,11 +90,13 @@ a checkout of the repository, it fails before printing any result.
 import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -79,14 +104,32 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
+
+from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.executor import TorchLearner  # noqa: E402
+from repro_torch.data.objectstore import MountedBucket  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import HEAD_DIMS, ROUTES, smem_bytes  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    BWD_HEAD_DIMS,
+    HEAD_DIMS,
+    ROUTES,
+    bwd_smem_bytes,
+    flash_attention_bwd_cuda,
+    flash_attention_cuda,
+    smem_bytes,
+)
 from repro_torch.kernels.rglru import smem_bytes as scan_smem_bytes  # noqa: E402
 from repro_torch.kernels.rglru import uses_tma  # noqa: E402
 from repro_torch.launch.serve import ServeEngine  # noqa: E402
+from repro_torch.launch.train import deterministic  # noqa: E402
 from repro_torch.models import steps  # noqa: E402
 from repro_torch.nn import attention, blocks, layers, recurrent  # noqa: E402
 from repro_torch.nn.policy import interior_einsum  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.utils.trees import tree_flatten_with_paths, tree_map_with_path  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -156,6 +199,37 @@ RGLRU_MAIN = {"recurrentgemma B8 S512": (8, 512, 2560),
               "recurrentgemma B1 S3072": (1, 3072, 2560)}
 INFER_PAYLOADS = [{"prompt_len": 128, "gen": 8, "batch": 2},
                   {"prompt_len": 64, "gen": 4}, {}]
+# The attention backward against its plain version: each gradient within
+# BWD_TOL of the largest magnitude of that gradient (fp32: fp32 sums in
+# another order; bf16: the gradients are rounded to bf16), the forward's
+# logsumexp within LSE_TOL (absolute and relative). Cases (B, H, KV, Sq,
+# Skv, D, causal, window, q_offset): every head dim the backward takes,
+# GQA, MQA and MHA, causal, window and bidirectional, lengths no 64-tile
+# divides, Sq != Skv with an offset, a suffix q.
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+LSE_TOL = 1e-5
+BWD_CASES = [
+    (2, 4, 2, 256, 256, 16, True, 0, 0),
+    (2, 4, 2, 256, 256, 32, True, 0, 0),
+    (2, 4, 2, 256, 256, 64, True, 0, 0),
+    (1, 8, 2, 256, 256, 128, True, 0, 0),
+    (2, 4, 1, 256, 256, 64, True, 64, 0),
+    (1, 2, 2, 128, 128, 64, False, 0, 0),
+    (1, 15, 5, 1000, 1000, 64, True, 0, 0),
+    (1, 4, 1, 1000, 1000, 128, True, 256, 0),
+    (1, 4, 2, 300, 300, 16, False, 0, 0),
+    (2, 6, 2, 100, 300, 32, True, 96, 200),
+    (1, 4, 4, 64, 256, 128, True, 0, 192),
+]
+# The train path's attention backward shapes (smollm, bf16, causal)
+BWD_MAIN = {"smollm train B8 S512": (8, 15, 5, 512, 64),
+            "smollm B8 S2048": (8, 15, 5, 2048, 64)}
+# Full-width training: B x S tokens a step, the steps of each run, and the
+# first step's loss and grad norm through the kernels against the plain
+# versions: the bf16 tolerance (the forward kernel rounds P to bf16 for
+# P.V, the plain version keeps it fp32; bf16 gradients carry that).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 3
+TRAIN_TOL = 2e-2
 
 
 def card_line() -> str:
@@ -261,16 +335,21 @@ def bound(nbytes, flops, kind):
             "flops": flops, "bytes": nbytes}
 
 
+def unmasked_pairs(sq, skv, causal, window, q_offset=0) -> int:
+    """(query, key) pairs that the masks keep, per (batch, head)."""
+    qpos = q_offset + np.arange(sq)
+    hi = np.minimum(qpos + 1, skv) if causal else np.full(sq, skv)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else np.zeros(sq, int)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
 def attention_bound(b, h, kv, sq, d, causal, window, dtype, skv=None, q_offset=0):
     """q, k, v read once, o written once; 2 products of 2 FLOP per unmasked
     (query, key) pair and head dim. bf16 runs them on the tensor cores; the
     fp32 route runs each as SPLIT_TF32_PRODUCTS TF32 products, and its row
     also gives the bound of the same work on the fp32 CUDA cores."""
     skv = sq if skv is None else skv
-    qpos = q_offset + np.arange(sq)
-    hi = np.minimum(qpos + 1, skv) if causal else np.full(sq, skv)
-    lo = np.maximum(qpos - window + 1, 0) if window > 0 else np.zeros(sq, int)
-    pairs = int(np.clip(hi - lo, 0, None).sum())
+    pairs = unmasked_pairs(sq, skv, causal, window, q_offset)
     itemsize = torch.tensor([], dtype=dtype).element_size()
     nbytes = (2 * b * h * sq * d + 2 * b * kv * skv * d) * itemsize
     flops = 4 * d * pairs * b * h
@@ -280,6 +359,18 @@ def attention_bound(b, h, kv, sq, d, causal, window, dtype, skv=None, q_offset=0
     return {**bound(nbytes, SPLIT_TF32_PRODUCTS * flops, "tf32"),
             "cuda_core_bound_ms": cuda_cores["bound_ms"],
             "cuda_core_bound_by": cuda_cores["bound_by"]}
+
+
+def attention_bwd_bound(b, h, kv, sq, d, causal, window, dtype, skv=None, q_offset=0):
+    """The backward: q, o, do and dq (B, H, Sq, D), k, v, dk and dv (B, KV,
+    Skv, D) once each and the fp32 lse; 5 products (S, dP, dV, dQ, dK) of
+    2·D FLOP per unmasked (query, key) pair and head, on the tensor cores'
+    peak for bf16 inputs, the fp32 CUDA cores' for fp32 ones."""
+    skv = sq if skv is None else skv
+    pairs = unmasked_pairs(sq, skv, causal, window, q_offset)
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (4 * b * h * sq * d + 4 * b * kv * skv * d) * itemsize + 4 * b * h * sq
+    return bound(nbytes, 10 * d * pairs * b * h, "bf16" if dtype == torch.bfloat16 else "fp32")
 
 
 def scan_bound(b, s, w, dtype):
@@ -328,6 +419,8 @@ def phase_build(failures):
     for dtype, (source, route) in ROUTES.items():
         print(f"  {source} ({route}, {str(dtype).split('.')[-1]}) dynamic shared memory per "
               "block: " + ", ".join(f"D={d}: {smem_bytes(d, dtype)} B" for d in HEAD_DIMS))
+    print("  flash_attention_bwd (cuda, fp32 and bf16) dynamic shared memory per block "
+          "(dK/dV kernel): " + ", ".join(f"D={d}: {bwd_smem_bytes(d)} B" for d in BWD_HEAD_DIMS))
 
 
 def flash_row(q, k, v, kw, err, library, route, shape):
@@ -451,6 +544,123 @@ def phase_flash(failures):
         print(f"flash_attention {str(dtype).split('.')[-1]}: worst max_abs_err over all cases "
               f"{err:.3e} (tol {TOL[dtype]:g})")
     return timings, worst
+
+
+def grad_inputs(gen, b, h, kv, sq, skv, d, dtype):
+    q, k, v = qkv(gen, b, h, kv, sq, d, dtype, skv=skv)
+    return q, k, v, randn(gen, (b, h, sq, d), dtype)
+
+
+def phase_flash_bwd(failures):
+    """The attention backward kernel against its plain version (given the
+    same o and lse), the forward's lse against the plain forward's, two
+    launches bit-equal; head_dim 256 raises. Then times at the train
+    path's shapes beside SDPA's backward. Returns ({label: timed row},
+    worst max_abs_err)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = {"abs": 0.0, "rel": 0.0}
+
+    def check(label, q, k, v, do, **kw):
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        _, want_lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+        again = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+        torch.cuda.synchronize()
+        lse_err, lse_ok = max_err(lse, want_lse, LSE_TOL)
+        err = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+        rel = [e / max(w.float().abs().max().item(), 1e-30) for e, w in zip(err, want)]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = lse_ok and max(rel) <= BWD_TOL[q.dtype] and same and \
+            all(g.dtype == q.dtype for g in got)
+        worst["abs"], worst["rel"] = max(worst["abs"], *err), max(worst["rel"], *rel)
+        print(f"case flash_bwd {label}: dq/dk/dv max_abs_err {err[0]:.2e}/{err[1]:.2e}/"
+              f"{err[2]:.2e}, over max|grad| {rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e} "
+              f"tol={BWD_TOL[q.dtype]:g}, lse "
+              f"max_abs_err={lse_err:.2e} tol={LSE_TOL:g}, two launches "
+              f"{'equal bit for bit' if same else 'DIFFER'} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"flash_attention_bwd {label}: relative errors {rel}, lse "
+                            f"{lse_err:.2e}, bit-equal {same}")
+        return max(err)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[-1]
+        for b, h, kv, sq, skv, d, causal, window, q_offset in BWD_CASES:
+            check(f"B{b} H{h} KV{kv} Sq{sq} Skv{skv} D{d} causal={causal} window={window} "
+                  f"q_offset={q_offset} {dt}", *grad_inputs(gen, b, h, kv, sq, skv, d, dtype),
+                  causal=causal, window=window, q_offset=q_offset)
+    # head_dim 256 (recurrentgemma) has no backward yet: it raises
+    q, k, v, do = grad_inputs(gen, 1, 2, 1, 64, 64, 256, torch.bfloat16)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    before = ops.launch_counts()["flash_attention_bwd"]
+    raised = True
+    with contextlib.suppress(NotImplementedError):  # the outcome this case wants
+        flash_attention_bwd_cuda(q, k, v, o, do, lse)
+        raised = False
+    ok = raised and ops.launch_counts()["flash_attention_bwd"] == before
+    print(f"case flash_bwd D256: {'NotImplementedError' if raised else 'no error'} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("flash_attention_bwd: head_dim 256 did not raise")
+
+    timings = {}
+    for label, (b, h, kv, s, d) in BWD_MAIN.items():
+        q, k, v, do = grad_inputs(gen, b, h, kv, s, s, d, torch.bfloat16)
+        err = check(f"main path {label} H{h} KV{kv} D{d} bfloat16", q, k, v, do, causal=True)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, causal=True)
+        kernel = lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse)  # noqa: E731
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            *leaves, is_causal=True, enable_gqa=True)
+        sdpa_fwd_bwd = lambda: torch.autograd.grad(sdpa(), leaves, do)  # noqa: E731
+        iters = 10 if s > 1024 else 50
+        row = {"shape": f"B{b} H{h} KV{kv} S{s} D{d} bf16 causal", "route": "cuda",
+               "max_abs_err": err, "ms": device_ms(kernel, iters=iters),
+               "eager_ms": time_ms(kernel, iters=iters),
+               "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse),
+                                   iters=3, warmup=1),
+               "sdpa_fwd_ms": device_ms(sdpa, iters=iters),
+               "sdpa_fwd_bwd_ms": device_ms(sdpa_fwd_bwd, iters=iters),
+               **attention_bwd_bound(b, h, kv, s, d, True, 0, torch.bfloat16)}
+        row["library_ms"] = row["sdpa_fwd_bwd_ms"] - row["sdpa_fwd_ms"]
+        print(f"flash_bwd {label} ({row['shape']}): kernel {row['ms']:.4f} ms (eager "
+              f"{row['eager_ms']:.4f}), plain {row['plain_ms']:.4f} ms, sdpa backward "
+              f"{row['library_ms']:.4f} ms (fwd+bwd {row['sdpa_fwd_bwd_ms']:.4f} - fwd "
+              f"{row['sdpa_fwd_ms']:.4f}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+              f"{row['flops'] / 1e9:.2f} GFLOP, {row['bytes'] / 1e6:.2f} MB), kernel/bound "
+              f"{row['ms'] / row['bound_ms']:.1f}, kernel/sdpa backward "
+              f"{row['ms'] / row['library_ms']:.1f}")
+        timings[label] = row
+        del leaves
+    print(f"flash_attention_bwd: worst over all cases max_abs_err {worst['abs']:.3e}, "
+          f"max_abs_err/max|grad| {worst['rel']:.3e}")
+    return timings, worst["abs"]
+
+
+def phase_grad_mode(failures):
+    """With grad on: a flash output on the card carries FlashAttentionFn as
+    its grad_fn, and the scan kernel, which has no backward, raises."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (t.requires_grad_(True) for t in qkv(gen, 1, 4, 2, 128, 64, torch.bfloat16))
+    out = ops.flash_attention(q, k, v)
+    name = type(out.grad_fn).__name__
+    ok = name == "FlashAttentionFnBackward"
+    print(f"case grad mode: flash output grad_fn {name} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"flash_attention under grad: grad_fn {name}, want FlashAttentionFn")
+    a, bb, _ = scan_inputs(gen, 2, 64, 128, torch.float32, False)
+    a.requires_grad_(True)
+    before = ops.launch_counts()["rglru_scan"]
+    raised = True
+    with contextlib.suppress(NotImplementedError):  # the outcome this case wants
+        ops.rglru_scan(a, bb)
+        raised = False
+    ok = raised and ops.launch_counts()["rglru_scan"] == before
+    print(f"case grad mode: rglru scan with a requiring grad: "
+          f"{'NotImplementedError' if raised else 'no error'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("rglru_scan under grad did not raise")
 
 
 def phase_rglru(failures):
@@ -825,13 +1035,236 @@ def check_logits(cfg, params, tokens, failures):
     return out, fp32_launches
 
 
+# --------------------------------------------------------------------------
+# training at full width, and crash-resume through the learner
+# --------------------------------------------------------------------------
+
+def leaves_equal(a, b) -> bool:
+    fa, fb = tree_flatten_with_paths(a), tree_flatten_with_paths(b)
+    return [p for p, _ in fa] == [p for p, _ in fb] and all(
+        x.dtype == y.dtype and torch.equal(x, y) for (_, x), (_, y) in zip(fa, fb))
+
+
+def profile_step(step_fn, state, batch):
+    """One train step under torch.profiler: (new state, wall ms, device busy
+    ms, {kernel name: (device ms, launches)}). Busy is the kernels' time
+    inside the step's span (one stream, so they do not overlap)."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("train_step"):
+            state, _ = step_fn(state, batch)
+            torch.cuda.synchronize()
+    events = prof.events()
+    span = [e for e in events if e.name == "train_step" and e.device_type == DeviceType.CPU][0]
+    lo, hi = span.time_range.start, span.time_range.end
+    by_name = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name != "train_step" \
+                and lo <= e.time_range.start and e.time_range.end <= hi:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return state, (hi - lo) / 1e3, sum(ms for ms, _ in by_name.values()), by_name
+
+
+def phase_train(failures):
+    """smollm-360m training at full width (32 layers, stacked layout,
+    remat full, bf16, seeded weights with the attention projections at
+    their true fan-in) through the train CLI's step function, on B x S =
+    TRAIN_BATCH x TRAIN_SEQ tokens of the synthetic stream. The first
+    step's loss and grad norm against the same step on the plain versions;
+    then the main path, TRAIN_STEPS steps with the launch counts set to 0
+    just before and read just after (64 forward and 32 backward flash
+    launches a step: each layer's forward, its recompute, its backward);
+    the same steps again from the same seed must end on bit-equal state;
+    one more step under the profiler for the device's busy share."""
+    device = torch.device("cuda")
+    deterministic(device)  # use_deterministic_algorithms from here on
+    cfg = get_config("smollm-360m")
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    batches = [data.batch_at(i) for i in range(TRAIN_STEPS + 1)]
+    params0 = true_fan_in(steps.init_params(cfg, 0, device), cfg)
+
+    def fresh():
+        params = tree_map_with_path(lambda _, t: t.clone(), params0)
+        return steps.TrainState(torch.zeros((), dtype=torch.int32, device=device), params,
+                                adamw.init(params))
+
+    step_fn = steps.make_train_step(cfg, opt_cfg)
+    _, plain = steps.make_train_step(cfg, opt_cfg, force="ref")(fresh(), batches[0])
+    plain = {k: float(v) for k, v in plain.items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics, step_s = fresh(), [], []
+    ops.reset_launch_counts()
+    for batch in batches[:TRAIN_STEPS]:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    n = TRAIN_STEPS
+    want = {"flash_attention": 2 * cfg.n_layers * n, "flash_attention_bwd": cfg.n_layers * n,
+            "rglru_scan": 0}
+    expect_launches(f"smollm-360m train ({n} steps, remat full)", launches, want, failures)
+    first = metrics[0]
+    for key in ("loss", "grad_norm"):
+        rel = abs(first[key] - plain[key]) / abs(plain[key])
+        ok = rel <= TRAIN_TOL and math.isfinite(first[key])
+        print(f"smollm-360m train step 0 {key}: kernels {first[key]:.6f}, plain "
+              f"{plain[key]:.6f}, relative difference {rel:.2e} tol {TRAIN_TOL} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"smollm-360m train step 0 {key}: {first[key]} vs plain {plain[key]}")
+    print(f"smollm-360m train losses {[round(m['loss'], 6) for m in metrics]}, grad norms "
+          f"{[round(m['grad_norm'], 6) for m in metrics]}, lr {[m['lr'] for m in metrics]}")
+
+    again = fresh()
+    for batch in batches[:TRAIN_STEPS]:
+        again, _ = step_fn(again, batch)
+    torch.cuda.synchronize()
+    same = leaves_equal(state, again)
+    print(f"smollm-360m train: two runs of {n} steps from the same seed "
+          f"{'equal bit for bit' if same else 'DIFFER'} (params, m, v, master, step)")
+    if not same:
+        failures.append("smollm-360m train: two runs from the same seed differ")
+    del again
+
+    _, wall_ms, busy_ms, by_name = profile_step(step_fn, state, batches[TRAIN_STEPS])
+    bwd_ms = sum(t for name, (t, _) in by_name.items() if "flash_bwd" in name)
+    fwd_ms = sum(t for name, (t, _) in by_name.items() if "flash_fwd" in name)
+    n_kernels = sum(n for _, n in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    step_ms = 1e3 * sum(step_s[1:]) / max(len(step_s) - 1, 1)
+    out = {"step_ms": step_ms, "first_step_ms": 1e3 * step_s[0],
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3), "peak_mem_gib": peak_gib,
+           "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "busy_share": busy_ms / wall_ms, "flash_bwd_ms": bwd_ms, "flash_fwd_ms": fwd_ms,
+           "kernels_per_step": n_kernels,
+           "loss": [m["loss"] for m in metrics], "grad_norm": [m["grad_norm"] for m in metrics],
+           "plain_step0": {k: plain[k] for k in ("loss", "grad_norm")}}
+    print(f"smollm-360m train B{TRAIN_BATCH} S{TRAIN_SEQ} remat full bf16: step "
+          f"{step_ms:.2f} ms (steps 2-{n}; first {out['first_step_ms']:.2f} ms), "
+          f"{out['tokens_per_s']:,.0f} tok/s, peak device memory {peak_gib:.2f} GiB; profiled "
+          f"step wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+          f"({100 * out['busy_share']:.1f}%), of it flash backward {bwd_ms:.2f} ms "
+          f"({100 * bwd_ms / busy_ms:.1f}%), flash forward {fwd_ms:.2f} ms; {n_kernels} "
+          "kernels in the step")
+    print("smollm-360m train device time by kernel (profiled step, top 8): "
+          + "; ".join(f"{name[:60]} {t:.2f} ms ({n})" for name, (t, n) in top))
+    return launches, out
+
+
+class MemoryStore:
+    """An in-memory object store with the interface the port's
+    MountedBucket uses (the platform's ObjectStore has the same)."""
+
+    def __init__(self):
+        self.buckets: dict = {}
+
+    def create_bucket(self, name):
+        self.buckets.setdefault(name, {})
+
+    def put(self, bucket, key, data):
+        self.buckets[bucket][key] = data.encode() if isinstance(data, str) else bytes(data)
+
+    def get(self, bucket, key):
+        return self.buckets[bucket][key]
+
+    def list(self, bucket, prefix=""):
+        return sorted(k for k in self.buckets[bucket] if k.startswith(prefix))
+
+    def exists(self, bucket, key):
+        return key in self.buckets[bucket]
+
+
+class LearnerContext:
+    """What the platform's guardian hands a learner (job id, manifest,
+    status/exit/log files, events, the object store), kept in memory."""
+
+    def __init__(self, manifest, objstore):
+        self.job_id, self.learner_idx = "smoke", 0
+        self.manifest, self.objstore = manifest, objstore
+        self.files, self.logs, self.emitted = {}, [], []
+        self.events = SimpleNamespace(emit=lambda *a, **kw: self.emitted.append((a, kw)))
+
+    def set_status(self, status, extra=None):
+        self.files["status"] = {"status": status, **(extra or {})}
+
+    def write_exit(self, code, msg=""):
+        self.files["exit"] = {"code": code, "msg": msg}
+
+    def log(self, line):
+        self.logs.append(line)
+
+
+def run_learner(crash_at=None, device="cuda"):
+    """One job of TorchLearner on the card at the tiny config (the
+    platform's default), ticked as the guardian ticks it; with
+    ``crash_at``, the learner is killed once it reaches that step and a new
+    one resumes, as the guardian restarts a crashed learner. Returns (final
+    checkpoint leaves, the learners, the context)."""
+    manifest = SimpleNamespace(arch="smollm-360m", results_bucket="results",
+                               checkpoint_interval=20,
+                               train={"steps": 60, "batch": 4, "seq": 64, "seed": 3})
+    ctx = LearnerContext(manifest, MemoryStore())
+    learners = [TorchLearner(ctx, device=device)]
+    learners[0].start()
+    for _ in range(1000):
+        learner = learners[-1]
+        learner.tick()
+        if learner.done:
+            break
+        if crash_at is not None and len(learners) == 1 and learner.phase == "PROCESSING" \
+                and learner.step >= crash_at:
+            learner.kill()
+            learners.append(TorchLearner(ctx, device=device))
+            learners[-1].start(resume=True)
+    bucket = MountedBucket(ctx.objstore, "results")
+    final = ckpt.latest_step(bucket, "smoke/ckpt")
+    leaves = ckpt.restore(bucket, "smoke/ckpt", final)[0] if final is not None else {}
+    return leaves, learners, ctx
+
+
+def phase_crash_resume(failures):
+    """A crash at step 30 of 60 resumes from the step-20 checkpoint to final
+    params, optimizer state and step equal bit for bit to an uninterrupted
+    run's, on the card. Returns the uninterrupted run's launches."""
+    ops.reset_launch_counts()
+    straight, learners, ctx = run_learner()
+    launches = ops.launch_counts()
+    resumed, learners_b, ctx_b = run_learner(crash_at=30)
+    ok_exit = ctx.files.get("exit", {}).get("code") == 0 and \
+        ctx_b.files.get("exit", {}).get("code") == 0
+    resumed_from = [line for line in ctx_b.logs if line.startswith("resumed")]
+    same = bool(straight) and set(straight) == set(resumed) and all(
+        straight[p].dtype == resumed[p].dtype and torch.equal(straight[p], resumed[p])
+        for p in straight)
+    steps_done = int(straight["step"]) if "step" in straight else None
+    print(f"crash-resume (TorchLearner on the card, smollm tiny, 60 steps, checkpoint every 20, "
+          f"killed once at step 30 or the end of that tick): exits {ctx.files.get('exit')} / {ctx_b.files.get('exit')}, {resumed_from}, final "
+          f"step {steps_done}, final state {'equal bit for bit' if same else 'DIFFERS'} "
+          f"({len(straight)} leaves); launches of the uninterrupted run {launches}")
+    cfg = learners[0].cfg
+    want = {"flash_attention": 2 * cfg.n_layers * 60, "flash_attention_bwd": cfg.n_layers * 60,
+            "rglru_scan": 0}
+    expect_launches("smollm tiny learner (60 steps, remat full)", launches, want, failures)
+    if not (ok_exit and same and steps_done == 60 and len(learners_b) == 2 and resumed_from):
+        failures.append(f"crash-resume on the card: exits {ctx.files.get('exit')} / "
+                        f"{ctx_b.files.get('exit')}, bit-equal {same}, resumed {resumed_from}")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, timings, primary, worst):
     """One entry of the {"kernels": [...]} line: the primary main-path
     shape's numbers, and every main-path shape under "shapes"."""
     row = timings[primary]
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     extra = ("eager_ms", "eager_library_ms", "same_bytes_add_ms", "gb_s", "share_of_bound",
-             "cuda_core_bound_ms", "cuda_core_bound_by")
+             "cuda_core_bound_ms", "cuda_core_bound_by", "sdpa_fwd_ms", "sdpa_fwd_bwd_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.values()), "launches_by_path": launches,
             "max_abs_err": row["max_abs_err"], "worst_case_max_abs_err": worst,
@@ -847,6 +1280,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this runs on a "
               "CUDA card", file=sys.stderr)
         return 1
+    # cuBLAS reads its workspace setting when it first runs in the process;
+    # the train phases turn on deterministic algorithms, which need it.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -858,16 +1294,25 @@ def main() -> int:
     failures = []
     phase_build(failures)
     flash_t, flash_worst = phase_flash(failures)
+    bwd_t, bwd_worst = phase_flash_bwd(failures)
+    phase_grad_mode(failures)
     scan_t, scan_worst = phase_rglru(failures)
     sm_launches, sm_fp32_launches, sm_metrics = phase_smollm(failures)
     torch.cuda.empty_cache()
     rg_launches, rg_fp32_launches, rg_metrics = phase_recurrentgemma(failures)
+    torch.cuda.empty_cache()
+    train_launches, train_metrics = phase_train(failures)
+    torch.cuda.empty_cache()
+    learner_launches = phase_crash_resume(failures)
+    train_paths = {"smollm-360m train": train_launches,
+                   "smollm tiny learner crash-resume": learner_launches}
 
     kernels = [
         kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention_sm90.cu",
                      "src/repro/kernels/flash_attention.py:36",
                      {"smollm-360m": sm_launches["flash_attention"],
-                      "recurrentgemma-2b": rg_launches["flash_attention"]},
+                      "recurrentgemma-2b": rg_launches["flash_attention"],
+                      **{p: n["flash_attention"] for p, n in train_paths.items()}},
                      flash_t[torch.bfloat16], "smollm B8 S512", flash_worst[torch.bfloat16]),
         # the fp32 route, launched by the fp32 prefills of check_logits
         kernel_entry("flash_attention_fp32", "src/repro_torch/csrc/flash_attention.cu",
@@ -879,9 +1324,17 @@ def main() -> int:
                      "src/repro/kernels/rglru.py:31",
                      {"recurrentgemma-2b": rg_launches["rglru_scan"]},
                      scan_t, "recurrentgemma B8 S512", scan_worst),
+        # the backward of the flash forward, launched by the train paths
+        # (the JAX package trains through autodiff of the jnp twin of the
+        # TPU kernel it names)
+        kernel_entry("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+                     "src/repro/kernels/flash_attention.py:36",
+                     {p: n["flash_attention_bwd"] for p, n in train_paths.items()},
+                     bwd_t, "smollm train B8 S512", bwd_worst),
     ]
     print(f"card: {card}; smollm-360m: {json.dumps(sm_metrics)}; "
           f"recurrentgemma-2b: {json.dumps(rg_metrics)}; "
+          f"smollm-360m train: {json.dumps(train_metrics)}; "
           f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     if failures:

@@ -13,7 +13,11 @@
 // probability exactly 0; the output is acc / max(l, 1e-30). The kv walk runs
 // over the tiles [lo, hi): hi stops at the causal diagonal, lo starts at
 // q_start - window. No atomics and no split over keys: two launches on the
-// same inputs give the same bits.
+// same inputs give the same bits. For training the wrapper passes an fp32
+// lse (B, H, Sq), and the quad leader of each row writes m + log(l), the
+// row's logsumexp in natural-log units, in the epilogue: the backward
+// (flash_attention_bwd.cu) recomputes P from it. Serving passes nullptr and
+// gets what it got before lse existed, bit for bit.
 //
 // What bounds it on this card. The least times (bytes of q, k, v, o once
 // over 3.35 TB/s; FLOP from 4.D per unmasked (query, key) pair):
@@ -174,8 +178,9 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int k0, 
 template <int D>
 __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
 flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int H, int KV, int Sq,
-                 int Skv, int causal, int window, int q_offset, float scale) {
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int H, int KV, int Sq, int Skv, int causal, int window, int q_offset,
+                 float scale) {
   using C = Cfg<D>;
   constexpr int BQ = C::BQ, BK = C::BK, LDK = C::LDK, LDV = C::LDV, THREADS = C::THREADS;
   constexpr int NT = BK / 8;  // 8-key column tiles of S (and k-steps of P.V)
@@ -376,6 +381,11 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  if (lse != nullptr && t == 0) {  // the row's logsumexp, natural log, for the backward
+    float* lp = lse + (size_t)(b * H + h) * Sq;
+    if (r0 < Sq) lp[r0] = m0 + logf(l0);
+    if (r1 < Sq) lp[r1] = m1 + logf(l1);
+  }
 #pragma unroll
   for (int n = 0; n < DT; ++n) {
     const int col = 8 * n + 2 * t;
@@ -387,9 +397,9 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o, int B, int H, int KV,
-                   int Sq, int Skv, int causal, int window, int q_offset, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse, int B,
+                   int H, int KV, int Sq, int Skv, int causal, int window, int q_offset,
+                   float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   const int n_q_tiles = (Sq + C::BQ - 1) / C::BQ;
   if (n_q_tiles > 65535) return cudaErrorInvalidValue;
@@ -397,8 +407,8 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, int
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid(H, B, n_q_tiles);
-  flash_fwd_tf32x3<D><<<grid, C::THREADS, C::SMEM, stream>>>(q, k, v, o, H, KV, Sq, Skv, causal,
-                                                              window, q_offset, scale);
+  flash_fwd_tf32x3<D><<<grid, C::THREADS, C::SMEM, stream>>>(q, k, v, o, lse, H, KV, Sq, Skv,
+                                                              causal, window, q_offset, scale);
   return cudaGetLastError();
 }
 
@@ -417,24 +427,30 @@ extern "C" int flash_attention_smem_bytes(int D) {
   }
 }
 
-// fp32 tensors, contiguous, (B, heads, S, D), 16-byte aligned. Returns
+// fp32 tensors, contiguous, (B, heads, S, D), 16-byte aligned. lse is
+// nullptr (serving) or a (B, H, Sq) fp32 tensor that gets each row's
+// logsumexp of its masked scaled scores, m + log(l) in natural-log units
+// (training: the backward recomputes P from it); with nullptr the kernel
+// computes what it computed before lse existed, bit for bit. Returns
 // cudaGetLastError() after the launch (0 on success).
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                   int H, int KV, int Sq, int Skv, int D, int causal, int window,
-                                   int q_offset, float scale, void* stream) {
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                   void* lse, int B, int H, int KV, int Sq, int Skv, int D,
+                                   int causal, int window, int q_offset, float scale,
+                                   void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Skv <= 0 || q_offset < 0 ||
       window < 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
               *vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(o);
+  float* lf = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return (int)launch<16>(qf, kf, vf, of, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 32: return (int)launch<32>(qf, kf, vf, of, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 64: return (int)launch<64>(qf, kf, vf, of, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 128: return (int)launch<128>(qf, kf, vf, of, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 256: return (int)launch<256>(qf, kf, vf, of, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 16: return (int)launch<16>(qf, kf, vf, of, lf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 32: return (int)launch<32>(qf, kf, vf, of, lf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 64: return (int)launch<64>(qf, kf, vf, of, lf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 128: return (int)launch<128>(qf, kf, vf, of, lf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 256: return (int)launch<256>(qf, kf, vf, of, lf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,7 +4,7 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:_flash_kernel
 // (reached through flash_attention_tpu) for bf16 inputs; fp32 inputs take the
-// CUDA-core kernel in flash_attention.cu. Same function: GQA attention over
+// split-TF32 mma.sync kernel in flash_attention.cu. Same function: GQA attention over
 // q (B, H, Sq, D) and k/v (B, KV, Skv, D), H % KV == 0, with causal,
 // local-window (q_pos - k_pos < window) or bidirectional masks, an absolute
 // q_offset, any Sq and Skv, head_dim 16, 32, 64, 128 or 256 (one template).
@@ -17,7 +17,12 @@
 // -1e30 (keys past Skv: -inf, so their probability is exactly 0). The kv walk
 // runs over the tiles [lo, hi): hi stops at the causal diagonal, lo starts
 // at q_start - window. No atomics and no split over keys: two launches on the
-// same inputs give the same bits.
+// same inputs give the same bits. For training the wrapper passes an fp32
+// lse (B, H, Sq): each row's logsumexp of its masked scaled scores in
+// natural-log units, (m + log2 l) ln 2 since m and l live in base 2 here,
+// written by the row's quad leader in the epilogue; the backward
+// (flash_attention_bwd.cu) recomputes P from it. Serving passes nullptr and
+// gets what it got before lse existed, bit for bit.
 //
 // What bounds it on this card. At the main paths' prefill shapes the least
 // times are (bytes of q, k, v, o once over 3.35 TB/s; 4.D FLOP per unmasked
@@ -95,6 +100,7 @@ constexpr int WG_THREADS = 128;  // a warpgroup
 constexpr int STAGES = 2;        // K/V ring depth (a third was no faster on an H100)
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Cfg {
@@ -488,8 +494,8 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                      int H, int KV, int Sq, int Skv, int causal, int window, int q_offset,
-                      float scale_log2) {
+                      float* __restrict__ lse, int H, int KV, int Sq, int Skv, int causal,
+                      int window, int q_offset, float scale_log2) {
   using C = Cfg<D>;
   constexpr int BQ = C::BQ, BK = C::BK, SPAN = C::SPAN, PW = C::PW;
   extern __shared__ uint8_t smem_raw[];
@@ -628,6 +634,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int hh = 0; hh < 2; ++hh) {
       const int r = row0 + 8 * hh - q_offset;
       if (r < Sq) {
+        if (lse != nullptr && quad == 0)  // natural log: m and log2 l are base 2
+          lse[(size_t)bh_q * Sq + r] = (m[hh] + log2f(l[hh])) * LN2;
         const float denom = fmaxf(l[hh], 1e-30f);
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
@@ -678,9 +686,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int S, int BH, int rows) {
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-                   int Sq, int Skv, int causal, int window, int q_offset, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int H, int KV, int Sq, int Skv, int causal, int window, int q_offset,
+                   float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tm_q, tm_k, tm_v;
   if (!make_map<D>(&tm_q, q, Sq, B * H, C::BQ) || !make_map<D>(&tm_k, k, Skv, B * KV, C::BK) ||
@@ -700,7 +708,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   }
   const dim3 grid(H, B, (Sq + C::BQ - 1) / C::BQ);
   flash_fwd_sm90_kernel<D><<<grid, C::THREADS, C::SMEM, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), H, KV, Sq, Skv, causal, window,
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, H, KV, Sq, Skv, causal, window,
       q_offset, scale * LOG2E);
   return cudaGetLastError();
 }
@@ -720,10 +728,13 @@ extern "C" int flash_attention_sm90_smem_bytes(int D) {
   }
 }
 
-// bf16 tensors, contiguous, (B, heads, S, D), 16-byte aligned. Returns
-// cudaGetLastError() after the launch (0 on success).
+// bf16 tensors, contiguous, (B, heads, S, D), 16-byte aligned. lse is
+// nullptr (serving: bit for bit what the kernel computed before lse
+// existed) or a (B, H, Sq) fp32 tensor for each row's logsumexp in
+// natural-log units (training). Returns cudaGetLastError() after the launch
+// (0 on success).
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o,
-                                        int B, int H, int KV, int Sq, int Skv, int D,
+                                        void* lse, int B, int H, int KV, int Sq, int Skv, int D,
                                         int causal, int window, int q_offset, float scale,
                                         void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Skv <= 0 || q_offset < 0 ||
@@ -733,12 +744,13 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lf = static_cast<float*>(lse);
   switch (D) {
-    case 16: return (int)launch<16>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 32: return (int)launch<32>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 64: return (int)launch<64>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 128: return (int)launch<128>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 256: return (int)launch<256>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 16: return (int)launch<16>(q, k, v, o, lf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 32: return (int)launch<32>(q, k, v, o, lf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 64: return (int)launch<64>(q, k, v, o, lf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 128: return (int)launch<128>(q, k, v, o, lf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 256: return (int)launch<256>(q, k, v, o, lf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

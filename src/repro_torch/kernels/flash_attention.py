@@ -1,4 +1,5 @@
-"""Hopper flash-attention forward, two routes bound with ctypes:
+"""Hopper flash attention, bound with ctypes. The forward takes one of two
+routes:
 
 - bf16 takes ``csrc/flash_attention_sm90.cu``: wgmma on the tensor cores,
   TMA loads into swizzled shared memory, a two-stage K/V ring on mbarriers;
@@ -14,9 +15,17 @@ bidirectional masks; absolute ``q_offset``; fp32 online softmax), at head_dim
 what bounds it on the card and what its design does about it. Their plain
 version is ``repro_torch.kernels.ref.flash_attention_ref``.
 
-A library is built at its route's first launch (``_build``). The wrapper
-checks what the kernels take (among it a 16-byte-aligned pointer, which TMA
-needs) and raises on anything else; it never falls back to the other route
+The backward (``csrc/flash_attention_bwd.cu``, both dtypes, head_dim 16 to
+128) has no TPU counterpart: the JAX package trains through autodiff of its
+jnp twin. It is deterministic (the FlashAttention-2 split into a Δ pass, a
+dK/dV kernel and a dQ kernel, no atomics) and recomputes the probabilities
+from the forward's fp32 logsumexp, which the forward writes when asked
+(``return_lse``). ``FlashAttentionFn`` binds the two for autograd; its
+plain version is ``ref.flash_attention_bwd_ref``.
+
+A library is built at its first launch (``_build``). The wrappers check
+what the kernels take (among it a 16-byte-aligned pointer, which TMA
+needs) and raise on anything else; they never fall back to the other route
 or to the plain version.
 """
 
@@ -30,6 +39,8 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
+_BWD_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # dtype -> (source in csrc/, which is also its C entry points' prefix; route name)
 ROUTES = {torch.bfloat16: ("flash_attention_sm90", "cuda-wgmma"),
           torch.float32: ("flash_attention", "cuda-fp32")}
@@ -40,7 +51,7 @@ def _fwd(dtype):
     """The route's C entry point, typed; its library is built at the first call."""
     source, _ = ROUTES[dtype]
     fn = getattr(_build.load(source), f"{source}_fwd")
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -85,25 +96,110 @@ def _check(q, k, v):
         raise ValueError("flash_attention_cuda: empty inputs")
 
 
-def flash_attention_cuda(q, k, v, *, causal=True, window=0, q_offset=0):
+def flash_attention_cuda(q, k, v, *, causal=True, window=0, q_offset=0,
+                         return_lse=False):
     """q: (B, H, Sq, D); k/v: (B, KV, Skv, D), CUDA, contiguous, 16-byte
     aligned, one dtype: bf16 takes the wgmma route, fp32 the split-TF32 one.
-    Returns (B, H, Sq, D) in q's dtype, on q's device and current stream."""
+    Returns (B, H, Sq, D) in q's dtype, on q's device and current stream;
+    with ``return_lse`` also each row's fp32 logsumexp (B, H, Sq)."""
     _check(q, k, v)
     if window < 0 or q_offset < 0:
         raise ValueError("flash_attention_cuda: window and q_offset must be >= 0")
     b, h, sq, d = q.shape
     n_kv, skv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     with torch.cuda.device(q.device):
         err = _fwd(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                            None if lse is None else lse.data_ptr(),
                             b, h, n_kv, sq, skv, d, int(bool(causal)), int(window),
                             int(q_offset), float(d ** -0.5),
                             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{ROUTES[q.dtype][0]}_fwd launch failed: cudaError {err}")
     flash_attention_cuda.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 flash_attention_cuda.launches = 0  # kernel launches since the last reset
+
+
+@functools.cache
+def _bwd():
+    """The backward's C entry point, typed; its library is built at the first call."""
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bwd_smem_bytes(head_dim: int) -> int:
+    """Dynamic shared memory of the backward's larger block at ``head_dim``."""
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(head_dim)
+
+
+def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=0,
+                             q_offset=0):
+    """The attention backward on the card: (dq, dk, dv) in the inputs' dtype
+    from q, k, v, the forward's o, its gradient ``do`` (all contiguous,
+    one dtype, bf16 or fp32) and the forward's fp32 ``lse`` (B, H, Sq).
+    head_dim 16 to 128. Two launches on the same inputs give the same bits."""
+    _check(q, k, v)
+    b, h, sq, d = q.shape
+    if d not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_bwd_cuda: head_dim {d} not in {BWD_HEAD_DIMS}; head_dim 256 "
+            "is recurrentgemma's, whose training is ROADMAP A.9")
+    if window < 0 or q_offset < 0:
+        raise ValueError("flash_attention_bwd_cuda: window and q_offset must be >= 0")
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd_cuda: {name} must be contiguous "
+                             f"{tuple(q.shape)} {q.dtype} on {q.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or lse.device != q.device \
+            or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd_cuda: lse must be contiguous fp32 "
+                         f"{(b, h, sq)} on {q.device}, got {tuple(lse.shape)} {lse.dtype}")
+    n_kv, skv = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _bwd()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                     dv.data_ptr(), b, h, n_kv, sq, skv, d, int(bool(causal)), int(window),
+                     int(q_offset), float(d ** -0.5), _BWD_DTYPE_CODES[q.dtype],
+                     torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError {err}")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0  # backward calls (three kernels each) since the last reset
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with gradients on the card: the forward kernel, which
+    also writes the rows' logsumexp, and the backward kernel. Both are
+    deterministic, so a recompute under ``torch.utils.checkpoint``
+    reproduces ``o`` and ``lse`` bit for bit."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do.contiguous(), lse, **ctx.mask)
+        return dq, dk, dv, None, None, None

@@ -4,16 +4,26 @@ PyTorch version for a CPU tensor.
 The model code calls these. ``force`` picks a path explicitly: ``"kernel"``
 (raises on a CPU tensor) or ``"ref"`` (the plain version, on any device).
 There is no fallback: a CUDA tensor reaches the kernel or an exception.
+With grad on, flash attention on the card goes through
+``FlashAttentionFn`` (the forward kernel, then the backward kernel); the
+plain versions carry autograd on their own.
 """
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (
+    FlashAttentionFn,
+    flash_attention_bwd_cuda,
+    flash_attention_cuda,
+)
 from repro_torch.kernels.rglru import rglru_scan_cuda
 
 _FORCES = (None, "kernel", "ref")
 _KERNELS = {"flash_attention": flash_attention_cuda,
+            "flash_attention_bwd": flash_attention_bwd_cuda,
             "rglru_scan": rglru_scan_cuda}
 
 
@@ -26,10 +36,15 @@ def _plain(x, force) -> bool:
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                     force: str | None = None):
-    """GQA flash attention. force in {None, 'kernel', 'ref'}."""
+    """GQA flash attention. force in {None, 'kernel', 'ref'}. On the card,
+    with grad on and an input that requires grad, the output's grad_fn is
+    ``FlashAttentionFn``, whose backward is the backward kernel."""
     if _plain(q, force):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        q_offset=q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset)
 

@@ -8,15 +8,11 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
-    """O(S^2)-memory GQA attention.
-
-    q: (B, H, Sq, D); k/v: (B, KV, Skv, D). fp32 softmax, output in q.dtype.
-    """
+def _scores(q, k, causal, window, q_offset):
+    """Masked fp32 scores (B, KV, G, Sq, Skv) of q scaled by d^-0.5."""
     b, h, sq, d = q.shape
     n_kv, skv = k.shape[1], k.shape[2]
-    group = h // n_kv
-    qg = q.reshape(b, n_kv, group, sq, d).float() * (d ** -0.5)
+    qg = q.reshape(b, n_kv, h // n_kv, sq, d).float() * (d ** -0.5)
     s = torch.einsum("bkgsd,bkcd->bkgsc", qg, k.float())
     q_pos = q_offset + torch.arange(sq, device=q.device)
     k_pos = torch.arange(skv, device=q.device)
@@ -24,9 +20,52 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
         s = s.masked_fill(q_pos[:, None] < k_pos[None, :], NEG_INF)
     if window > 0:
         s = s.masked_fill(q_pos[:, None] - k_pos[None, :] >= window, NEG_INF)
+    return s
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0,
+                        return_lse=False):
+    """O(S^2)-memory GQA attention.
+
+    q: (B, H, Sq, D); k/v: (B, KV, Skv, D). fp32 softmax, output in q.dtype.
+    With ``return_lse`` also the fp32 row logsumexp of the masked scaled
+    scores, (B, H, Sq), in natural-log units: what the backward recomputes
+    the probabilities from.
+    """
+    b, h, sq, d = q.shape
+    s = _scores(q, k, causal, window, q_offset)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgsc,bkcd->bkgsd", p, v.float())
-    return o.reshape(b, h, sq, d).to(q.dtype)
+    o = o.reshape(b, h, sq, d).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(b, h, sq)
+    return o
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=0,
+                            q_offset=0):
+    """The attention backward by its explicit formulas (not by autograd), in
+    fp32: P = exp(S - lse) recomputed from the forward's logsumexp, Δ =
+    rowsum(dO∘O) from the stored output, dV = Pᵀ·dO, dP = dO·Vᵀ, dS =
+    P∘(dP − Δ), dQ = dS·K·scale, dK = dSᵀ·Q·scale; a GQA group's query
+    heads are summed into their kv head's dK and dV. Returns (dq, dk, dv)
+    in the inputs' dtypes."""
+    b, h, sq, d = q.shape
+    n_kv = k.shape[1]
+    g = h // n_kv
+    scale = d ** -0.5
+    group = lambda t: t.reshape(b, n_kv, g, sq, d).float()  # noqa: E731
+    qg, og, dog = group(q), group(o), group(do)
+    kf, vf = k.float(), v.float()
+    s = _scores(q, k, causal, window, q_offset)
+    p = torch.exp(s - lse.reshape(b, n_kv, g, sq, 1).float())
+    delta = (dog * og).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgsc,bkgsd->bkcd", p, dog)
+    dp = torch.einsum("bkgsd,bkcd->bkgsc", dog, vf)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgsc,bkcd->bkgsd", ds, kf) * scale
+    dk = torch.einsum("bkgsc,bkgsd->bkcd", ds, qg) * scale
+    return dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def rglru_scan_ref(a, b, h0=None):

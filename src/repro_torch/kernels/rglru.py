@@ -85,7 +85,15 @@ def _check(a, b, h0):
 def rglru_scan_cuda(a, b, h0=None):
     """a, b: (B, S, W), CUDA, contiguous, one dtype; h0: (B, W) fp32 or
     None. Returns (h (B, S, W) in b's dtype, h_last (B, W) fp32), on a's
-    device and current stream."""
+    device and current stream. The kernel has no backward yet: with grad
+    on and an input that requires grad it raises, since its output would
+    carry no gradient."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (a, b, h0)):
+        raise NotImplementedError(
+            "rglru_scan_cuda: the scan kernel has no backward yet, so its output "
+            "would carry no gradient; recurrentgemma training (the scan's reverse "
+            "backward) is ROADMAP A.9")
     _check(a, b, h0)
     bsz, s, w = a.shape
     h = torch.empty_like(b)

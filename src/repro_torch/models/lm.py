@@ -1,4 +1,4 @@
-"""Decoder-only language model assembly."""
+"""Decoder-only language model assembly and the training loss."""
 
 from __future__ import annotations
 
@@ -24,8 +24,10 @@ def def_lm(cfg: ModelConfig):
 
 def lm_apply(p, tokens, cfg: ModelConfig, *, mode="prefill", states=None,
              cache_len=None, force=None):
-    """tokens: (B, S) integer → (logits (B, S, V) fp32, states). ``force``
-    goes to the kernels' dispatchers (``kernels.ops``)."""
+    """tokens: (B, S) integer → (logits (B, S, V) fp32, states); train mode
+    returns (logits, aux), aux the stack's fp32 auxiliary loss (zero for a
+    dense arch), and keeps no states. ``force`` goes to the kernels'
+    dispatchers (``kernels.ops``)."""
     b, s = tokens.shape
     if mode == "decode":
         positions = torch.full((b, s), cache_len, dtype=torch.long,
@@ -39,3 +41,24 @@ def lm_apply(p, tokens, cfg: ModelConfig, *, mode="prefill", states=None,
     x = rmsnorm(p["final_norm"], x)
     table = p["embed"] if cfg.tie_embeddings else p["unembed"]
     return unembed(table, x), new_states
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+
+def cross_entropy(logits, labels, z_loss: float = 1e-4):
+    """Mean token cross-entropy in fp32 with the z-loss regularizer.
+
+    logits: (B, S, V); labels: (B, S) integer, -1 masked out. The gold logit
+    is gathered at max(label, 0); the mean is over unmasked tokens (at
+    least 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * torch.square(lse)
+    mask = (labels >= 0).float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return (nll * mask).sum() / denom

@@ -1,6 +1,9 @@
-"""Serve-step factories for the decoder-only LM: prefill and decode."""
+"""Step factories for the decoder-only LM: train and eval, prefill and
+decode."""
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -8,6 +11,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 from repro_torch.nn import params as prm
 from repro_torch.nn.blocks import init_stack_state
+from repro_torch.optim import adamw
+from repro_torch.utils.trees import tree_flatten_with_paths, tree_unflatten
+
+
+class TrainState(NamedTuple):
+    step: torch.Tensor  # () int32
+    params: dict
+    opt: adamw.OptState
+
+
+AUX_WEIGHT = 0.01  # MoE load-balance loss weight
 
 
 def model_defs(cfg: ModelConfig):
@@ -53,3 +67,57 @@ def decode_state(cfg: ModelConfig, batch: int, s_max: int, device="cpu"):
     attention block, a conv/h dict per recurrent block."""
     return init_stack_state(cfg, batch, s_max, prm.torch_dtype(cfg.dtype),
                             device)
+
+
+def init_train_state(cfg: ModelConfig, seed: int, device="cpu") -> TrainState:
+    params = init_params(cfg, seed, device)
+    return TrainState(torch.zeros((), dtype=torch.int32, device=device), params,
+                      adamw.init(params))
+
+
+def _batch_on(batch, device):
+    """The batch's token and label arrays (numpy or tensors) as int64 tensors
+    on ``device``."""
+    return {k: torch.as_tensor(v).to(device=device, dtype=torch.long)
+            for k, v in batch.items()}
+
+
+def loss_fn(params, batch, cfg: ModelConfig, force=None):
+    """(ce + AUX_WEIGHT·aux, {"ce", "aux"}) of one batch of tokens/labels."""
+    logits, aux = lm.lm_apply(params, batch["tokens"], cfg, mode="train", force=force)
+    ce = lm.cross_entropy(logits, batch["labels"])
+    return ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux}
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, force=None):
+    """Returns fn(state, batch) → (new_state, metrics): the loss and its
+    gradients by autograd (through the flash kernel's backward on the
+    card), then AdamW. ``metrics`` holds 0-d tensors ``loss, ce, aux,
+    grad_norm, lr`` and ``step`` (the step the update was taken at).
+    ``force`` goes to ``kernels.ops``; ``"ref"`` runs the plain versions."""
+
+    def train_step(state: TrainState, batch):
+        flat = tree_flatten_with_paths(state.params)
+        leaves = [t.detach().requires_grad_(True) for _, t in flat]
+        params = tree_unflatten({path: t for (path, _), t in zip(flat, leaves)})
+        batch = _batch_on(batch, leaves[0].device)
+        with torch.enable_grad():
+            loss, parts = loss_fn(params, batch, cfg, force=force)
+            grads = torch.autograd.grad(loss, leaves)
+        grads = tree_unflatten({path: g for (path, _), g in zip(flat, grads)})
+        new_params, new_opt, om = adamw.update(opt_cfg, grads, state.opt, state.step)
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()},
+                   **om, "step": state.step}
+        return TrainState(state.step + 1, new_params, new_opt), metrics
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig, force=None):
+    @torch.no_grad()
+    def eval_step(params, batch):
+        batch = _batch_on(batch, tree_flatten_with_paths(params)[0][1].device)
+        loss, parts = loss_fn(params, batch, cfg, force=force)
+        return {"loss": loss, **parts}
+
+    return eval_step

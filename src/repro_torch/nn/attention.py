@@ -1,10 +1,11 @@
-"""GQA attention: prefill through the flash kernel, decode against a KV
-cache.
+"""GQA attention: train and prefill through the flash kernel, decode
+against a KV cache.
 
-Prefill calls ``kernels.ops.flash_attention``: the Hopper kernel for a CUDA
-tensor, its plain version for a CPU one. This is where the reference calls
-its chunked jnp twin of the Pallas kernel. Decode attention has no kernel
-in the reference either and stays plain PyTorch.
+Train and prefill call ``kernels.ops.flash_attention``: the Hopper kernel
+for a CUDA tensor (with grad on, its forward and backward kernels through
+``FlashAttentionFn``), its plain version for a CPU one. This is where the
+reference calls its chunked jnp twin of the Pallas kernel. Decode attention
+has no kernel in the reference either and stays plain PyTorch.
 """
 
 from __future__ import annotations
@@ -154,12 +155,14 @@ def gqa_attention(
     window: int = 0,
     cache: Optional[KVCache] = None,
     cache_len: Optional[int] = None,
-    mode: str = "prefill",  # prefill | decode
+    mode: str = "prefill",  # train | prefill | decode
     force: Optional[str] = None,
 ):
-    """Full GQA attention block. Returns (y, cache_or_None).
+    """Full GQA attention block. Returns (y, cache_or_None): train keeps no
+    cache.
 
-    ``force`` is passed to ``kernels.ops.flash_attention`` for prefill.
+    ``force`` is passed to ``kernels.ops.flash_attention`` for train and
+    prefill.
     """
     q, k, v = _project_qkv(p, x, positions, rope_theta, use_rope)
     if mode == "decode":
@@ -171,11 +174,11 @@ def gqa_attention(
         cache.v[:, :, cache_len:cache_len + 1] = v
         new_cache = cache
         o = decode_attention(q, cache, cache_len + 1, window=window)
-    elif mode == "prefill":
+    elif mode in ("train", "prefill"):
         o = ops.flash_attention(q, k, v, causal=causal, window=window,
                                 force=force)
-        new_cache = KVCache(k, v)
+        new_cache = KVCache(k, v) if mode == "prefill" else None
     else:
-        raise ValueError(f"mode must be prefill or decode, got {mode!r}")
+        raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
     y = interior_einsum("bhsk,hkd->bsd", o, p["wo"])
     return y, new_cache

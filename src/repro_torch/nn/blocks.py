@@ -8,15 +8,26 @@ Two parameter layouts load, as in the reference: the stacked
 ``blocks/scan/...`` tree with a leading layers axis (``scan_layers`` with
 a pure ``attn`` pattern) and the ``blocks/layers/<i>/...`` list, which
 follows ``cfg.pattern_for_layers()``. The stacked layout runs as a Python
-loop over its layers axis.
+loop over its layers axis, each leaf unbound once (so under autograd its
+gradient is one ``stack``, not a zero-filled ``select_backward`` a layer).
+
+Train mode wraps each layer in the reference's remat policy
+(``_remat_wrap``): ``torch.utils.checkpoint`` for ``"full"``, the same
+with matmul outputs saved for ``"dots"``, nothing for ``"none"``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import params as prm
@@ -33,7 +44,11 @@ from repro_torch.nn.recurrent import (
     rglru,
     rglru_step,
 )
-from repro_torch.utils.trees import tree_map_with_path
+from repro_torch.utils.trees import (
+    tree_flatten_with_paths,
+    tree_map_with_path,
+    tree_unflatten,
+)
 
 _PORTED_KINDS = ("attn", "rglru")
 
@@ -114,13 +129,14 @@ def init_block_state(cfg: ModelConfig, kind: str, batch: int, s_max: int,
 
 
 # --------------------------------------------------------------------------
-# block apply — mode in {prefill, decode}
+# block apply — mode in {train, prefill, decode}
 # --------------------------------------------------------------------------
 
 def apply_attn_block(p, x, cfg: ModelConfig, *, positions, mode="prefill",
                      state: Optional[KVCache] = None, cache_len=None,
                      force=None):
-    """Returns (x, cache). ``force`` goes to the prefill flash kernel."""
+    """Returns (x, cache); train returns no cache. ``force`` goes to the
+    flash kernel."""
     h = rmsnorm(p["norm1"], x)
     attn_out, new_cache = gqa_attention(
         p["attn"], h, positions=positions, rope_theta=cfg.rope_theta,
@@ -135,7 +151,11 @@ def apply_rglru_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None,
                       force=None):
     """Returns (x, {"conv": (B, width-1, W), "h": (B, W) fp32}). Prefill's
     conv state is the last width-1 *pre-conv* inputs; ``force`` goes to the
-    scan kernel."""
+    scan kernel. Train mode raises: the scan kernel has no backward yet."""
+    if mode == "train":
+        raise NotImplementedError(
+            "rglru blocks do not train in repro_torch yet: the RG-LRU scan's "
+            "backward is ROADMAP A.9")
     h = rmsnorm(p["norm1"], x)
     gate = activation("gelu")(
         interior_einsum("bsd,dw->bsw", h, p["w_gate"]).float()).to(x.dtype)
@@ -192,19 +212,69 @@ def def_stack(cfg: ModelConfig):
     return {"layers": [def_block(cfg, k) for k in cfg.pattern_for_layers()]}
 
 
+def _unstack(tree, n: int) -> list:
+    """The n per-layer trees of a stacked tree, each leaf unbound once."""
+    parts = [(path, t.unbind(0)) for path, t in tree_flatten_with_paths(tree)]
+    return [tree_unflatten({path: ts[i] for path, ts in parts}) for i in range(n)]
+
+
+# matmul outputs: what jax.checkpoint_policies.dots_saveable keeps
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, cfg: ModelConfig):
+    """The reference's per-layer remat: nothing for ``"none"``, a
+    non-reentrant ``torch.utils.checkpoint`` for ``"full"`` (the layer's
+    forward runs again in the backward), the same keeping matmul outputs
+    for ``"dots"``."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat must be none, dots or full, got {cfg.remat!r}")
+
+
+def _train_stack(p, x, cfg: ModelConfig, *, positions, force=None):
+    """Train mode: every block under the remat policy. Returns (x, aux): aux
+    is the zero fp32 scalar of a dense stack (MoE is not ported)."""
+    if _stackable(cfg):
+        layer_ps = _unstack(p["scan"], cfg.n_layers)
+        kinds = ("attn",) * cfg.n_layers
+    else:
+        layer_ps, kinds = p["layers"], cfg.pattern_for_layers()
+    for layer_p, kind in zip(layer_ps, kinds):
+        def one(h, lp, kind=kind):
+            return apply_block(lp, h, cfg, kind, positions=positions, mode="train",
+                               force=force)[0]
+
+        x = _remat_wrap(one, cfg)(x, layer_p)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def stack_apply(p, x, cfg: ModelConfig, *, positions, mode="prefill",
                 states=None, cache_len=None, force=None):
-    """Run all decoder blocks. Returns (x, states).
+    """Run all decoder blocks. Returns (x, states); train returns (x, aux).
 
     Prefill returns fresh states (a list, or one stacked KVCache for the
     stacked layout); decode writes KV caches in place and returns the
     states, with each recurrent block's state dict replaced. ``force`` goes
     to both kernels (``kernels.ops``).
     """
+    if mode == "train":
+        return _train_stack(p, x, cfg, positions=positions, force=force)
     if _stackable(cfg):
         ks, vs = [], []
-        for i in range(cfg.n_layers):
-            layer_p = tree_map_with_path(lambda _, t: t[i], p["scan"])
+        for i, layer_p in enumerate(_unstack(p["scan"], cfg.n_layers)):
             st = KVCache(states.k[i], states.v[i]) if mode == "decode" else None
             x, cache = apply_attn_block(layer_p, x, cfg, positions=positions,
                                         mode=mode, state=st, cache_len=cache_len,

@@ -1,0 +1,123 @@
+"""AdamW with fp32 master weights, global-norm clipping and the warmup +
+cosine schedule: the reference's ``repro/optim/adamw.py``, rule for rule.
+
+The optimizer state is the reference's layout (fp32 ``m``, ``v`` and master
+copy per param leaf), so a checkpoint of either package restores in the
+other. Scalars (the schedule, the bias corrections, the clip scale) are
+fp32 tensors computed in the reference's order, not Python floats, which
+are float64 and would differ in the last bits. The update is functional:
+it returns new tensors and leaves the old state as it was.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.utils.trees import tree_flatten_with_paths, tree_unflatten
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_frac: float = 0.1
+    # decay only matrices (dims >= 2), standard practice
+    decay_vectors: bool = False
+
+
+class OptState(NamedTuple):
+    m: dict
+    v: dict
+    master: dict  # fp32 master copy of params
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
+    """Linear warmup + cosine decay to min_lr_frac, as an fp32 scalar tensor
+    (on ``step``'s device when it is a tensor)."""
+    device = step.device if isinstance(step, torch.Tensor) else None
+    step = _f32(step, device)
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    t = torch.clamp((step - cfg.warmup_steps)
+                    / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5 * (1 + torch.cos(math.pi * t))
+    return cfg.lr * warm * cos
+
+
+def _map(fn, *trees):
+    """``fn`` over the leaves of same-structured trees, by path."""
+    flats = [dict(tree_flatten_with_paths(t)) for t in trees]
+    return tree_unflatten({path: fn(*(f[path] for f in flats)) for path in flats[0]})
+
+
+def init(params) -> OptState:
+    """Zero ``m`` and ``v`` and an fp32 master copy (a new tensor even for
+    fp32 params), on each param's device."""
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+    return OptState(m=_map(zeros, params), v=_map(zeros, params),
+                    master=_map(lambda p: p.detach().to(torch.float32, copy=True), params))
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf in fp32, the leaves summed in
+    flattening order (sorted dict keys), as the reference sums them."""
+    total = None
+    for _, leaf in tree_flatten_with_paths(tree):
+        sq = torch.sum(torch.square(leaf.float()))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def update(cfg: AdamWConfig, grads, state: OptState, step):
+    """One AdamW step. ``grads`` in any dtype, the math in fp32 on the master
+    weights; ``step`` the 0-d int step tensor before this update.
+
+    Returns (new_params (each cast to its grad's dtype, the param's own),
+    new_state, {"grad_norm", "lr"})."""
+    gnorm = global_norm(grads)
+    device = gnorm.device
+    if cfg.clip_norm > 0:
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    else:
+        scale = _f32(1.0, device)
+    lr = schedule(cfg, step)
+    t = _f32(step, device) + 1
+    bc1 = 1.0 - torch.pow(_f32(cfg.beta1, device), t)
+    bc2 = 1.0 - torch.pow(_f32(cfg.beta2, device), t)
+
+    def upd(g, m, v, w):
+        g = g.float() * scale
+        m = cfg.beta1 * m + (1 - cfg.beta1) * g
+        v = cfg.beta2 * v + (1 - cfg.beta2) * torch.square(g)
+        mh = m / bc1
+        vh = v / bc2
+        step_ = mh / (torch.sqrt(vh) + cfg.eps)
+        if cfg.weight_decay > 0:
+            # the leaf as stored: a stacked (layers, d) norm scale decays
+            decay = cfg.weight_decay if (w.dim() >= 2 or cfg.decay_vectors) else 0.0
+            step_ = step_ + decay * w
+        w = w - lr * step_
+        return m, v, w
+
+    flat_g = tree_flatten_with_paths(grads)
+    flat_m, flat_v, flat_w = (dict(tree_flatten_with_paths(t))
+                              for t in (state.m, state.v, state.master))
+    out = {path: upd(g, flat_m[path], flat_v[path], flat_w[path]) for path, g in flat_g}
+    m = tree_unflatten({p: o[0] for p, o in out.items()})
+    v = tree_unflatten({p: o[1] for p, o in out.items()})
+    master = tree_unflatten({p: o[2] for p, o in out.items()})
+    new_params = tree_unflatten({p: out[p][2].to(g.dtype) for p, g in flat_g})
+    return new_params, OptState(m, v, master), {"grad_norm": gnorm, "lr": lr}

@@ -18,7 +18,10 @@ from repro.kernels.ops import flash_attention as jax_flash
 from repro.kernels.ops import rglru_scan as jax_rglru_scan
 from repro.nn.attention import flash_attention as jax_chunked_twin
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (
+    flash_attention_bwd_cuda,
+    flash_attention_cuda,
+)
 from repro_torch.kernels.rglru import rglru_scan_cuda
 from repro_torch.nn import attention
 
@@ -173,9 +176,11 @@ def test_dispatcher_force_kernel_on_cpu_raises():
 
 def test_reset_launch_counts():
     flash_attention_cuda.launches = 5
+    flash_attention_bwd_cuda.launches = 4
     rglru_scan_cuda.launches = 3
     ops.reset_launch_counts()
-    assert ops.launch_counts() == {"flash_attention": 0, "rglru_scan": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
+                                   "rglru_scan": 0}
 
 
 # --------------------------------------------------------------------------
@@ -397,3 +402,130 @@ def test_rglru_kernel_matches_plain_on_card():
                 # depends on another's timing
                 assert torch.equal(h, want) and torch.equal(h_last, want_last)
                 assert torch.equal(again[0], h) and torch.equal(again[1], h_last)
+
+
+# --------------------------------------------------------------------------
+# gradients on the card: FlashAttentionFn and the backward kernel
+# --------------------------------------------------------------------------
+
+# (B, H, KV, Sq, Skv, D, causal, window, q_offset): GQA, MQA, MHA; causal,
+# window, bidirectional; a suffix q; head_dim 16 to 128; smollm's shape
+BWD_CARD_CASES = [(2, 4, 2, 256, 256, 64, True, 0, 0), (1, 8, 8, 128, 128, 128, True, 0, 0),
+                  (2, 4, 1, 200, 200, 32, True, 64, 0), (1, 2, 2, 130, 130, 16, False, 0, 0),
+                  (2, 6, 2, 100, 300, 64, True, 96, 200), (8, 15, 5, 512, 512, 64, True, 0, 0)]
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernels are built and run there "
+                    "(python3 chip_smoke.py covers the full case list)")
+
+
+def _grad_inputs(case, dtype, seed=0):
+    b, h, kv, sq, skv, d = case[:6]
+    q, k, v = (torch.from_numpy(a).to("cuda", DTYPES[dtype][1])
+               for a in _qkv_np(b, h, kv, sq, d, skv, seed=seed))
+    do = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (b, h, sq, d), np.float32)).to("cuda", DTYPES[dtype][1])
+    return q, k, v, do, dict(causal=case[6], window=case[7], q_offset=case[8])
+
+
+@pytest.mark.gpu
+def test_rglru_kernel_raises_under_grad_on_card():
+    """The scan kernel has no backward: with grad on and an input that
+    requires grad it raises, naming ROADMAP A.9, instead of returning an
+    output that carries no gradient."""
+    _card()
+    _, (a, b, h0) = _scan_both(2, 20, 16, "float32", True)
+    a, b, h0 = a.cuda().requires_grad_(True), b.cuda(), h0.cuda()
+    before = ops.launch_counts()
+    with pytest.raises(NotImplementedError, match="A.9"):
+        ops.rglru_scan(a, b, h0)
+    assert ops.launch_counts() == before
+    with torch.no_grad():
+        ops.rglru_scan(a, b, h0)  # no grad: the kernel runs
+
+
+@pytest.mark.gpu
+def test_flash_gradients_on_card_match_the_plain_backward():
+    """With grad on, the kernel's output has FlashAttentionFn as its grad_fn
+    and its gradients are the backward kernel's, within 2e-5 (fp32) or 2e-2
+    (bf16) of the plain backward relative to the gradients' magnitude; two
+    backward launches give the same bits."""
+    _card()
+    for case in BWD_CARD_CASES:
+        for dtype in DTYPES:
+            q, k, v, do, kw = _grad_inputs(case, dtype)
+            tol = DTYPES[dtype][2]
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            before = ops.launch_counts()
+            o = ops.flash_attention(*leaves, **kw)
+            assert type(o.grad_fn).__name__ == "FlashAttentionFnBackward"
+            grads = torch.autograd.grad(o, leaves, do)
+            after = ops.launch_counts()
+            assert after["flash_attention"] - before["flash_attention"] == 1
+            assert after["flash_attention_bwd"] - before["flash_attention_bwd"] == 1
+            o2, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            want = ref.flash_attention_bwd_ref(q, k, v, o2, do, lse, **kw)
+            again = flash_attention_bwd_cuda(q, k, v, o2, do, lse, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(o.detach(), o2)
+            for got, exp, rep in zip(grads, want, again):
+                scale = exp.float().abs().max().item()
+                err = (got.float() - exp.float()).abs().max().item()
+                assert err <= tol * max(scale, 1.0), (case, dtype, err, scale)
+                assert torch.equal(got, rep), (case, dtype)
+
+
+@pytest.mark.gpu
+def test_flash_lse_on_card_matches_plain():
+    _card()
+    for case in BWD_CARD_CASES:
+        for dtype in DTYPES:
+            q, k, v, _, kw = _grad_inputs(case, dtype, seed=2)
+            o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            _, want = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+            assert torch.equal(o, flash_attention_cuda(q, k, v, **kw))  # lse changes no bit of o
+            np.testing.assert_allclose(lse.cpu().numpy(), want.cpu().numpy(),
+                                       atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_checkpoint_recompute_reproduces_the_forward_on_card(monkeypatch):
+    """Under non-reentrant torch.utils.checkpoint the backward recomputes the
+    forward kernel (a second forward launch) and gets the same o and lse
+    (checkpoint itself checks only shapes): the gradients equal those
+    without checkpointing bit for bit."""
+    _card()
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do, kw = _grad_inputs(BWD_CARD_CASES[0], "bfloat16", seed=3)
+    seen, forward = [], fa.flash_attention_cuda
+
+    def recording(*args, **kwargs):  # FlashAttentionFn's forward, recorded
+        out = forward(*args, **kwargs)
+        seen.append(tuple(t.detach().clone() for t in out))
+        return out
+
+    # the wrapper counts its launches under the module's name, so while it
+    # stands in for the wrapper the count lands on it
+    recording.launches = 0
+    monkeypatch.setattr(fa, "flash_attention_cuda", recording)
+    attend = lambda q, k, v: ops.flash_attention(q, k, v, **kw)  # noqa: E731
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(attend(*plain), plain, do)
+    remat = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = recording.launches
+    got = torch.autograd.grad(checkpoint(attend, *remat, use_reentrant=False), remat, do)
+    assert recording.launches - before == 2
+    assert len(seen) == 3  # plain, checkpointed, its recompute
+    for first, again in ((seen[1], seen[2]), (seen[0], seen[1])):
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(NotImplementedError, match="A.9"):
+        d256 = [torch.zeros((1, 2, 8, 256), device="cuda", dtype=torch.bfloat16,
+                            requires_grad=True) for _ in range(3)]
+        ops.flash_attention(*d256).sum().backward()
