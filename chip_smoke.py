@@ -11,11 +11,11 @@ Phases; any failure makes the script exit non-zero:
 2. The build: compiles every kernel source of the port with nvcc, all at
    once, and prints the build time and ptxas's registers, shared memory
    and spills; a spill, or ptxas's advisory that wgmma instructions are
-   serialized, fails the phase, and so does a bf16 flash library whose
-   SASS (cuobjdump) holds no HGMMA or an fp32 flash library whose SASS
-   holds no TF32 tensor-core instruction (HMMA or HGMMA on TF32). Prints
-   each flash route's dynamic shared memory per block at each head dim,
-   and the RG-LRU scan's per dtype.
+   serialized, fails the phase, and so does a bf16 flash library (forward
+   or backward) whose SASS (cuobjdump) holds no HGMMA or an fp32 flash
+   library whose SASS holds no TF32 tensor-core instruction (HMMA or HGMMA
+   on TF32). Prints each flash route's dynamic shared memory per block at
+   each head dim (forward and backward), and the RG-LRU scan's per dtype.
 3. Kernels against plain: each kernel against its plain PyTorch version on
    the card over a case list (flash: 2e-5 in fp32, 2e-2 in bf16, with bf16
    cases at every head dim whose lengths no tile divides; RG-LRU scan:
@@ -57,29 +57,37 @@ Phases; any failure makes the script exit non-zero:
    kernels against both plain versions, the fp32 run again counted (8
    flash, 18 scan launches); the scan must equal its plain version bit for
    bit on every layer.
-6. The flash backward (run right after phase 3): the kernel against its
-   plain version over a case list (fp32 and bf16, head_dim 16 to 128, GQA,
-   MQA and MHA, causal, window and bidirectional, ragged lengths, Sq !=
-   Skv with an offset), each gradient within 2e-5 (fp32) or 2e-2 (bf16) of
-   the largest magnitude of that gradient, given the forward kernel's o
-   and lse; the forward's lse within 1e-5 of the plain logsumexp; two
-   launches bit-equal; head_dim 256 raises. Times at the train path's
-   shapes (B8 H15 KV5 S512 and S2048, D64, bf16, causal) beside SDPA's
-   backward (fwd+bwd minus fwd, both over replayed graphs). Then, with
-   grad on, a flash output's grad_fn must be FlashAttentionFn and the
-   scan kernel, which has no backward, must raise.
+6. The flash backward (run right after phase 3), both routes: bf16 on
+   wgmma (csrc/flash_attention_bwd_sm90.cu), fp32 on the CUDA cores
+   (csrc/flash_attention_bwd.cu). The kernel against its plain version
+   over a case list (fp32 and bf16, head_dim 16 to 128, GQA, MQA and MHA,
+   causal, window and bidirectional, ragged lengths, Sq != Skv with an
+   offset), each gradient within 2e-5 (fp32) or 2e-2 (bf16) of the
+   largest magnitude of that gradient, given the forward kernel's o and
+   lse; the forward's lse within 1e-5 of the plain logsumexp; two launches
+   bit-equal; head_dim 256 raises, and so does (ValueError, no launch) a
+   bf16 do that starts off 16 bytes. Times at the train path's shapes (B8
+   H15 KV5 S512 and S2048, D64, bf16, causal) and of the fp32 route at
+   S512 beside SDPA's backward (fwd+bwd minus fwd, both over replayed
+   graphs; fp32 with TF32 off), each split into its three kernels by the
+   profiler over the replayed graph. Then, with grad on, a flash output's
+   grad_fn must be FlashAttentionFn and the scan kernel, which has no
+   backward, must raise.
 7. smollm-360m training at full width (after both serving phases):
    deterministic algorithms on, 32 layers, remat full, true-fan-in
    attention projections, B8 x S512. The first step's loss and grad norm
    within 2e-2 of the same step on the plain versions; 3 steps with the
    launch counts set to 0 just before and read just after (64 forward and
    32 backward flash launches a step); the same 3 steps again must end on
-   bit-equal state; one profiled step gives the device's busy share. Then
-   the platform's learner, ``TorchLearner``, on the card at the tiny
-   config: a job of 60 steps killed at step 30 and resumed from its
-   checkpoint must end on the uninterrupted job's state bit for bit (the
-   learner's context and object store are in memory here: the platform
-   itself lives in the JAX package).
+   bit-equal state; one profiled step gives the device's busy share and
+   the backward's kernels' share of it. The same first step in fp32, the
+   fp32 flash routes' train path: 64 + 32 launches, loss and grad norm
+   within 1e-3 of the plain path's. Then the platform's learner,
+   ``TorchLearner``, on the card at the tiny config: a job of 60 steps
+   killed at step 30 and resumed from its checkpoint must end on the
+   uninterrupted job's state bit for bit (the learner's context and object
+   store are in memory here: the platform itself lives in the JAX
+   package).
 8. One JSON line ``{"kernels": [...]}``, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -115,6 +123,7 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     BWD_HEAD_DIMS,
+    BWD_ROUTES,
     HEAD_DIMS,
     ROUTES,
     bwd_smem_bytes,
@@ -221,15 +230,27 @@ BWD_CASES = [
     (2, 6, 2, 100, 300, 32, True, 96, 200),
     (1, 4, 4, 64, 256, 128, True, 0, 192),
 ]
-# The train path's attention backward shapes (smollm, bf16, causal)
+# The train path's attention backward shapes (smollm, bf16, causal), and the
+# one the fp32 route is timed at
 BWD_MAIN = {"smollm train B8 S512": (8, 15, 5, 512, 64),
             "smollm B8 S2048": (8, 15, 5, 2048, 64)}
+BWD_FP32 = "smollm train B8 S512"
+# The backward's kernels by their names in the sources (the profiler's names
+# carry template arguments): flash_bwd_{delta,dkdv,dq}, with _sm90 on the
+# bf16 route
+BWD_KERNEL = re.compile(r"flash_bwd_[a-z0-9]+(?:_sm90)?")
 # Full-width training: B x S tokens a step, the steps of each run, and the
 # first step's loss and grad norm through the kernels against the plain
 # versions: the bf16 tolerance (the forward kernel rounds P to bf16 for
 # P.V, the plain version keeps it fp32; bf16 gradients carry that).
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 3
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)  # AdamW
 TRAIN_TOL = 2e-2
+# The same first step in fp32 (the fp32 routes of the flash forward and
+# backward): only the order of the fp32 sums differs from the plain path.
+# Read on the H100: loss 0 and grad norm 5.3e-6 apart; the bf16 step's gap,
+# which an fp32 route computing in bf16 would show, is 2.4e-5 / 2.0e-4.
+TRAIN_TOL_FP32 = 5e-5
 
 
 def card_line() -> str:
@@ -364,13 +385,20 @@ def attention_bound(b, h, kv, sq, d, causal, window, dtype, skv=None, q_offset=0
 def attention_bwd_bound(b, h, kv, sq, d, causal, window, dtype, skv=None, q_offset=0):
     """The backward: q, o, do and dq (B, H, Sq, D), k, v, dk and dv (B, KV,
     Skv, D) once each and the fp32 lse; 5 products (S, dP, dV, dQ, dK) of
-    2·D FLOP per unmasked (query, key) pair and head, on the tensor cores'
-    peak for bf16 inputs, the fp32 CUDA cores' for fp32 ones."""
+    2·D FLOP per unmasked (query, key) pair and head. As in attention_bound:
+    bf16 on the tensor cores, fp32 as SPLIT_TF32_PRODUCTS TF32 products
+    each, with the bound of the same work on the fp32 CUDA cores beside it."""
     skv = sq if skv is None else skv
     pairs = unmasked_pairs(sq, skv, causal, window, q_offset)
     itemsize = torch.tensor([], dtype=dtype).element_size()
     nbytes = (4 * b * h * sq * d + 4 * b * kv * skv * d) * itemsize + 4 * b * h * sq
-    return bound(nbytes, 10 * d * pairs * b * h, "bf16" if dtype == torch.bfloat16 else "fp32")
+    flops = 10 * d * pairs * b * h
+    if dtype == torch.bfloat16:
+        return bound(nbytes, flops, "bf16")
+    cuda_cores = bound(nbytes, flops, "fp32")
+    return {**bound(nbytes, SPLIT_TF32_PRODUCTS * flops, "tf32"),
+            "cuda_core_bound_ms": cuda_cores["bound_ms"],
+            "cuda_core_bound_by": cuda_cores["bound_by"]}
 
 
 def scan_bound(b, s, w, dtype):
@@ -404,8 +432,10 @@ def phase_build(failures):
         failures.append("no kernel sources found")
     print("  rglru (cuda) dynamic shared memory per block: " + ", ".join(
         f"{str(dt).split('.')[-1]}: {scan_smem_bytes(dt)} B" for dt in (torch.float32, torch.bfloat16)))
-    for dtype, want in ((torch.bfloat16, ("HGMMA",)), (torch.float32, ("TF32",))):
-        lib = ROUTES[dtype][0]
+    # the forward's routes, and the bf16 backward, must reach the tensor cores
+    for lib, want in ((ROUTES[torch.bfloat16][0], ("HGMMA",)),
+                      (ROUTES[torch.float32][0], ("TF32",)),
+                      (BWD_ROUTES[torch.bfloat16][0], ("HGMMA",))):
         sass = subprocess.run([str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass",
                                str(_build.library_path(lib))],
                               capture_output=True, text=True, check=True, timeout=120).stdout
@@ -419,8 +449,10 @@ def phase_build(failures):
     for dtype, (source, route) in ROUTES.items():
         print(f"  {source} ({route}, {str(dtype).split('.')[-1]}) dynamic shared memory per "
               "block: " + ", ".join(f"D={d}: {smem_bytes(d, dtype)} B" for d in HEAD_DIMS))
-    print("  flash_attention_bwd (cuda, fp32 and bf16) dynamic shared memory per block "
-          "(dK/dV kernel): " + ", ".join(f"D={d}: {bwd_smem_bytes(d)} B" for d in BWD_HEAD_DIMS))
+    for dtype, (source, route) in BWD_ROUTES.items():
+        print(f"  {source} ({route}, {str(dtype).split('.')[-1]}) dynamic shared memory per "
+              "block (the larger tile kernel): "
+              + ", ".join(f"D={d}: {bwd_smem_bytes(d, dtype)} B" for d in BWD_HEAD_DIMS))
 
 
 def flash_row(q, k, v, kw, err, library, route, shape):
@@ -551,14 +583,50 @@ def grad_inputs(gen, b, h, kv, sq, skv, d, dtype):
     return q, k, v, randn(gen, (b, h, sq, d), dtype)
 
 
+def device_split(fn, iters=10, replays=3) -> tuple[dict, dict]:
+    """Device time of one call of ``fn`` by kernel, from the profiler:
+    ``iters`` calls captured in a CUDA graph and replayed ``replays`` times
+    under torch.profiler, each kernel execution counted once (by name and
+    start). Returns ({kernel name as in the source: ms a call},
+    {kernel name: executions the profiler saw a call})."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(replays):
+            graph.replay()
+        torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    runs = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            found = BWD_KERNEL.search(e.name)
+            name = found.group(0) if found else e.name[:40]
+            runs.setdefault(name, {})[e.time_range.start] = e.time_range.elapsed_us()
+    calls = iters * replays
+    return ({name: sum(r.values()) / 1e3 / calls for name, r in runs.items()},
+            {name: len(r) / calls for name, r in runs.items()})
+
+
 def phase_flash_bwd(failures):
     """The attention backward kernel against its plain version (given the
-    same o and lse), the forward's lse against the plain forward's, two
-    launches bit-equal; head_dim 256 raises. Then times at the train
-    path's shapes beside SDPA's backward. Returns ({label: timed row},
-    worst max_abs_err)."""
+    same o and lse) on both routes, the forward's lse against the plain
+    forward's, two launches bit-equal; head_dim 256 and a misaligned bf16
+    view raise. Then times at the train path's shapes beside SDPA's
+    backward, split by kernel, and the fp32 route's at smollm's S512.
+    Returns ({dtype: {label: timed row}}, {dtype: worst max_abs_err})."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    worst = {"abs": 0.0, "rel": 0.0}
+    worst = {dtype: {"abs": 0.0, "rel": 0.0} for dtype in BWD_ROUTES}
 
     def check(label, q, k, v, do, **kw):
         o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
@@ -573,10 +641,11 @@ def phase_flash_bwd(failures):
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         ok = lse_ok and max(rel) <= BWD_TOL[q.dtype] and same and \
             all(g.dtype == q.dtype for g in got)
-        worst["abs"], worst["rel"] = max(worst["abs"], *err), max(worst["rel"], *rel)
-        print(f"case flash_bwd {label}: dq/dk/dv max_abs_err {err[0]:.2e}/{err[1]:.2e}/"
-              f"{err[2]:.2e}, over max|grad| {rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e} "
-              f"tol={BWD_TOL[q.dtype]:g}, lse "
+        w = worst[q.dtype]
+        w["abs"], w["rel"] = max(w["abs"], *err), max(w["rel"], *rel)
+        print(f"case flash_bwd {label} [{BWD_ROUTES[q.dtype][1]}]: dq/dk/dv max_abs_err "
+              f"{err[0]:.2e}/{err[1]:.2e}/{err[2]:.2e}, over max|grad| {rel[0]:.2e}/"
+              f"{rel[1]:.2e}/{rel[2]:.2e} tol={BWD_TOL[q.dtype]:g}, lse "
               f"max_abs_err={lse_err:.2e} tol={LSE_TOL:g}, two launches "
               f"{'equal bit for bit' if same else 'DIFFER'} {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -603,39 +672,72 @@ def phase_flash_bwd(failures):
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("flash_attention_bwd: head_dim 256 did not raise")
+    # the bf16 route's TMA loads need do (and o) 16-byte aligned: a contiguous
+    # view 2 bytes past an aligned pointer raises and launches nothing
+    q, k, v, do = grad_inputs(gen, 1, 2, 1, 128, 128, 64, torch.bfloat16)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    shifted = torch.empty(do.numel() + 1, dtype=do.dtype, device=do.device)[1:].view(do.shape)
+    shifted.copy_(do)
+    before = ops.launch_counts()["flash_attention_bwd"]
+    raised = True
+    with contextlib.suppress(ValueError):  # the outcome this case wants
+        flash_attention_bwd_cuda(q, k, v, o, shifted, lse)
+        raised = False
+    ok = raised and ops.launch_counts()["flash_attention_bwd"] == before
+    print(f"case flash_bwd misaligned do view (storage offset 1, contiguous, bf16): "
+          f"{'ValueError' if raised else 'no ValueError'}, launches unchanged "
+          f"{ops.launch_counts()['flash_attention_bwd'] == before} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("flash_attention_bwd: a misaligned bf16 do view did not raise ValueError")
 
-    timings = {}
-    for label, (b, h, kv, s, d) in BWD_MAIN.items():
-        q, k, v, do = grad_inputs(gen, b, h, kv, s, s, d, torch.bfloat16)
-        err = check(f"main path {label} H{h} KV{kv} D{d} bfloat16", q, k, v, do, causal=True)
+    timings = {torch.bfloat16: {}, torch.float32: {}}
+    mains = [(label, shape, torch.bfloat16) for label, shape in BWD_MAIN.items()]
+    mains.append((BWD_FP32, BWD_MAIN[BWD_FP32], torch.float32))  # SDPA in fp32, TF32 off
+    for label, (b, h, kv, s, d), dtype in mains:
+        dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+        q, k, v, do = grad_inputs(gen, b, h, kv, s, s, d, dtype)
+        err = check(f"main path {label} H{h} KV{kv} D{d} {dt}", q, k, v, do, causal=True)
         o, lse = flash_attention_cuda(q, k, v, return_lse=True, causal=True)
         kernel = lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse)  # noqa: E731
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
             *leaves, is_causal=True, enable_gqa=True)
         sdpa_fwd_bwd = lambda: torch.autograd.grad(sdpa(), leaves, do)  # noqa: E731
-        iters = 10 if s > 1024 else 50
-        row = {"shape": f"B{b} H{h} KV{kv} S{s} D{d} bf16 causal", "route": "cuda",
+        iters = 10 if s > 1024 or dtype == torch.float32 else 50
+        row = {"shape": f"B{b} H{h} KV{kv} S{s} D{d} {dt} causal", "route": "cuda",
                "max_abs_err": err, "ms": device_ms(kernel, iters=iters),
                "eager_ms": time_ms(kernel, iters=iters),
                "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse),
                                    iters=3, warmup=1),
                "sdpa_fwd_ms": device_ms(sdpa, iters=iters),
                "sdpa_fwd_bwd_ms": device_ms(sdpa_fwd_bwd, iters=iters),
-               **attention_bwd_bound(b, h, kv, s, d, True, 0, torch.bfloat16)}
+               **attention_bwd_bound(b, h, kv, s, d, True, 0, dtype)}
         row["library_ms"] = row["sdpa_fwd_bwd_ms"] - row["sdpa_fwd_ms"]
-        print(f"flash_bwd {label} ({row['shape']}): kernel {row['ms']:.4f} ms (eager "
-              f"{row['eager_ms']:.4f}), plain {row['plain_ms']:.4f} ms, sdpa backward "
-              f"{row['library_ms']:.4f} ms (fwd+bwd {row['sdpa_fwd_bwd_ms']:.4f} - fwd "
-              f"{row['sdpa_fwd_ms']:.4f}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
-              f"{row['flops'] / 1e9:.2f} GFLOP, {row['bytes'] / 1e6:.2f} MB), kernel/bound "
-              f"{row['ms'] / row['bound_ms']:.1f}, kernel/sdpa backward "
-              f"{row['ms'] / row['library_ms']:.1f}")
-        timings[label] = row
+        row["kernel_split_ms"], runs = device_split(kernel)
+        if len(runs) != 3 or set(runs.values()) != {1}:
+            failures.append(f"flash_attention_bwd {label}: the profiler saw {runs} executions "
+                            "of each kernel a call, want 3 kernels once each")
+        ops_kind = "split-TF32 " if "cuda_core_bound_ms" in row else ""
+        print(f"flash_bwd {label} ({row['shape']}, {BWD_ROUTES[dtype][0]}): kernel "
+              f"{row['ms']:.4f} ms (eager {row['eager_ms']:.4f}), plain {row['plain_ms']:.4f} "
+              f"ms, sdpa backward {row['library_ms']:.4f} ms (fwd+bwd "
+              f"{row['sdpa_fwd_bwd_ms']:.4f} - fwd {row['sdpa_fwd_ms']:.4f}), {ops_kind}bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {row['flops'] / 1e9:.2f} "
+              f"{ops_kind}GFLOP, "
+              f"{row['bytes'] / 1e6:.2f} MB), kernel/bound {row['ms'] / row['bound_ms']:.1f}, "
+              + (f"fp32 CUDA-core bound {row['cuda_core_bound_ms']:.4f} ms "
+                 f"({row['cuda_core_bound_by']}), kernel/that bound "
+                 f"{row['ms'] / row['cuda_core_bound_ms']:.1f}, "
+                 if "cuda_core_bound_ms" in row else "")
+              + f"kernel/sdpa backward {row['ms'] / row['library_ms']:.2f}; by kernel (profiler "
+              f"over the replayed graph, executions a call {runs}): "
+              + ", ".join(f"{n} {t:.4f} ms" for n, t in row["kernel_split_ms"].items()))
+        timings[dtype][label] = row
         del leaves
-    print(f"flash_attention_bwd: worst over all cases max_abs_err {worst['abs']:.3e}, "
-          f"max_abs_err/max|grad| {worst['rel']:.3e}")
-    return timings, worst["abs"]
+    for dtype, w in worst.items():
+        print(f"flash_attention_bwd {str(dtype).split('.')[-1]} ({BWD_ROUTES[dtype][0]}): worst "
+              f"over all cases max_abs_err {w['abs']:.3e}, max_abs_err/max|grad| {w['rel']:.3e}")
+    return timings, {dtype: w["abs"] for dtype, w in worst.items()}
 
 
 def phase_grad_mode(failures):
@@ -1065,6 +1167,20 @@ def profile_step(step_fn, state, batch):
     return state, (hi - lo) / 1e3, sum(ms for ms, _ in by_name.values()), by_name
 
 
+def fresh_states(cfg, device):
+    """A function that returns, at each call, a new train state of ``cfg``
+    at step 0 from the same seeded weights (seed 0, the attention
+    projections at their true fan-in) in ``cfg.dtype``."""
+    params0 = true_fan_in(steps.init_params(cfg, 0, device), cfg)
+
+    def fresh():
+        params = tree_map_with_path(lambda _, t: t.clone(), params0)
+        return steps.TrainState(torch.zeros((), dtype=torch.int32, device=device), params,
+                                adamw.init(params))
+
+    return fresh
+
+
 def phase_train(failures):
     """smollm-360m training at full width (32 layers, stacked layout,
     remat full, bf16, seeded weights with the attention projections at
@@ -1079,16 +1195,10 @@ def phase_train(failures):
     device = torch.device("cuda")
     deterministic(device)  # use_deterministic_algorithms from here on
     cfg = get_config("smollm-360m")
-    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+    opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
     data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
     batches = [data.batch_at(i) for i in range(TRAIN_STEPS + 1)]
-    params0 = true_fan_in(steps.init_params(cfg, 0, device), cfg)
-
-    def fresh():
-        params = tree_map_with_path(lambda _, t: t.clone(), params0)
-        return steps.TrainState(torch.zeros((), dtype=torch.int32, device=device), params,
-                                adamw.init(params))
-
+    fresh = fresh_states(cfg, device)
     step_fn = steps.make_train_step(cfg, opt_cfg)
     _, plain = steps.make_train_step(cfg, opt_cfg, force="ref")(fresh(), batches[0])
     plain = {k: float(v) for k, v in plain.items()}
@@ -1134,7 +1244,13 @@ def phase_train(failures):
     del again
 
     _, wall_ms, busy_ms, by_name = profile_step(step_fn, state, batches[TRAIN_STEPS])
-    bwd_ms = sum(t for name, (t, _) in by_name.items() if "flash_bwd" in name)
+    bwd_split = {}  # the backward's kernels, by their names in the source
+    for name, (t, runs) in by_name.items():
+        found = BWD_KERNEL.search(name)
+        if found:
+            ms, count = bwd_split.get(found.group(0), (0.0, 0))
+            bwd_split[found.group(0)] = (ms + t, count + runs)
+    bwd_ms = sum(t for t, _ in bwd_split.values())
     fwd_ms = sum(t for name, (t, _) in by_name.items() if "flash_fwd" in name)
     n_kernels = sum(n for _, n in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
@@ -1144,6 +1260,7 @@ def phase_train(failures):
            "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "busy_share": busy_ms / wall_ms, "flash_bwd_ms": bwd_ms, "flash_fwd_ms": fwd_ms,
            "kernels_per_step": n_kernels,
+           "flash_bwd_by_kernel_ms": {n: t for n, (t, _) in bwd_split.items()},
            "loss": [m["loss"] for m in metrics], "grad_norm": [m["grad_norm"] for m in metrics],
            "plain_step0": {k: plain[k] for k in ("loss", "grad_norm")}}
     print(f"smollm-360m train B{TRAIN_BATCH} S{TRAIN_SEQ} remat full bf16: step "
@@ -1151,11 +1268,56 @@ def phase_train(failures):
           f"{out['tokens_per_s']:,.0f} tok/s, peak device memory {peak_gib:.2f} GiB; profiled "
           f"step wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
           f"({100 * out['busy_share']:.1f}%), of it flash backward {bwd_ms:.2f} ms "
-          f"({100 * bwd_ms / busy_ms:.1f}%), flash forward {fwd_ms:.2f} ms; {n_kernels} "
-          "kernels in the step")
+          f"({100 * bwd_ms / busy_ms:.1f}%: "
+          + ", ".join(f"{n} {t:.2f} ms ({c})" for n, (t, c) in sorted(bwd_split.items()))
+          + f"), flash forward {fwd_ms:.2f} ms; {n_kernels} kernels in the step")
     print("smollm-360m train device time by kernel (profiled step, top 8): "
           + "; ".join(f"{name[:60]} {t:.2f} ms ({n})" for name, (t, n) in top))
     return launches, out
+
+
+def phase_train_fp32(failures):
+    """The fp32 flash routes' train path: one smollm-360m train step at full
+    width in fp32 (the same seeded true-fan-in weights and first batch as
+    phase_train) through the kernels, with the launch counts set to 0 just
+    before and read just after (64 forward and 32 backward flash launches,
+    all on the fp32 routes since every input is fp32), and its loss and grad
+    norm against the same step on the plain versions within
+    TRAIN_TOL_FP32. It is the one path through the model's entry points
+    that launches the fp32 backward route, so the launches of that route's
+    entry in the kernels line are a path's count. Returns the launches."""
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    cfg = get_config("smollm-360m").replace(dtype="float32")
+    opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)).batch_at(0)
+    fresh = fresh_states(cfg, device)
+    _, plain = steps.make_train_step(cfg, opt_cfg, force="ref")(fresh(), batch)
+    plain = {k: float(v) for k, v in plain.items()}
+    step_fn = steps.make_train_step(cfg, opt_cfg)
+    state = fresh()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, got = step_fn(state, batch)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    launches = ops.launch_counts()
+    expect_launches("smollm-360m fp32 train step (the fp32 backward route's main path)",
+                    launches, {"flash_attention": 2 * cfg.n_layers,
+                               "flash_attention_bwd": cfg.n_layers, "rglru_scan": 0}, failures)
+    for key in ("loss", "grad_norm"):
+        value = float(got[key])
+        rel = abs(value - plain[key]) / abs(plain[key])
+        ok = rel <= TRAIN_TOL_FP32 and math.isfinite(value)
+        print(f"smollm-360m fp32 train step 0 {key}: kernels {value:.6f}, plain "
+              f"{plain[key]:.6f}, relative difference {rel:.2e} tol {TRAIN_TOL_FP32} "
+              f"{'ok' if ok else 'FAIL'} (step {step_ms:.1f} ms, first call)")
+        if not ok:
+            failures.append(f"smollm-360m fp32 train step 0 {key}: {value} vs plain {plain[key]}")
+    print(f"smollm-360m fp32 train phase: {time.perf_counter() - t_phase:.1f} s "
+          "(weights, the plain step and the kernels' step)")
+    return launches
 
 
 class MemoryStore:
@@ -1264,7 +1426,8 @@ def kernel_entry(name, source, replaces, launches, timings, primary, worst):
     row = timings[primary]
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     extra = ("eager_ms", "eager_library_ms", "same_bytes_add_ms", "gb_s", "share_of_bound",
-             "cuda_core_bound_ms", "cuda_core_bound_by", "sdpa_fwd_ms", "sdpa_fwd_bwd_ms")
+             "cuda_core_bound_ms", "cuda_core_bound_by", "sdpa_fwd_ms", "sdpa_fwd_bwd_ms",
+             "kernel_split_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.values()), "launches_by_path": launches,
             "max_abs_err": row["max_abs_err"], "worst_case_max_abs_err": worst,
@@ -1303,6 +1466,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches, train_metrics = phase_train(failures)
     torch.cuda.empty_cache()
+    fp32_train_launches = phase_train_fp32(failures)
+    torch.cuda.empty_cache()
     learner_launches = phase_crash_resume(failures)
     train_paths = {"smollm-360m train": train_launches,
                    "smollm tiny learner crash-resume": learner_launches}
@@ -1314,23 +1479,30 @@ def main() -> int:
                       "recurrentgemma-2b": rg_launches["flash_attention"],
                       **{p: n["flash_attention"] for p, n in train_paths.items()}},
                      flash_t[torch.bfloat16], "smollm B8 S512", flash_worst[torch.bfloat16]),
-        # the fp32 route, launched by the fp32 prefills of check_logits
+        # the fp32 route, launched by the fp32 prefills of check_logits and
+        # the fp32 train step
         kernel_entry("flash_attention_fp32", "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:36",
                      {"smollm-360m fp32 prefill": sm_fp32_launches["flash_attention"],
-                      "recurrentgemma-2b fp32 prefill": rg_fp32_launches["flash_attention"]},
+                      "recurrentgemma-2b fp32 prefill": rg_fp32_launches["flash_attention"],
+                      "smollm-360m fp32 train step": fp32_train_launches["flash_attention"]},
                      flash_t[torch.float32], "smollm B8 S512", flash_worst[torch.float32]),
         kernel_entry("rglru_scan", "src/repro_torch/csrc/rglru.cu",
                      "src/repro/kernels/rglru.py:31",
                      {"recurrentgemma-2b": rg_launches["rglru_scan"]},
                      scan_t, "recurrentgemma B8 S512", scan_worst),
-        # the backward of the flash forward, launched by the train paths
-        # (the JAX package trains through autodiff of the jnp twin of the
-        # TPU kernel it names)
-        kernel_entry("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+        # the backward of the flash forward (the JAX package trains through
+        # autodiff of the jnp twin of the TPU kernel it names): the bf16
+        # route, launched by the train paths, and the fp32 route, launched by
+        # the fp32 train step
+        kernel_entry("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
                      "src/repro/kernels/flash_attention.py:36",
                      {p: n["flash_attention_bwd"] for p, n in train_paths.items()},
-                     bwd_t, "smollm train B8 S512", bwd_worst),
+                     bwd_t[torch.bfloat16], "smollm train B8 S512", bwd_worst[torch.bfloat16]),
+        kernel_entry("flash_attention_bwd_fp32", "src/repro_torch/csrc/flash_attention_bwd.cu",
+                     "src/repro/kernels/flash_attention.py:36",
+                     {"smollm-360m fp32 train step": fp32_train_launches["flash_attention_bwd"]},
+                     bwd_t[torch.float32], BWD_FP32, bwd_worst[torch.float32]),
     ]
     print(f"card: {card}; smollm-360m: {json.dumps(sm_metrics)}; "
           f"recurrentgemma-2b: {json.dumps(rg_metrics)}; "

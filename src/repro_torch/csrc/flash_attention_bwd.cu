@@ -1,27 +1,26 @@
-// Flash-attention backward for Hopper (sm_90a), bf16 or fp32, written by
-// hand: products on the CUDA cores in fp32, fed from shared memory.
+// Flash-attention backward for fp32 inputs on Hopper (sm_90a), written by
+// hand: products on the CUDA cores in fp32, fed from shared memory. bf16
+// inputs, which the train paths give, take the tensor-core backward in
+// flash_attention_bwd_sm90.cu.
 //
 // The TPU side has no backward kernel: the JAX package trains through
 // autodiff of the jnp twin of src/repro/kernels/flash_attention.py:
 // _flash_kernel (src/repro/nn/attention.py:flash_attention). This is the
-// backward of the port's forward kernels (flash_attention_sm90.cu for bf16,
-// flash_attention.cu for fp32), bound to them by FlashAttentionFn in
-// kernels/flash_attention.py. Same function as the forward: GQA over
-// q (B, H, Sq, D) and k/v (B, KV, Skv, D), H % KV == 0, causal, local-window
-// (q_pos - k_pos < window) or bidirectional masks, an absolute q_offset, any
-// Sq and Skv, head_dim 16, 32, 64 or 128 (256 is recurrentgemma's, whose
-// training waits for the scan's backward). Its plain version is
+// backward of the port's fp32 forward (flash_attention.cu), bound to it by
+// FlashAttentionFn in kernels/flash_attention.py. Same function as the
+// forward: GQA over q (B, H, Sq, D) and k/v (B, KV, Skv, D), H % KV == 0,
+// causal, local-window (q_pos - k_pos < window) or bidirectional masks, an
+// absolute q_offset, any Sq and Skv, head_dim 16, 32, 64 or 128 (256 is
+// recurrentgemma's, whose training is ROADMAP A.9). Its plain version is
 // kernels/ref.py:flash_attention_bwd_ref, the explicit formulas below.
 //
 // What it computes, from q, k, v, the forward's output o, the output's
 // gradient do and the forward's fp32 row logsumexp lse (natural log):
-//   Δ = rowsum(dO∘O)                    (in fp32, from o as the forward rounded it)
-//   P = exp(S·scale - lse)              (recomputed in fp32, 0 where masked)
+//   Δ = rowsum(dO∘O)
+//   P = exp(S·scale - lse)              (0 where masked)
 //   dV = Pᵀ·dO,  dP = dO·Vᵀ,  dS = P∘(dP - Δ)
 //   dQ = dS·K·scale,  dK = dSᵀ·Q·scale  (a GQA group's heads summed into dK, dV)
-// The bf16 forward rounds the unnormalized probabilities to bf16 as the A
-// operand of P.V; this backward recomputes P in fp32 and never rounds it:
-// the standard FlashAttention-2 practice, within the bf16 tolerance.
+// all in fp32.
 //
 // Deterministic, with no atomics: the FlashAttention-2 split into three
 // kernels, each output element summed by one thread in a fixed order.
@@ -42,22 +41,20 @@
 //
 // What bounds it on this card. The five products (S, dP, dV, dQ, dK) are
 // 10·D FLOP per unmasked (query, key) pair and head; the bytes are q, o, do,
-// dq, k, v, dk, dv once each and the fp32 lse. At smollm-360m's training
-// shape B8 H15 KV5 S512 D64 bf16 causal that is 10.09 GFLOP (0.0102 ms at
-// 989 TFLOP/s) and 42.19 MB (0.0126 ms at 3.35 TB/s): the bytes bound it. But
-// this first kernel runs its products on the CUDA cores (67 TFLOP/s fp32),
-// seven of them (S and dP in both kernels: the price of no atomics), so
-// 14.1 GFLOP there take 0.21 ms at best: the operations bound this design,
-// and the tensor-core redesign (mma or wgmma for the bf16 route) is a later
-// PR's work (ROADMAP). Its shape: 256 threads a block as 16 x 16, each
-// thread owning a 4 x 4 sub-tile of a 64 x 64 score tile (rows ty + 16i,
-// columns tx + 16j, so a warp reads 16 distinct rows of the key-side tile
-// and two of the query-side one) and 4 x D/16 elements of a 64 x D output
-// tile. Tiles live in shared memory as fp32 with rows padded by one float
+// dq, k, v, dk, dv once each and the fp32 lse. At B8 H15 KV5 S512 D64 fp32
+// causal that is 10.09 GFLOP, 0.151 ms at the CUDA cores' 67 TFLOP/s, and
+// 84.13 MB (0.025 ms at 3.35 TB/s): the operations bound it. This design runs
+// seven products (S and dP in both tile kernels: the price of no atomics),
+// 14.1 GFLOP, 0.21 ms at best. Its shape: 256 threads a block as 16 x 16,
+// each thread owning a 4 x 4 sub-tile of a 64 x 64 score tile (rows ty +
+// 16i, columns tx + 16j, so a warp reads 16 distinct rows of the key-side
+// tile and two of the query-side one) and 4 x D/16 elements of a 64 x D
+// output tile. Tiles live in shared memory with rows padded by one float
 // (odd strides: no bank conflicts between the 16 rows a warp reads). Shared
-// memory: 98 KB a block at D = 64 (two blocks a SM), 162 KB at D = 128.
+// memory: 98 KB a block at D = 64 (two blocks a SM), 162 KB at D = 128. Its
+// redesign on the tensor cores (split-TF32, as the fp32 forward) is ROADMAP
+// B.1's.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -66,17 +63,6 @@ namespace {
 constexpr int BM = 64;        // query rows a tile
 constexpr int BN = 64;        // keys a tile
 constexpr int THREADS = 256;  // 16 x 16
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <int D>
 struct Cfg {
@@ -91,12 +77,12 @@ struct Cfg {
 
 // Rows [r0, r0 + ROWS) of a contiguous (S, D) matrix into a tile of stride
 // D + 1 floats, times mul; rows past S are zeros.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, int r0, int S,
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int r0, int S,
                                           float mul, int tid) {
   for (int i = tid; i < ROWS * D; i += THREADS) {
     const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = r0 + r < S ? to_f(src[(size_t)(r0 + r) * D + c]) * mul : 0.f;
+    dst[r * (D + 1) + c] = r0 + r < S ? src[(size_t)(r0 + r) * D + c] * mul : 0.f;
   }
 }
 
@@ -135,26 +121,27 @@ __device__ __forceinline__ bool visible(int qi, int kp, int Sq, int Skv, int cau
 }
 
 // Δ = rowsum(dO∘O) in fp32, one warp a row.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
-                int rows) {
+flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
+                float* __restrict__ delta, int rows) {
   const int row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= rows) return;
   float acc = 0.f;
   for (int d = lane; d < D; d += 32)
-    acc = fmaf(to_f(dout[(size_t)row * D + d]), to_f(o[(size_t)row * D + d]), acc);
+    acc = fmaf(dout[(size_t)row * D + d], o[(size_t)row * D + d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[row] = acc;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const T* __restrict__ dout, const float* __restrict__ lse,
-               const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int H,
-               int KV, int Sq, int Skv, int causal, int window, int q_offset, float scale) {
+flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ dk, float* __restrict__ dv, int H, int KV, int Sq, int Skv,
+               int causal, int window, int q_offset, float scale) {
   using C = Cfg<D>;
   constexpr int LD = C::LD, LDS = C::LDS, DC = C::DC;
   extern __shared__ float smem[];
@@ -170,8 +157,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int n0 = blockIdx.x * BN;  // the tile's first key
   const int bkv = blockIdx.y, b = bkv / KV, kvh = bkv % KV, G = H / KV;
-  load_rows<T, D, BN>(ks, k + (size_t)bkv * Skv * D, n0, Skv, 1.f, tid);
-  load_rows<T, D, BN>(vs, v + (size_t)bkv * Skv * D, n0, Skv, 1.f, tid);
+  load_rows<D, BN>(ks, k + (size_t)bkv * Skv * D, n0, Skv, 1.f, tid);
+  load_rows<D, BN>(vs, v + (size_t)bkv * Skv * D, n0, Skv, 1.f, tid);
 
   // Query rows that see any key of the tile: at or past the tile's first
   // key (causal), and before its last key's window ends.
@@ -188,13 +175,13 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 
   for (int g = 0; g < G; ++g) {
     const size_t bh = (size_t)b * H + (size_t)kvh * G + g;
-    const T* qp = q + bh * Sq * D;
-    const T* dop = dout + bh * Sq * D;
+    const float* qp = q + bh * Sq * D;
+    const float* dop = dout + bh * Sq * D;
     for (int t = t_lo; t < t_hi; ++t) {
       const int m0 = t * BM;
       __syncthreads();  // K and V landed; the last tile's readers are done
-      load_rows<T, D, BM>(qs, qp, m0, Sq, scale, tid);
-      load_rows<T, D, BM>(dos, dop, m0, Sq, 1.f, tid);
+      load_rows<D, BM>(qs, qp, m0, Sq, scale, tid);
+      load_rows<D, BM>(dos, dop, m0, Sq, 1.f, tid);
       if (tid < BM) {
         const bool in = m0 + tid < Sq;
         ls[tid] = in ? lse[bh * Sq + m0 + tid] : 0.f;
@@ -240,27 +227,28 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     }
   }
 
-  T* dkp = dk + (size_t)bkv * Skv * D;
-  T* dvp = dv + (size_t)bkv * Skv * D;
+  float* dkp = dk + (size_t)bkv * Skv * D;
+  float* dvp = dv + (size_t)bkv * Skv * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = n0 + ty + 16 * i;
     if (key < Skv) {
 #pragma unroll
       for (int j = 0; j < DC; ++j) {
-        dkp[(size_t)key * D + tx + 16 * j] = from_f<T>(dka[i][j]);
-        dvp[(size_t)key * D + tx + 16 * j] = from_f<T>(dva[i][j]);
+        dkp[(size_t)key * D + tx + 16 * j] = dka[i][j];
+        dvp[(size_t)key * D + tx + 16 * j] = dva[i][j];
       }
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             const T* __restrict__ dout, const float* __restrict__ lse,
-             const float* __restrict__ delta, T* __restrict__ dq, int H, int KV, int Sq, int Skv,
-             int causal, int window, int q_offset, float scale) {
+flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             float* __restrict__ dq, int H, int KV, int Sq, int Skv, int causal, int window,
+             int q_offset, float scale) {
   using C = Cfg<D>;
   constexpr int LD = C::LD, LDS = C::LDS, DC = C::DC;
   extern __shared__ float smem[];
@@ -276,8 +264,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int m0 = (gridDim.x - 1 - blockIdx.x) * BM;  // heaviest query tiles first
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const size_t bkv = (size_t)b * KV + h / (H / KV);
-  load_rows<T, D, BM>(qs, q + (size_t)bh * Sq * D, m0, Sq, scale, tid);
-  load_rows<T, D, BM>(dos, dout + (size_t)bh * Sq * D, m0, Sq, 1.f, tid);
+  load_rows<D, BM>(qs, q + (size_t)bh * Sq * D, m0, Sq, scale, tid);
+  load_rows<D, BM>(dos, dout + (size_t)bh * Sq * D, m0, Sq, 1.f, tid);
   if (tid < BM) {
     const bool in = m0 + tid < Sq;
     ls[tid] = in ? lse[(size_t)bh * Sq + m0 + tid] : 0.f;
@@ -290,8 +278,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int n_hi = causal ? min(Skv, qpos_last + 1) : Skv;
   const int n_lo = window > 0 ? max(0, qpos_first - window + 1) : 0;
   const int t_lo = n_lo / BN, t_hi = n_hi > n_lo ? (n_hi + BN - 1) / BN : t_lo;
-  const T* kp = k + bkv * Skv * D;
-  const T* vp = v + bkv * Skv * D;
+  const float* kp = k + bkv * Skv * D;
+  const float* vp = v + bkv * Skv * D;
 
   float dqa[4][DC];
 #pragma unroll
@@ -302,8 +290,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   for (int t = t_lo; t < t_hi; ++t) {
     const int n0 = t * BN;
     __syncthreads();  // Q, dO, lse, Δ landed; the last tile's readers are done
-    load_rows<T, D, BN>(ks, kp, n0, Skv, 1.f, tid);
-    load_rows<T, D, BN>(vs, vp, n0, Skv, 1.f, tid);
+    load_rows<D, BN>(ks, kp, n0, Skv, 1.f, tid);
+    load_rows<D, BN>(vs, vp, n0, Skv, 1.f, tid);
     __syncthreads();
     float s[4][4], dp[4][4];
     tile_product<D>(s, qs, ks, ty, tx);
@@ -333,64 +321,50 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     }
   }
 
-  T* dqp = dq + (size_t)bh * Sq * D;
+  float* dqp = dq + (size_t)bh * Sq * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = m0 + ty + 16 * i;
     if (r < Sq) {
 #pragma unroll
-      for (int j = 0; j < DC; ++j) dqp[(size_t)r * D + tx + 16 * j] = from_f<T>(dqa[i][j] * scale);
+      for (int j = 0; j < DC; ++j) dqp[(size_t)r * D + tx + 16 * j] = dqa[i][j] * scale;
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
                    int KV, int Sq, int Skv, int causal, int window, int q_offset, float scale,
                    cudaStream_t stream) {
   using C = Cfg<D>;
-  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
-          *vt = static_cast<const T*>(v), *ot = static_cast<const T*>(o),
-          *dot = static_cast<const T*>(dout);
+  const float *qt = static_cast<const float*>(q), *kt = static_cast<const float*>(k),
+          *vt = static_cast<const float*>(v), *ot = static_cast<const float*>(o),
+          *dot = static_cast<const float*>(dout);
   const long long rows = (long long)B * H * Sq;
   const long long delta_blocks = (rows + THREADS / 32 - 1) / (THREADS / 32);
   const int q_tiles = (Sq + BM - 1) / BM, k_tiles = (Skv + BN - 1) / BN;
   if (delta_blocks > 0x7fffffffLL || (long long)B * H > 65535 || q_tiles > 0x7fffffff ||
       k_tiles > 0x7fffffff)
     return cudaErrorInvalidValue;
-  flash_bwd_delta<T, D><<<(unsigned)delta_blocks, THREADS, 0, stream>>>(ot, dot, delta, (int)rows);
+  flash_bwd_delta<D><<<(unsigned)delta_blocks, THREADS, 0, stream>>>(ot, dot, delta, (int)rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(flash_bwd_dkdv<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)C::SMEM_KV);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(flash_bwd_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)C::SMEM_Q);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv<T, D><<<dim3(k_tiles, B * KV), THREADS, C::SMEM_KV, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, KV, Sq, Skv,
+  flash_bwd_dkdv<D><<<dim3(k_tiles, B * KV), THREADS, C::SMEM_KV, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), H, KV, Sq, Skv,
       causal, window, q_offset, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq<T, D><<<dim3(q_tiles, B * H), THREADS, C::SMEM_Q, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), H, KV, Sq, Skv, causal, window,
+  flash_bwd_dq<D><<<dim3(q_tiles, B * H), THREADS, C::SMEM_Q, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<float*>(dq), H, KV, Sq, Skv, causal, window,
       q_offset, scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v, const void* o,
-                     const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                     void* dv, int B, int H, int KV, int Sq, int Skv, int causal, int window,
-                     int q_offset, float scale, cudaStream_t s) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -407,26 +381,25 @@ extern "C" int flash_attention_bwd_smem_bytes(int D) {
   }
 }
 
-// q, o, do, dq (B, H, Sq, D); k, v, dk, dv (B, KV, Skv, D): contiguous, one
-// dtype (dtype 0: fp32, 1: bf16). lse and the scratch delta: (B, H, Sq)
-// fp32. Three launches on `stream`; returns cudaGetLastError() after the
-// last (0 on success).
+// q, o, do, dq (B, H, Sq, D); k, v, dk, dv (B, KV, Skv, D): fp32,
+// contiguous. lse and the scratch delta: (B, H, Sq) fp32. Three launches on
+// `stream`; returns cudaGetLastError() after the last (0 on success).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, int B, int H, int KV, int Sq, int Skv,
                                    int D, int causal, int window, int q_offset, float scale,
-                                   int dtype, void* stream) {
+                                   void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Skv <= 0 || q_offset < 0 ||
       window < 0)
     return (int)cudaErrorInvalidValue;
   const float* lf = static_cast<const float*>(lse);
   float* df = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch<float>(D, q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv,
-                                causal, window, q_offset, scale, s);
-  if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(D, q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq,
-                                        Skv, causal, window, q_offset, scale, s);
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 16: return (int)launch<16>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 32: return (int)launch<32>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 64: return (int)launch<64>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 128: return (int)launch<128>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,0 +1,596 @@
+// Flash-attention backward in bf16 for Hopper (sm_90a): tensor-core products
+// with wgmma, TMA loads into swizzled shared memory, a ring of streamed tiles
+// on mbarriers, a producer warpgroup and a consumer warpgroup. Written by hand.
+//
+// The TPU side has no backward kernel: the JAX package trains through
+// autodiff of the jnp twin of src/repro/kernels/flash_attention.py:
+// _flash_kernel (src/repro/nn/attention.py:flash_attention). This is the
+// backward of the bf16 forward (flash_attention_sm90.cu), bound to it by
+// FlashAttentionFn in kernels/flash_attention.py; fp32 inputs take the
+// CUDA-core backward in flash_attention_bwd.cu. Same function as the
+// forward: GQA over q (B, H, Sq, D) and k/v (B, KV, Skv, D), H % KV == 0,
+// causal, local-window (q_pos - k_pos < window) or bidirectional masks, an
+// absolute q_offset, any Sq and Skv, head_dim 16, 32, 64 or 128 (256 is
+// recurrentgemma's, whose training is ROADMAP A.9). Its plain version is
+// kernels/ref.py:flash_attention_bwd_ref.
+//
+// What it computes, from q, k, v, the forward's output o, the output's
+// gradient do and the forward's fp32 row logsumexp lse (natural log):
+//   Δ = rowsum(dO∘O)                      (fp32, from o as the forward rounded it)
+//   P = exp(S·scale - lse)                (fp32, 0 where masked)
+//   dV = Pᵀ·dO,  dP = dO·Vᵀ,  dS = P∘(dP - Δ)
+//   dQ = dS·K·scale,  dK = dSᵀ·Q·scale    (a GQA group's heads summed into dK, dV)
+// Rounding: the products take bf16 operands and accumulate in fp32. P is
+// rounded to bf16 for dV = Pᵀ·dO, where autodiff of the reference's twin
+// rounds it (its P·V takes p.astype(v.dtype), src/repro/nn/attention.py:95);
+// dS is rounded to bf16 for dK and dQ, which the twin does not do (its bound
+// is tests/test_torch_kernels.py's model of this arithmetic). The scale is
+// applied in fp32: folded with log2(e) into the exponent of P, and on the
+// fp32 sums of dQ and dK before they are rounded to bf16.
+//
+// Deterministic, with no atomics: the FlashAttention-2 split into three
+// kernels, each output element summed by one thread in a fixed order.
+//   1. flash_bwd_delta_sm90: Δ, D/8 threads a row, 16 bytes each, summed
+//      over a fixed shuffle tree.
+//   2. flash_bwd_dkdv_sm90: one block a (b, kv head, key tile of 64). It
+//      keeps its K and V tiles and the dK, dV accumulators (registers) and
+//      walks the G query heads of its group, then the query tiles that see
+//      any of its keys, in that order, streaming Q, dO and the rows' lse and
+//      Δ through the ring.
+//   3. flash_bwd_dq_sm90: one block a (b, q head, query tile of 64). It keeps
+//      Q, dO, the rows' lse and Δ and walks the key tiles its rows see,
+//      streaming K and V through the ring.
+// Two launches on the same inputs give the same bits. The masks skip tiles as
+// the forward's do; partial tiles are masked per element. Rows past Sq and
+// keys past Skv load as zeros (TMA fills them) and get probability 0.
+//
+// What bounds it on this card. The five products (S, dP, dV, dQ, dK) are
+// 10·D FLOP per unmasked (query, key) pair and head; the bytes are q, o, do,
+// dq, k, v, dk, dv once each and the fp32 lse. At smollm-360m's training
+// shape B8 H15 KV5 S512 D64 bf16 causal that is 10.09 GFLOP (0.0102 ms at
+// 989 TFLOP/s) and 42.19 MB (0.0126 ms at 3.35 TB/s): the bytes bound it. At
+// B8 S2048 it is 161.1 GFLOP (0.163 ms) and 168.8 MB (0.050 ms): the
+// operations. The split does seven products a pair, not five (S and dP in
+// both tile kernels), and computes whole tiles on the causal diagonal, so
+// this design's own floor is 1.4× the operations bound and more.
+//
+// What the design does about what made the first, CUDA-core bf16 backward
+// slow (flash_attention_bwd.cu, which now serves fp32 inputs only):
+//   * fp32 widening in shared memory: gone. Q, K, V and dO stay bf16, in
+//     tiles that TMA loads into swizzled panels of PW = min(D, 64) columns
+//     (one 32-, 64- or 128-byte swizzle span, each panel on a 1024-byte
+//     boundary), the layout the wgmma descriptors read (sm90.cuh).
+//   * scalar fmaf products: all seven are wgmma m64nNk16, bf16 in, fp32
+//     accumulated in registers. The dK/dV kernel computes its tiles
+//     transposed, keys as rows: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ are SS wgmmas
+//     (K, V, Q, dO all K-major over D); Pᵀ and dSᵀ then sit in registers
+//     with keys as rows, which is the A-operand fragment of dV += Pᵀ·dO and
+//     dK += dSᵀ·Q once packed to bf16x2 (as the forward packs P), with dO
+//     and Q read again from the same shared tiles as MN-major B operands
+//     (the transpose bit). The dQ kernel computes S = Q·Kᵀ and dP = dO·Vᵀ
+//     and adds dS·K, dS from registers, K as the MN-major B operand.
+//   * synchronous loads between __syncthreads: warpgroup 0 is the producer
+//     (setmaxnreg down to 40 registers). One thread issues the TMA loads of
+//     a stage once its empty barrier has flipped; in the dK/dV kernel the
+//     producer warp also copies the stage's lse (times log2 e; +inf past Sq,
+//     so those columns get P = 0 with no mask) and Δ into shared memory and
+//     arrives on the same full barrier. The consumer warpgroup (up to 216
+//     registers) waits on the full barrier, runs its products and releases
+//     the stage, so the next tile's copy overlaps this tile's products.
+//   * 98 KB of fp32 tiles a block: a block now holds two resident 64 x D
+//     tiles and two stages of two streamed tiles, all bf16 (Cfg::SMEM_KV,
+//     SMEM_Q): 50.0 KB at D = 64, 97.0 KB at D = 128, so two blocks share a
+//     SM at every head dim and one's exponentials overlap the other's
+//     products.
+//   * unequal blocks in key order: the dK/dV grid puts the key tile on its
+//     slowest axis, key tile 0 first, which under a causal mask is the
+//     heaviest; the dQ grid puts the last query tile first. The light
+//     tiles fill the last wave.
+// Registers of a consumer: dK and dV D/2 each, Sᵀ and dPᵀ KV_BN/2 each and
+// the bf16 fragments of Pᵀ and dSᵀ KV_BN/4 each; the dK/dV tile is 64
+// queries wide up to D = 64 and 32 at D = 128, so they stay under 216
+// (160 at D = 64, 176 at D = 128, before indices and addresses). Between
+// wgmma.fence and wait_group only wgmma instructions run (sm90.cuh:
+// fence_regs), and each group is waited out before its accumulators are
+// read: the forward's rule against ptxas serializing the wgmma (C7513).
+
+#include "sm90.cuh"  // mbarriers, TMA, wgmma, the tensor-map encoder
+
+namespace {
+
+constexpr int STAGES = 2;  // streamed-tile ring depth
+
+template <int D>
+struct Cfg {
+  static constexpr int PW = D < 64 ? D : 64;  // panel width in elements
+  static constexpr int SPAN = PW * 2;         // bytes of a panel row = swizzle span
+  static constexpr int NP = D / PW;           // panels across the head dim
+  static constexpr uint64_t LAYOUT = desc_layout(SPAN);
+  static constexpr CUtensorMapSwizzle SWIZZLE = tma_swizzle(SPAN);
+  // A consumer warpgroup owns BM resident rows (keys in dK/dV, queries in
+  // dQ) and walks streamed tiles of KV_BN queries (dK/dV) or Q_BN keys (dQ).
+  // At D = 128 the dK/dV tile is 32 queries wide, so its registers (dK, dV,
+  // Sᵀ, dPᵀ) fit under CONSUMER_REGS.
+  static constexpr int BM = 64;
+  static constexpr int KV_BN = D <= 64 ? 64 : 32;
+  static constexpr int Q_BN = 64;
+  static constexpr int THREADS = 2 * WG_THREADS;  // producer + consumer
+  static constexpr int MIN_BLOCKS = 2;
+  // setmaxnreg targets: two blocks a SM, so a block's 256 threads share
+  // 32,768 registers; the producer keeps enough for its warp's lse/Δ copy.
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 216;
+  static constexpr int RES_BYTES = BM * D * 2;           // one resident tile
+  static constexpr int KV_STREAM = KV_BN * D * 2;        // a streamed Q or dO tile
+  static constexpr int Q_STREAM = Q_BN * D * 2;          // a streamed K or V tile
+  static constexpr int STAT_BYTES = 2 * KV_BN * 4;       // a dK/dV stage's lse and Δ
+  static constexpr int BARRIERS = 1 + 2 * STAGES;        // resident full; full, empty per stage
+  // 1024 bytes of slack to align the tiles to the 128-byte swizzle's period.
+  static constexpr int SMEM_KV =
+      1024 + 2 * RES_BYTES + STAGES * (2 * KV_STREAM + STAT_BYTES) + 8 * BARRIERS;
+  static constexpr int SMEM_Q = 1024 + 2 * RES_BYTES + STAGES * 2 * Q_STREAM + 8 * BARRIERS;
+};
+
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
+
+// Whether a query at absolute position qpos sees the key at kpos.
+__device__ __forceinline__ bool visible(int qpos, int kpos, int causal, int window) {
+  return (!causal || qpos >= kpos) && (window <= 0 || qpos - kpos < window);
+}
+
+// acc (64 x N, fp32) = A . Bᵀ over D in k16 steps (no wait): A is 64 rows
+// at `a` in panels of a_rows rows, B is N rows at `b` in panels of N rows,
+// both K-major (rows of D bf16).
+template <int D, int N>
+__device__ __forceinline__ void issue_ss(float (&acc)[N / 2], uint32_t a, int a_rows,
+                                         uint32_t b) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int panel = (kk * 16) / C::PW;
+    const uint32_t off = ((kk * 16) % C::PW) * 2;  // bytes into the swizzle span
+    wgmma_ss<N>(acc, smem_desc(a + panel * a_rows * C::SPAN + off, 16, 8 * C::SPAN, C::LAYOUT),
+                smem_desc(b + panel * N * C::SPAN + off, 16, 8 * C::SPAN, C::LAYOUT), kk > 0);
+  }
+}
+
+// acc (64 x D, fp32) += A . B over K rows in k16 steps (no wait): A from
+// registers (bf16 fragments), B the K x D tile at `b` in panels of K rows,
+// read MN-major.
+template <int D, int K>
+__device__ __forceinline__ void issue_rs(float (&acc)[D / 2], const uint32_t (&a)[K / 16][4],
+                                         uint32_t b) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int ks = 0; ks < K / 16; ++ks)
+    wgmma_rs<D>(acc, a[ks], smem_desc(b + ks * 16 * C::SPAN, K * C::SPAN, 8 * C::SPAN, C::LAYOUT));
+}
+
+// One score tile's P and dS from S and dP, fragments of a 64 x N wgmma
+// accumulator (x[4j + 2hh + cc] is row g + 8hh, column 8j + 2quad + cc of
+// the tile), packed as the bf16 A fragments of the next products. With
+// KEY_ROWS (dK/dV) the rows are keys and the columns queries, whose log2 lse
+// and Δ are col_stat[8j + cc] and col_stat[N + 8j + cc] (col_stat already
+// offset by 2quad); else (dQ) the rows are queries with lse2[hh], dl[hh].
+// row_pos and col_pos are the positions of row g and column 2quad; the
+// masks apply only where need_mask is set.
+template <int N, bool KEY_ROWS>
+__device__ __forceinline__ void probs(const float (&s)[N / 2], const float (&dp)[N / 2],
+                                      uint32_t (&pa)[N / 16][4], uint32_t (&da)[N / 16][4],
+                                      float scale_log2, const float* col_stat,
+                                      const float (&lse2)[2], const float (&dl)[2],
+                                      bool need_mask, int row_pos, int col_pos, int Skv,
+                                      int causal, int window) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    float l2[4], d[4];
+    if (KEY_ROWS) {
+      const float2 cl = *reinterpret_cast<const float2*>(col_stat + 8 * j);
+      const float2 cd = *reinterpret_cast<const float2*>(col_stat + N + 8 * j);
+      l2[0] = l2[2] = cl.x;
+      l2[1] = l2[3] = cl.y;
+      d[0] = d[2] = cd.x;
+      d[1] = d[3] = cd.y;
+    } else {
+      l2[0] = l2[1] = lse2[0];
+      l2[2] = l2[3] = lse2[1];
+      d[0] = d[1] = dl[0];
+      d[2] = d[3] = dl[1];
+    }
+    float p[4], ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = exp2_approx(fmaf(s[4 * j + e], scale_log2, -l2[e]));
+      if (need_mask) {
+        const int rpos = row_pos + 8 * (e >> 1), cpos = col_pos + 8 * j + (e & 1);
+        const bool keep = KEY_ROWS ? visible(cpos, rpos, causal, window)
+                                   : cpos < Skv && visible(rpos, cpos, causal, window);
+        if (!keep) x = 0.f;
+      }
+      p[e] = x;
+      ds[e] = x * (dp[4 * j + e] - d[e]);
+    }
+    // Chunk j = 2ks + half: row g into registers 0 and 2, row g + 8 into 1 and 3.
+    pa[j / 2][2 * (j % 2) + 0] = pack_bf16(p[0], p[1]);
+    pa[j / 2][2 * (j % 2) + 1] = pack_bf16(p[2], p[3]);
+    da[j / 2][2 * (j % 2) + 0] = pack_bf16(ds[0], ds[1]);
+    da[j / 2][2 * (j % 2) + 1] = pack_bf16(ds[2], ds[3]);
+  }
+}
+
+// Rows row and row + 8 of a 64 x D accumulator, times mul, as bf16 into a
+// (S, D) matrix; rows at or past S are not written.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out,
+                                           const float (&acc)[D / 2], int row, int S, int quad,
+                                           float mul) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row + 8 * hh;
+    if (r < S) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * D + 8 * j + 2 * quad) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * hh] * mul, acc[4 * j + 2 * hh + 1] * mul);
+    }
+  }
+}
+
+// ---- the kernels -------------------------------------------------------------
+
+// Δ = rowsum(dO∘O) in fp32: D/8 threads a row, 8 elements (16 bytes) each.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_sm90(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                     float* __restrict__ delta, long long rows) {
+  constexpr int TPR = D / 8;
+  const long long row = (long long)blockIdx.x * (256 / TPR) + threadIdx.x / TPR;
+  const int part = threadIdx.x % TPR;
+  float acc = 0.f;
+  if (row < rows) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + row * D + 8 * part);
+    const uint4 dv = *reinterpret_cast<const uint4*>(dout + row * D + 8 * part);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = __bfloat1622float2(o2[i]), b = __bfloat1622float2(d2[i]);
+      acc = fmaf(b.x, a.x, acc);
+      acc = fmaf(b.y, a.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = TPR / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && part == 0) delta[row] = acc;
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
+flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int H, int KV, int Sq, int Skv, int causal,
+                    int window, int q_offset, float scale, float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int BM = C::BM, BN = C::KV_BN, SPAN = C::SPAN, PW = C::PW;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t s_k = (raw + 1023) & ~1023u;  // NP panels of BM rows
+  const uint32_t s_v = s_k + C::RES_BYTES;
+  const uint32_t s_q = s_v + C::RES_BYTES;  // STAGES x NP panels of BN rows
+  const uint32_t s_do = s_q + STAGES * C::KV_STREAM;
+  const uint32_t s_stat = s_do + STAGES * C::KV_STREAM;  // a stage: BN lse2, then BN Δ
+  float* const stat = reinterpret_cast<float*>(smem_raw + (s_stat - raw));
+  const uint32_t bars = s_stat + STAGES * C::STAT_BYTES;
+  const uint32_t kv_full = bars, full = bars + 8, empty = full + 8 * STAGES;
+
+  const int bkv = blockIdx.x, G = H / KV;
+  const int n0 = blockIdx.y * BM;  // the block's first key: tile 0 first (causal: heaviest)
+  // Query rows that see any key of the tile: at or past its first key
+  // (causal), before its last key's window ends.
+  const int n_last = min(n0 + BM, Skv) - 1;
+  const int m_lo = causal ? max(0, n0 - q_offset) : 0;
+  const int m_hi = window > 0 ? min(Sq, n_last + window - q_offset) : Sq;
+  const int t_lo = m_lo / BN, t_hi = m_hi > m_lo ? (m_hi + BN - 1) / BN : t_lo;
+  const int per_head = t_hi - t_lo, n_iter = G * per_head;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1 + 32);  // the TMA's expect_tx, then the producer warp's 32 lanes
+      mbar_init(empty + 8 * s, 4);      // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG_THREADS) {
+    // Producer: thread 0 issues the TMA loads, warp 0 copies lse and Δ.
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * C::RES_BYTES);
+#pragma unroll
+        for (int p = 0; p < C::NP; ++p) {
+          tma_load(s_k + p * BM * SPAN, &tm_k, kv_full, p * PW, n0, bkv);
+          tma_load(s_v + p * BM * SPAN, &tm_v, kv_full, p * PW, n0, bkv);
+        }
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % STAGES;
+        const int bh = bkv * G + it / per_head;  // = b H + kv_head G + g
+        const int m0 = (t_lo + it % per_head) * BN;
+        const uint32_t q_st = s_q + s * C::KV_STREAM, do_st = s_do + s * C::KV_STREAM;
+        mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);  // first round passes
+        if (lane == 0) {
+          mbar_expect_tx(full + 8 * s, 2 * C::KV_STREAM);
+#pragma unroll
+          for (int p = 0; p < C::NP; ++p) {
+            tma_load(q_st + p * BN * SPAN, &tm_q, full + 8 * s, p * PW, m0, bh);
+            tma_load(do_st + p * BN * SPAN, &tm_do, full + 8 * s, p * PW, m0, bh);
+          }
+        }
+        float* st = stat + s * 2 * BN;
+        for (int i = lane; i < BN; i += 32) {
+          const int r = m0 + i;
+          st[i] = r < Sq ? lse[(size_t)bh * Sq + r] * LOG2E : pos_inf();  // P = 0 past Sq
+          st[BN + i] = r < Sq ? delta[(size_t)bh * Sq + r] : 0.f;
+        }
+        mbar_arrive(full + 8 * s);
+      }
+    }
+  } else {
+    // Consumer: keys n0 .. n0 + 63, the rows of every tile it computes.
+    setmaxnreg_inc<C::CONSUMER_REGS>();
+    const int tid = threadIdx.x - WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32, quad = lane % 4;
+    const int key0 = n0 + 16 * warp + lane / 4;  // this thread's keys: key0 and key0 + 8
+    const float unused[2] = {0.f, 0.f};
+
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % STAGES;
+      const int qpos0 = q_offset + (t_lo + it % per_head) * BN;  // the tile's first query
+      const uint32_t q_st = s_q + s * C::KV_STREAM, do_st = s_do + s * C::KV_STREAM;
+      float sc[BN / 2], dp[BN / 2];
+      uint32_t pa[BN / 16][4], da[BN / 16][4];
+      mbar_wait(full + 8 * s, (it / STAGES) & 1);
+      wgmma_fence();
+      issue_ss<D, BN>(sc, s_k, BM, q_st);   // Sᵀ = K Qᵀ
+      issue_ss<D, BN>(dp, s_v, BM, do_st);  // dPᵀ = V dOᵀ
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      const bool need_mask = (causal && qpos0 < n0 + BM - 1) ||
+                             (window > 0 && qpos0 + BN - 1 - n0 >= window);
+      probs<BN, true>(sc, dp, pa, da, scale_log2, stat + s * 2 * BN + 2 * quad, unused, unused,
+                      need_mask, key0, qpos0 + 2 * quad, Skv, causal, window);
+      wgmma_fence();
+      issue_rs<D, BN>(dva, pa, do_st);  // dV += Pᵀ dO
+      issue_rs<D, BN>(dka, da, q_st);   // dK += dSᵀ Q
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+    store_rows<D>(dk + (size_t)bkv * Skv * D, dka, key0, Skv, quad, scale);
+    store_rows<D>(dv + (size_t)bkv * Skv * D, dva, key0, Skv, quad, 1.f);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
+flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                  const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int H, int KV,
+                  int Sq, int Skv, int causal, int window, int q_offset, float scale,
+                  float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int BM = C::BM, BN = C::Q_BN, SPAN = C::SPAN, PW = C::PW;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s_q = (smem_u32(smem_raw) + 1023) & ~1023u;  // NP panels of BM rows
+  const uint32_t s_do = s_q + C::RES_BYTES;
+  const uint32_t s_k = s_do + C::RES_BYTES;  // STAGES x NP panels of BN rows
+  const uint32_t s_v = s_k + STAGES * C::Q_STREAM;
+  const uint32_t bars = s_v + STAGES * C::Q_STREAM;
+  const uint32_t q_full = bars, full = bars + 8, empty = full + 8 * STAGES;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int bh_kv = b * KV + h / (H / KV);
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest query tiles first
+  // Keys that any row of the tile sees: up to the last row's diagonal
+  // (causal), from the first row's window start.
+  const int qpos_first = q_offset + m0, qpos_last = q_offset + min(m0 + BM, Sq) - 1;
+  const int n_hi = causal ? min(Skv, qpos_last + 1) : Skv;
+  const int n_lo = window > 0 ? max(0, qpos_first - window + 1) : 0;
+  const int t_lo = n_lo / BN, t_hi = n_hi > n_lo ? (n_hi + BN - 1) / BN : t_lo;
+  const int n_iter = t_hi - t_lo;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4);  // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG_THREADS) {
+    // Producer: one thread keeps the ring full.
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * C::RES_BYTES);
+#pragma unroll
+      for (int p = 0; p < C::NP; ++p) {
+        tma_load(s_q + p * BM * SPAN, &tm_q, q_full, p * PW, m0, bh);
+        tma_load(s_do + p * BM * SPAN, &tm_do, q_full, p * PW, m0, bh);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % STAGES;
+        const int k0 = (t_lo + it) * BN;
+        mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);  // first round passes
+        mbar_expect_tx(full + 8 * s, 2 * C::Q_STREAM);
+#pragma unroll
+        for (int p = 0; p < C::NP; ++p) {
+          tma_load(s_k + s * C::Q_STREAM + p * BN * SPAN, &tm_k, full + 8 * s, p * PW, k0, bh_kv);
+          tma_load(s_v + s * C::Q_STREAM + p * BN * SPAN, &tm_v, full + 8 * s, p * PW, k0, bh_kv);
+        }
+      }
+    }
+  } else {
+    // Consumer: query rows m0 .. m0 + 63.
+    setmaxnreg_inc<C::CONSUMER_REGS>();
+    const int tid = threadIdx.x - WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32, quad = lane % 4;
+    const int row0 = m0 + 16 * warp + lane / 4;  // this thread's rows: row0 and row0 + 8
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = row0 + 8 * hh;
+      lse2[hh] = r < Sq ? lse[(size_t)bh * Sq + r] * LOG2E : pos_inf();  // P = 0 past Sq
+      dl[hh] = r < Sq ? delta[(size_t)bh * Sq + r] : 0.f;
+    }
+
+    float dqa[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+    mbar_wait(q_full, 0);
+
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % STAGES;
+      const int k0 = (t_lo + it) * BN;
+      const uint32_t k_st = s_k + s * C::Q_STREAM, v_st = s_v + s * C::Q_STREAM;
+      float sc[BN / 2], dp[BN / 2];
+      uint32_t pa[BN / 16][4], da[BN / 16][4];
+      mbar_wait(full + 8 * s, (it / STAGES) & 1);
+      wgmma_fence();
+      issue_ss<D, BN>(sc, s_q, BM, k_st);   // S = Q Kᵀ
+      issue_ss<D, BN>(dp, s_do, BM, v_st);  // dP = dO Vᵀ
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      const bool need_mask = k0 + BN > Skv || (causal && qpos_first < k0 + BN - 1) ||
+                             (window > 0 && qpos_first + BM - 1 - k0 >= window);
+      probs<BN, false>(sc, dp, pa, da, scale_log2, nullptr, lse2, dl, need_mask,
+                       q_offset + row0, k0 + 2 * quad, Skv, causal, window);
+      wgmma_fence();
+      issue_rs<D, BN>(dqa, da, k_st);  // dQ += dS K
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+    store_rows<D>(dq + (size_t)bh * Sq * D, dqa, row0, Sq, quad, scale);
+  }
+}
+
+// ---- host side -------------------------------------------------------------
+
+// A map over a contiguous (BH, S, D) bf16 tensor, boxes of rows x PW.
+template <int D>
+bool make_map(CUtensorMap* map, const void* ptr, int S, int BH, int rows) {
+  return make_map_bf16(map, ptr, D, S, BH, Cfg<D>::PW, rows, Cfg<D>::SWIZZLE);
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
+                   int KV, int Sq, int Skv, int causal, int window, int q_offset, float scale,
+                   cudaStream_t stream) {
+  using C = Cfg<D>;
+  const long long rows = (long long)B * H * Sq;
+  const long long delta_blocks = (rows * (D / 8) + 255) / 256;
+  const int q_tiles = (Sq + C::BM - 1) / C::BM, k_tiles = (Skv + C::BM - 1) / C::BM;
+  if (delta_blocks > 0x7fffffffLL || q_tiles > 65535 || k_tiles > 65535)
+    return cudaErrorInvalidValue;
+  // Resident tiles of BM rows; streamed tiles of KV_BN queries and Q_BN keys.
+  CUtensorMap q_res, do_res, k_res, v_res, q_kv, do_kv, k_q, v_q;
+  if (!make_map<D>(&q_res, q, Sq, B * H, C::BM) || !make_map<D>(&do_res, dout, Sq, B * H, C::BM) ||
+      !make_map<D>(&k_res, k, Skv, B * KV, C::BM) || !make_map<D>(&v_res, v, Skv, B * KV, C::BM) ||
+      !make_map<D>(&q_kv, q, Sq, B * H, C::KV_BN) ||
+      !make_map<D>(&do_kv, dout, Sq, B * H, C::KV_BN) ||
+      !make_map<D>(&k_q, k, Skv, B * KV, C::Q_BN) || !make_map<D>(&v_q, v, Skv, B * KV, C::Q_BN))
+    return cudaErrorInvalidValue;
+  static unsigned long long kv_set = 0, q_set = 0;  // bit d: the limit is set on device d
+  cudaError_t err = allow_smem(flash_bwd_dkdv_sm90<D>, C::SMEM_KV, kv_set);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(flash_bwd_dq_sm90<D>, C::SMEM_Q, q_set);
+  if (err != cudaSuccess) return err;
+
+  flash_bwd_delta_sm90<D><<<(unsigned)delta_blocks, 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), delta, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = scale * LOG2E;
+  flash_bwd_dkdv_sm90<D><<<dim3(B * KV, k_tiles), C::THREADS, C::SMEM_KV, stream>>>(
+      q_kv, k_res, v_res, do_kv, lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), H, KV, Sq, Skv, causal, window, q_offset, scale,
+      scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_sm90<D><<<dim3(B * H, q_tiles), C::THREADS, C::SMEM_Q, stream>>>(
+      q_res, k_q, v_q, do_res, lse, delta, static_cast<__nv_bfloat16*>(dq), H, KV, Sq, Skv,
+      causal, window, q_offset, scale, scale_log2);
+  return cudaGetLastError();
+}
+
+template <int D>
+constexpr int smem_bytes() {
+  return Cfg<D>::SMEM_KV > Cfg<D>::SMEM_Q ? Cfg<D>::SMEM_KV : Cfg<D>::SMEM_Q;
+}
+
+}  // namespace
+
+// Dynamic shared memory of the larger of the two tile kernels' blocks at
+// head dim D, in bytes (-1 if D is not supported).
+extern "C" int flash_attention_bwd_sm90_smem_bytes(int D) {
+  switch (D) {
+    case 16: return smem_bytes<16>();
+    case 32: return smem_bytes<32>();
+    case 64: return smem_bytes<64>();
+    case 128: return smem_bytes<128>();
+    default: return -1;
+  }
+}
+
+// q, o, do, dq (B, H, Sq, D); k, v, dk, dv (B, KV, Skv, D): bf16,
+// contiguous, 16-byte aligned. lse and the scratch delta: (B, H, Sq) fp32.
+// Three launches on `stream`; returns cudaGetLastError() after the last (0
+// on success).
+extern "C" int flash_attention_bwd_sm90(const void* q, const void* k, const void* v,
+                                        const void* o, const void* dout, const void* lse,
+                                        void* delta, void* dq, void* dk, void* dv, int B, int H,
+                                        int KV, int Sq, int Skv, int D, int causal, int window,
+                                        int q_offset, float scale, void* stream) {
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Skv <= 0 || q_offset < 0 ||
+      window < 0 || (long long)B * H > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+       reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
+       reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  const float* lf = static_cast<const float*>(lse);
+  float* df = static_cast<float*>(delta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return (int)launch<16>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 32: return (int)launch<32>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 64: return (int)launch<64>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 128: return (int)launch<128>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C entry point (no PyTorch headers) and
 is compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repo
 root, a directory git ignores. The library's file name carries a hash of
-the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. Several sources build in parallel, one ``nvcc``
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. Several sources build in parallel, one ``nvcc``
 each. With no ``nvcc``, or a failed build, this raises.
 """
 
@@ -36,8 +36,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -15,13 +15,21 @@ bidirectional masks; absolute ``q_offset``; fp32 online softmax), at head_dim
 what bounds it on the card and what its design does about it. Their plain
 version is ``repro_torch.kernels.ref.flash_attention_ref``.
 
-The backward (``csrc/flash_attention_bwd.cu``, both dtypes, head_dim 16 to
-128) has no TPU counterpart: the JAX package trains through autodiff of its
-jnp twin. It is deterministic (the FlashAttention-2 split into a Δ pass, a
-dK/dV kernel and a dQ kernel, no atomics) and recomputes the probabilities
-from the forward's fp32 logsumexp, which the forward writes when asked
-(``return_lse``). ``FlashAttentionFn`` binds the two for autograd; its
-plain version is ``ref.flash_attention_bwd_ref``.
+The backward (head_dim 16 to 128) has no TPU counterpart: the JAX package
+trains through autodiff of its jnp twin. It takes one of two routes too
+(``BWD_ROUTES``):
+
+- bf16 takes ``csrc/flash_attention_bwd_sm90.cu``: all seven products on
+  wgmma, Q/K/V/dO tiles loaded by TMA into swizzled shared memory, a ring
+  of streamed tiles on mbarriers;
+- fp32 takes ``csrc/flash_attention_bwd.cu``: fp32 products on the CUDA
+  cores.
+
+Both are deterministic (the FlashAttention-2 split into a Δ pass, a dK/dV
+kernel and a dQ kernel, no atomics) and recompute the probabilities from
+the forward's fp32 logsumexp, which the forward writes when asked
+(``return_lse``). ``FlashAttentionFn`` binds forward and backward for
+autograd; the backward's plain version is ``ref.flash_attention_bwd_ref``.
 
 A library is built at its first launch (``_build``). The wrappers check
 what the kernels take (among it a 16-byte-aligned pointer, which TMA
@@ -40,10 +48,11 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 BWD_HEAD_DIMS = (16, 32, 64, 128)
-_BWD_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # dtype -> (source in csrc/, which is also its C entry points' prefix; route name)
 ROUTES = {torch.bfloat16: ("flash_attention_sm90", "cuda-wgmma"),
           torch.float32: ("flash_attention", "cuda-fp32")}
+BWD_ROUTES = {torch.bfloat16: ("flash_attention_bwd_sm90", "cuda-wgmma"),
+              torch.float32: ("flash_attention_bwd", "cuda-fp32")}
 
 
 @functools.cache
@@ -126,18 +135,22 @@ flash_attention_cuda.launches = 0  # kernel launches since the last reset
 
 
 @functools.cache
-def _bwd():
-    """The backward's C entry point, typed; its library is built at the first call."""
-    fn = _build.load("flash_attention_bwd").flash_attention_bwd
+def _bwd(dtype):
+    """The backward route's C entry point, typed; its library is built at
+    the first call."""
+    source, _ = BWD_ROUTES[dtype]
+    fn = getattr(_build.load(source), source)
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def bwd_smem_bytes(head_dim: int) -> int:
-    """Dynamic shared memory of the backward's larger block at ``head_dim``."""
-    fn = _build.load("flash_attention_bwd").flash_attention_bwd_smem_bytes
+def bwd_smem_bytes(head_dim: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of the larger of the two tile kernels' blocks
+    of ``dtype``'s backward route at ``head_dim``, from the source."""
+    source, _ = BWD_ROUTES[dtype]
+    fn = getattr(_build.load(source), f"{source}_smem_bytes")
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return fn(head_dim)
 
@@ -146,8 +159,10 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=0,
                              q_offset=0):
     """The attention backward on the card: (dq, dk, dv) in the inputs' dtype
     from q, k, v, the forward's o, its gradient ``do`` (all contiguous,
-    one dtype, bf16 or fp32) and the forward's fp32 ``lse`` (B, H, Sq).
-    head_dim 16 to 128. Two launches on the same inputs give the same bits."""
+    one dtype: bf16 takes the wgmma route, whose TMA loads need o and do
+    16-byte aligned too, fp32 the CUDA-core one) and the forward's fp32
+    ``lse`` (B, H, Sq). head_dim 16 to 128. Two launches on the same inputs
+    give the same bits."""
     _check(q, k, v)
     b, h, sq, d = q.shape
     if d not in BWD_HEAD_DIMS:
@@ -162,6 +177,10 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=0,
             raise ValueError(f"flash_attention_bwd_cuda: {name} must be contiguous "
                              f"{tuple(q.shape)} {q.dtype} on {q.device}, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd_cuda: {name} starts at a pointer that "
+                             "is not 16-byte aligned (TMA needs it); pass a fresh "
+                             "contiguous copy")
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or lse.device != q.device \
             or not lse.is_contiguous():
         raise ValueError(f"flash_attention_bwd_cuda: lse must be contiguous fp32 "
@@ -170,13 +189,13 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=0,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _bwd()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                     dv.data_ptr(), b, h, n_kv, sq, skv, d, int(bool(causal)), int(window),
-                     int(q_offset), float(d ** -0.5), _BWD_DTYPE_CODES[q.dtype],
-                     torch.cuda.current_stream().cuda_stream)
+        err = _bwd(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                            dk.data_ptr(), dv.data_ptr(), b, h, n_kv, sq, skv, d,
+                            int(bool(causal)), int(window), int(q_offset), float(d ** -0.5),
+                            torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError {err}")
+        raise RuntimeError(f"{BWD_ROUTES[q.dtype][0]} launch failed: cudaError {err}")
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv
 

@@ -8,17 +8,23 @@ Inputs are made with numpy from a fixed seed and handed to both packages;
 JAX stays on the CPU.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from repro.kernels import ref as jref
 from repro.kernels.ops import flash_attention as jax_flash
 from repro.kernels.ops import rglru_scan as jax_rglru_scan
 from repro.nn.attention import flash_attention as jax_chunked_twin
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import (
+    BWD_HEAD_DIMS,
+    BWD_ROUTES,
+    ROUTES,
+    bwd_smem_bytes,
     flash_attention_bwd_cuda,
     flash_attention_cuda,
 )
@@ -141,8 +147,6 @@ def test_reference_rounding_stays_within_the_bf16_route_bound():
     reference model's own chunked twin, on inputs as large as the default
     init's (|v| up to about 250, nearly one-hot scores), where TOL alone
     does not."""
-    import chip_smoke
-
     rng = np.random.default_rng(3)
     q = torch.from_numpy(8 * rng.standard_normal((1, 4, 300, 64), np.float32))
     k = torch.from_numpy(rng.standard_normal((1, 2, 300, 64), np.float32))
@@ -253,12 +257,119 @@ def test_one_tf32_product_misses_fp32_tolerance():
     assert np.abs(one.numpy() - np.asarray(want)).max() > 10 * 2e-5
 
 
+@pytest.mark.parametrize("table,dtype", [(t, d) for t in ("forward", "backward")
+                                         for d in (torch.bfloat16, torch.float32)])
+def test_route_tables_name_sources_with_their_entry_points(table, dtype):
+    """Each route of the forward and the backward names a source in csrc/
+    whose C entry points (``<source>_fwd`` or ``<source>``, and
+    ``<source>_smem_bytes``) the wrappers bind by that name."""
+    source, _ = (ROUTES if table == "forward" else BWD_ROUTES)[dtype]
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    entry = f"{source}_fwd" if table == "forward" else source
+    assert f'extern "C" int {entry}(' in text
+    assert f'extern "C" int {source}_smem_bytes(int D)' in text
+
+
+def test_library_name_hashes_shared_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh header changes every library's file name, so a
+    stale build of a source that includes it is never loaded."""
+    (tmp_path / "a.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("a")
+    assert first == _build.library_path("a")
+    (tmp_path / "common.cuh").write_text("// two\n")
+    assert _build.library_path("a") != first
+
+
 def test_tf32_rounding_is_nearest_ties_away():
     """The emulation's rounding: 10 mantissa bits kept, ties away from zero."""
     ulp = 2.0 ** -10
     x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2.0 ** -23,
                       1 + 3 * ulp / 2, 3.0], dtype=torch.float32)
     assert _tf32(x).tolist() == [1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0]
+
+
+# --------------------------------------------------------------------------
+# The bf16 backward route's arithmetic: bf16 products with fp32 sums, P and
+# dS rounded to bf16 (csrc/flash_attention_bwd_sm90.cu)
+# --------------------------------------------------------------------------
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _bf16_backward(q, k, v, o, do, lse, *, causal, window, q_offset=0):
+    """A model of the bf16 backward route's arithmetic (not of its tile
+    schedule): every product takes bf16 operands and sums in fp32; P =
+    exp(S·scale − lse) in fp32, rounded to bf16 for dV = Pᵀ·dO; dS = P∘(dP −
+    Δ) rounded to bf16 for dQ = dS·K and dK = dSᵀ·Q, whose fp32 sums take
+    the scale before they are rounded to bf16. Returns bf16 (dq, dk, dv)."""
+    b, h, sq, d = q.shape
+    n_kv, skv = k.shape[1], k.shape[2]
+    g, scale = h // n_kv, d ** -0.5
+    group = lambda t: t.reshape(b, n_kv, g, sq, d).float()  # noqa: E731
+    qg, og, dog = group(q), group(o), group(do)
+    kf, vf = k.float(), v.float()
+    q_pos = q_offset + torch.arange(sq)
+    k_pos = torch.arange(skv)
+    keep = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        keep &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        keep &= q_pos[:, None] - k_pos[None, :] < window
+    s = torch.einsum("bkgsd,bkcd->bkgsc", qg, kf)
+    p = torch.exp(s * scale - lse.reshape(b, n_kv, g, sq, 1)) * keep
+    delta = (dog * og).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgsc,bkgsd->bkcd", _bf16(p), dog)
+    ds = _bf16(p * (torch.einsum("bkgsd,bkcd->bkgsc", dog, vf) - delta))
+    dq = torch.einsum("bkgsc,bkcd->bkgsd", ds, kf) * scale
+    dk = torch.einsum("bkgsc,bkgsd->bkcd", ds, qg) * scale
+    return (dq.reshape(b, h, sq, d).to(torch.bfloat16), dk.to(torch.bfloat16),
+            dv.to(torch.bfloat16))
+
+
+# chip_smoke.BWD_CASES at a quarter of their lengths, windows and offsets
+# (still ragged: 250, 75, 25), so the CPU runs them in seconds
+BWD_MODEL_CASES = [(b, h, kv, sq // 4, skv // 4, d, causal, window // 4, q_offset // 4)
+                   for b, h, kv, sq, skv, d, causal, window, q_offset
+                   in chip_smoke.BWD_CASES]
+
+
+def _bwd_inputs(b, h, kv, sq, skv, d, seed=5):
+    """q, k, v and the output's gradient do as fp32 numpy arrays from a seed
+    (the test rounds them to bf16 for both packages)."""
+    q_np, k_np, v_np = _qkv_np(b, h, kv, sq, d, skv, seed=seed)
+    do_np = np.random.default_rng(seed + 1).standard_normal((b, h, sq, d), np.float32)
+    return q_np, k_np, v_np, do_np
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal,window,q_offset", BWD_MODEL_CASES)
+@pytest.mark.parametrize("against", ["plain backward", "jax.vjp of the reference twin"])
+def test_bf16_backward_rounding_holds_bf16_tolerance(b, h, kv, sq, skv, d, causal, window,
+                                                     q_offset, against):
+    """The bf16 route's rounding points (P and dS to bf16 before their
+    products) stay within half of chip_smoke's bf16 backward tolerance of
+    the plain backward (fp32 inside), relative to each gradient's largest
+    magnitude, and within 2e-2 of autodiff of the reference model's chunked
+    twin in bf16 (``repro/nn/attention.py:flash_attention``): why the route
+    may round them."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    arrays = _bwd_inputs(b, h, kv, sq, skv, d)
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+    o, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    got = _bf16_backward(q, k, v, o, do, lse, **kw)
+    if against == "plain backward":
+        want = [w.float().numpy() for w in ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)]
+        tol = chip_smoke.BWD_TOL[torch.bfloat16] / 2
+    else:
+        jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16) for a in arrays)
+        _, vjp = jax.vjp(lambda q_, k_, v_: jax_chunked_twin(q_, k_, v_, **kw), jq, jk, jv)
+        want = [np.asarray(w, np.float32) for w in vjp(jdo)]
+        tol = 2e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = np.abs(g.float().numpy() - w).max()
+        assert err <= tol * np.abs(w).max(), (name, err, np.abs(w).max())
 
 
 def test_plain_head_dim_256_mqa_window_matches_jax_ref():
@@ -449,10 +560,15 @@ def test_rglru_kernel_raises_under_grad_on_card():
 @pytest.mark.gpu
 def test_flash_gradients_on_card_match_the_plain_backward():
     """With grad on, the kernel's output has FlashAttentionFn as its grad_fn
-    and its gradients are the backward kernel's, within 2e-5 (fp32) or 2e-2
-    (bf16) of the plain backward relative to the gradients' magnitude; two
-    backward launches give the same bits."""
+    and its gradients are the backward kernel's, of the route its dtype
+    names (bf16: the wgmma kernels of flash_attention_bwd_sm90.cu, fp32:
+    the CUDA-core ones of flash_attention_bwd.cu, told apart by the
+    profiler's kernel names), within 2e-5 (fp32) or 2e-2 (bf16) of the
+    plain backward relative to the gradients' magnitude; two backward
+    launches give the same bits."""
     _card()
+    from torch.profiler import ProfilerActivity, profile
+
     for case in BWD_CARD_CASES:
         for dtype in DTYPES:
             q, k, v, do, kw = _grad_inputs(case, dtype)
@@ -461,7 +577,14 @@ def test_flash_gradients_on_card_match_the_plain_backward():
             before = ops.launch_counts()
             o = ops.flash_attention(*leaves, **kw)
             assert type(o.grad_fn).__name__ == "FlashAttentionFnBackward"
-            grads = torch.autograd.grad(o, leaves, do)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                grads = torch.autograd.grad(o, leaves, do)
+                torch.cuda.synchronize()
+            kernels = {e.name for e in prof.events() if "flash_bwd" in e.name
+                       and e.device_type == torch.autograd.DeviceType.CUDA}
+            route = [n for n in kernels if "_sm90" in n]
+            assert len(kernels) == 3, (case, dtype, kernels)  # the Δ pass, dK/dV, dQ
+            assert len(route) == (3 if dtype == "bfloat16" else 0), (case, dtype, kernels)
             after = ops.launch_counts()
             assert after["flash_attention"] - before["flash_attention"] == 1
             assert after["flash_attention_bwd"] - before["flash_attention_bwd"] == 1
@@ -475,6 +598,34 @@ def test_flash_gradients_on_card_match_the_plain_backward():
                 err = (got.float() - exp.float()).abs().max().item()
                 assert err <= tol * max(scale, 1.0), (case, dtype, err, scale)
                 assert torch.equal(got, rep), (case, dtype)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_misaligned_bf16_do_raises_and_launches_nothing():
+    """The bf16 route's TMA loads need o and do 16-byte aligned: a
+    contiguous view that starts 2 bytes past an aligned pointer raises
+    ValueError before any launch, as q, k and v do in the forward."""
+    _card()
+    q, k, v, do, kw = _grad_inputs(BWD_CARD_CASES[0], "bfloat16")
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    for name in ("do", "o"):
+        shifted = torch.empty(do.numel() + 1, dtype=do.dtype, device=do.device)[1:]
+        shifted = shifted.view(do.shape).copy_(do if name == "do" else o)
+        args = {"o": o, "do": do, name: shifted}
+        before = ops.launch_counts()["flash_attention_bwd"]
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention_bwd_cuda(q, k, v, args["o"], args["do"], lse, **kw)
+        assert ops.launch_counts()["flash_attention_bwd"] == before
+
+
+@pytest.mark.gpu
+def test_flash_bwd_shared_memory_fits_a_block_at_every_head_dim():
+    """Each backward route's larger tile kernel fits the 227 KB (232,448
+    bytes) a block may use, at every head dim the backward takes."""
+    _card()
+    for dtype in BWD_ROUTES:
+        for d in BWD_HEAD_DIMS:
+            assert 0 < bwd_smem_bytes(d, dtype) <= 232_448, (dtype, d)
 
 
 @pytest.mark.gpu
