@@ -13,9 +13,10 @@ Phases; any failure makes the script exit non-zero:
    and spills; a spill, or ptxas's advisory that wgmma instructions are
    serialized, fails the phase, and so does a bf16 flash library (forward
    or backward) whose SASS (cuobjdump) holds no HGMMA or an fp32 flash
-   library whose SASS holds no TF32 tensor-core instruction (HMMA or HGMMA
-   on TF32). Prints each flash route's dynamic shared memory per block at
-   each head dim (forward and backward), and the RG-LRU scan's per dtype.
+   library (forward or backward) whose SASS holds no TF32 tensor-core
+   instruction (HMMA or HGMMA on TF32). Prints each flash route's dynamic
+   shared memory per block at each head dim (forward and backward), and
+   the RG-LRU scan's per dtype.
 3. Kernels against plain: each kernel against its plain PyTorch version on
    the card over a case list (flash: 2e-5 in fp32, 2e-2 in bf16, with bf16
    cases at every head dim whose lengths no tile divides; RG-LRU scan:
@@ -57,12 +58,12 @@ Phases; any failure makes the script exit non-zero:
    kernels against both plain versions, the fp32 run again counted (8
    flash, 18 scan launches); the scan must equal its plain version bit for
    bit on every layer.
-6. The flash backward (run right after phase 3), both routes: bf16 on
-   wgmma (csrc/flash_attention_bwd_sm90.cu), fp32 on the CUDA cores
-   (csrc/flash_attention_bwd.cu). The kernel against its plain version
-   over a case list (fp32 and bf16, head_dim 16 to 128, GQA, MQA and MHA,
-   causal, window and bidirectional, ragged lengths, Sq != Skv with an
-   offset), each gradient within 2e-5 (fp32) or 2e-2 (bf16) of the
+6. The flash backward (run right after phase 3), both routes on the tensor
+   cores: bf16 on wgmma (csrc/flash_attention_bwd_sm90.cu), fp32 as
+   split-TF32 mma.sync (csrc/flash_attention_bwd.cu). The kernel against
+   its plain version over a case list (fp32 and bf16, head_dim 16 to 128,
+   GQA, MQA and MHA, causal, window and bidirectional, ragged lengths, Sq
+   != Skv with an offset), each gradient within 2e-5 (fp32) or 2e-2 (bf16) of the
    largest magnitude of that gradient, given the forward kernel's o and
    lse; the forward's lse within 1e-5 of the plain logsumexp; two launches
    bit-equal; head_dim 256 raises, and so does (ValueError, no launch) a
@@ -82,8 +83,8 @@ Phases; any failure makes the script exit non-zero:
    bit-equal state; one profiled step gives the device's busy share and
    the backward's kernels' share of it. The same first step in fp32, the
    fp32 flash routes' train path: 64 + 32 launches, loss and grad norm
-   within 1e-3 of the plain path's. Then the platform's learner,
-   ``TorchLearner``, on the card at the tiny config: a job of 60 steps
+   within TRAIN_TOL_FP32 (5e-5) of the plain path's. Then the platform's
+   learner, ``TorchLearner``, on the card at the tiny config: a job of 60 steps
    killed at step 30 and resumed from its checkpoint must end on the
    uninterrupted job's state bit for bit (the learner's context and object
    store are in memory here: the platform itself lives in the JAX
@@ -432,10 +433,11 @@ def phase_build(failures):
         failures.append("no kernel sources found")
     print("  rglru (cuda) dynamic shared memory per block: " + ", ".join(
         f"{str(dt).split('.')[-1]}: {scan_smem_bytes(dt)} B" for dt in (torch.float32, torch.bfloat16)))
-    # the forward's routes, and the bf16 backward, must reach the tensor cores
+    # both routes of the forward and of the backward must reach the tensor cores
     for lib, want in ((ROUTES[torch.bfloat16][0], ("HGMMA",)),
                       (ROUTES[torch.float32][0], ("TF32",)),
-                      (BWD_ROUTES[torch.bfloat16][0], ("HGMMA",))):
+                      (BWD_ROUTES[torch.bfloat16][0], ("HGMMA",)),
+                      (BWD_ROUTES[torch.float32][0], ("TF32",))):
         sass = subprocess.run([str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass",
                                str(_build.library_path(lib))],
                               capture_output=True, text=True, check=True, timeout=120).stdout

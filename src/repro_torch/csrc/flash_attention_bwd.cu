@@ -1,6 +1,6 @@
-// Flash-attention backward for fp32 inputs on Hopper (sm_90a), written by
-// hand: products on the CUDA cores in fp32, fed from shared memory. bf16
-// inputs, which the train paths give, take the tensor-core backward in
+// Flash-attention backward in fp32 for Hopper (sm_90a): split-TF32 products
+// on the tensor cores (mma.sync), fed by a cp.async ring. Written by hand.
+// bf16 inputs, which the train paths give, take the wgmma backward in
 // flash_attention_bwd_sm90.cu.
 //
 // The TPU side has no backward kernel: the JAX package trains through
@@ -20,351 +20,555 @@
 //   P = exp(S·scale - lse)              (0 where masked)
 //   dV = Pᵀ·dO,  dP = dO·Vᵀ,  dS = P∘(dP - Δ)
 //   dQ = dS·K·scale,  dK = dSᵀ·Q·scale  (a GQA group's heads summed into dK, dV)
-// all in fp32.
+// to fp32's accuracy: every product is three TF32 products of split
+// operands (below). The scale is applied in fp32 to the sums: in the
+// exponent of P, and to dQ and dK as they are stored.
 //
 // Deterministic, with no atomics: the FlashAttention-2 split into three
 // kernels, each output element summed by one thread in a fixed order.
-//   1. flash_bwd_delta: one warp a (b, h, query row), Δ by a fixed shuffle tree.
-//   2. flash_bwd_dkdv: one block a (key tile of 64, b, kv head). It holds its
-//      K and V tiles and the dK, dV accumulators (in registers) and walks
-//      the G query heads of its group, then the query tiles that see any of
-//      its keys, in that order: per (head, query tile) it recomputes S and P,
-//      dP and dS, and adds Pᵀ·dO into dV and dSᵀ·Q into dK.
-//   3. flash_bwd_dq: one block a (query tile of 64, b, q head), heaviest tiles
-//      first. It holds Q, dO, lse and Δ and walks the key tiles its rows see,
-//      adding dS·K into dQ.
+//   1. flash_bwd_delta: Δ, D/4 threads a row, 16 bytes each, summed over a
+//      fixed shuffle tree.
+//   2. flash_bwd_dkdv: one block a (b, kv head, key tile of 64), key tile 0
+//      first (under a causal mask the heaviest). It keeps its K and V tiles
+//      in shared memory and the dK, dV sums in registers and walks the G
+//      query heads of its group, then the query tiles that see any of its
+//      keys, in that order, streaming Q, dO and the rows' lse and Δ.
+//   3. flash_bwd_dq: one block a (b, q head, query tile of 64), heaviest
+//      tiles first. It keeps Q and dO in shared memory and the rows' lse and
+//      Δ in registers and walks the key tiles its rows see, streaming K and V.
 // Two launches on the same inputs give the same bits. The masks skip tiles as
-// the forward's do: a key tile visits no query tile wholly above the causal
-// diagonal or wholly past the window, and a query tile no key tile beyond
-// them; partial tiles are masked per element. Rows past Sq and keys past Skv
-// load as zeros and get probability 0.
+// the forward's do: a warp visits no streamed tile wholly above the causal
+// diagonal or wholly past the window for its 16 rows, and masks per element
+// only the tiles that straddle an edge. Rows past Sq and keys past Skv load
+// as zeros and get probability 0 (a key past Skv in the dK/dV kernel is a
+// row of its own that is never stored).
 //
 // What bounds it on this card. The five products (S, dP, dV, dQ, dK) are
 // 10·D FLOP per unmasked (query, key) pair and head; the bytes are q, o, do,
 // dq, k, v, dk, dv once each and the fp32 lse. At B8 H15 KV5 S512 D64 fp32
-// causal that is 10.09 GFLOP, 0.151 ms at the CUDA cores' 67 TFLOP/s, and
-// 84.13 MB (0.025 ms at 3.35 TB/s): the operations bound it. This design runs
-// seven products (S and dP in both tile kernels: the price of no atomics),
-// 14.1 GFLOP, 0.21 ms at best. Its shape: 256 threads a block as 16 x 16,
-// each thread owning a 4 x 4 sub-tile of a 64 x 64 score tile (rows ty +
-// 16i, columns tx + 16j, so a warp reads 16 distinct rows of the key-side
-// tile and two of the query-side one) and 4 x D/16 elements of a 64 x D
-// output tile. Tiles live in shared memory with rows padded by one float
-// (odd strides: no bank conflicts between the 16 rows a warp reads). Shared
-// memory: 98 KB a block at D = 64 (two blocks a SM), 162 KB at D = 128. Its
-// redesign on the tensor cores (split-TF32, as the fp32 forward) is ROADMAP
-// B.1's.
+// causal that is 10.09 GFLOP and 84.13 MB (0.025 ms at 3.35 TB/s). Done as
+// three TF32 products each on the tensor cores (495 TFLOP/s dense) the
+// operations bound it: 30.26 GFLOP, 0.061 ms; on the fp32 CUDA cores (67
+// TFLOP/s) 0.151 ms. The split does seven products a pair, not five (S and
+// dP in both tile kernels: the price of no atomics), over whole 16 x 32
+// warp tiles: 44.92 TF32 GFLOP at that shape.
+//
+// The split and its error: as the forward's (flash_attention.cu), each
+// operand x goes to the tensor cores as hi = tf32(x) and lo = x - hi, and
+// x.y as lo.hi' + hi.lo' + hi.hi' with fp32 accumulation (tf32.cuh). Every
+// operand is split: Q, K, V, dO, and the fp32 P and dS (never rounded to
+// bf16, unlike the bf16 route). The tensor cores round each accumulation
+// toward zero, so a long sum in one mma accumulator drifts: dK and dV sum
+// over the G heads of a group and every query row that sees a key (3000
+// rows at B1 H15 KV5 S1000, 1,125 accumulations into one dK element). Summed
+// that way, the gradients there come out 3.0e-5 of max|grad| from the plain
+// backward, past fp32's tolerance of 2e-5; as below, 2.0e-6
+// (benchmarks/torch_flash_bwd_variants.py fp32, variant longacc). So a long
+// sum is never an mma accumulator:
+//   * S and dP (sums over D) keep hi.hi' in an accumulator of its own, the
+//     small terms in another, added once at the end (the forward's S);
+//   * dV, dK and dQ take each streamed tile's product in a fresh mma
+//     accumulator (a k-step's small terms first, then hi.hi'), FOLD 8-wide
+//     D tiles at a time, and add it into their fp32 registers with
+//     round-to-nearest adds: 4 registers a D tile, not a second copy of the
+//     sums.
+//
+// The instruction: mma.sync.aligned.m16n8k8 .tf32, not wgmma, for the
+// forward's reason: a TF32 wgmma takes both operands K-major only, and dV =
+// Pᵀ·dO, dK = dSᵀ·Q and dQ = dS·K read dO, Q and K with rows as the
+// reduction index, so each would need transposed hi and lo copies in shared
+// memory. mma.sync loads each thread's fragment itself: one raw fp32 copy of
+// a tile serves both reads, and the split happens in registers.
+//
+// The design, against what bounds it:
+//   * both tile kernels have 4 warps, each owning 16 resident rows (the m16
+//     of the mma: keys in dK/dV, queries in dQ), and stream tiles of BS rows
+//     (32 up to D = 64, 16 at D = 128) through a two-stage cp.async ring
+//     (16 bytes a thread, L2 only; lse and Δ by 4-byte copies, since a row
+//     of lse need not start on 16 bytes): the next tile's copy is in flight
+//     while the warps compute this one's, and each __syncthreads both
+//     publishes the copy that landed and frees the stage the next copy
+//     overwrites;
+//   * the dK/dV kernel keeps keys as rows: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, so Pᵀ
+//     and dSᵀ leave the m16n8 accumulator as the A operand of dV += Pᵀ·dO
+//     and dK += dSᵀ·Q in registers, with no shuffle: within each 8-query
+//     step the thread's columns 2t and 2t + 1 are taken as the k indices t
+//     and t + 4, and dO's and Q's rows are read in the same order. lse and Δ
+//     are then per column; each stage carries the rows' copies. The dQ
+//     kernel computes S = Q·Kᵀ and dP = dO·Vᵀ and adds dS·K the same way;
+//   * one tile, two read patterns: Q and dO (dK/dV) and K (dQ) are read
+//     K-major for the scores (rows 8n + g, columns 8kk + t and + 4) and
+//     MN-major for the D-wide products (rows 8j + 2t and + 1, column 8n +
+//     g). Every tile has rows of D + 4 floats, 16 bytes apart in the banks.
+//     The K-major reads are ldmatrix.x4, four 8 x 4 fp32 blocks a load (A's
+//     fragment of a k-step, or B's of two 8-row tiles), whose 8 rows a block
+//     then fall on 8 different 16-byte bank groups; the MN-major reads are
+//     4-byte loads (ldmatrix transposes only 16-bit elements), on banks 8t +
+//     g (mod 32): both conflict-free. (The forward's float2 loads along D
+//     need a stride of D + 8, under which the MN-major reads conflict two
+//     ways.) Each row stays on 16 bytes for cp.async;
+//   * registers: dK and dV take D floats a thread, dQ D/2; the streamed tile
+//     is 16 rows at D = 128 so the scores (BS/2 floats each, with hi.hi'
+//     apart) and the split fragments of P and dS fit beside them, with no
+//     spill. Shared memory (Cfg::SMEM_KV, SMEM_Q): two resident 64-row tiles
+//     and two stages of two streamed tiles, 70,144 B a dK/dV block at D = 64,
+//     101,632 B at D = 128; the registers (about 200 a thread) hold a SM to
+//     two blocks. Capping them at 168 for three blocks spills and runs
+//     slower, and so do 16-row streamed tiles at D = 64
+//     (benchmarks/torch_flash_bwd_variants.py fp32, PERF.md).
+// The kernels allocate nothing and launch on the caller's stream.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tf32.cuh"  // the TF32 split, mma.sync and cp.async helpers
 
 namespace {
 
-constexpr int BM = 64;        // query rows a tile
-constexpr int BN = 64;        // keys a tile
-constexpr int THREADS = 256;  // 16 x 16
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BR = 16 * WARPS;  // resident rows a block: keys (dK/dV), queries (dQ)
+constexpr int STAGES = 2;       // streamed-tile ring depth
+constexpr int DELTA_THREADS = 256;
 
 template <int D>
 struct Cfg {
-  static constexpr int LD = D + 1;    // row stride of a D-wide tile, floats
-  static constexpr int LDS = BN + 1;  // row stride of a score tile
-  static constexpr int DC = D / 16;   // columns of a D-wide output tile a thread owns
-  // dK/dV kernel: K, V, Q, dO tiles; P and dS tiles; lse and Δ of the rows.
-  static constexpr size_t SMEM_KV = (size_t)(2 * BN * LD + 2 * BM * LD + 2 * BM * LDS + 2 * BM) * 4;
-  // dQ kernel: Q, dO, K, V tiles; the dS tile; lse and Δ.
-  static constexpr size_t SMEM_Q = (size_t)(2 * BM * LD + 2 * BN * LD + BM * LDS + 2 * BM) * 4;
+  static constexpr int BS = D <= 64 ? 32 : 16;  // streamed rows a tile: queries (dK/dV), keys (dQ)
+  static constexpr int LD = D + 4;              // row stride of every tile, floats
+  static constexpr int NS = BS / 8;             // 8-wide column tiles of a warp's score tile
+  static constexpr int DT = D / 8;              // 8-wide column tiles of a D-wide product
+  static constexpr int FOLD = 4 < DT ? 4 : DT;  // D tiles summed in fresh accumulators at once
+  static constexpr int MIN_BLOCKS = 2;
+  static constexpr int RES = BR * LD;           // floats of a resident tile
+  static constexpr int TILE = BS * LD;          // floats of a streamed tile
+  static constexpr int KV_STAGE = 2 * TILE + 2 * BS;  // Q, dO, the rows' lse and Δ
+  static constexpr size_t SMEM_KV = (size_t)(2 * RES + STAGES * KV_STAGE) * sizeof(float);
+  static constexpr size_t SMEM_Q = (size_t)(2 * RES + STAGES * 2 * TILE) * sizeof(float);
 };
 
-// Rows [r0, r0 + ROWS) of a contiguous (S, D) matrix into a tile of stride
-// D + 1 floats, times mul; rows past S are zeros.
+// 4 bytes global -> shared; src_bytes 0 writes a zero.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// Four 8 x 4 fp32 blocks of shared memory into registers (ldmatrix.x4 on
+// 16-bit pairs, which moves 32-bit words unchanged): lanes 8i .. 8i + 7 give
+// the rows of block i, and the thread gets word t of row g of each block.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// Rows [r0, r0 + ROWS) of a contiguous (S, D) matrix into a tile of row
+// stride D + 4, 16 bytes a copy; rows past S become zeros. Not committed.
 template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int r0, int S,
-                                          float mul, int tid) {
-  for (int i = tid; i < ROWS * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = r0 + r < S ? src[(size_t)(r0 + r) * D + c] * mul : 0.f;
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int r0, int S, int tid) {
+  constexpr int CPR = D / 4;  // 16-byte chunks a row
+  for (int c = tid; c < ROWS * CPR; c += THREADS) {
+    const int r = c / CPR, col = (c % CPR) * 4;
+    const bool in = r0 + r < S;
+    cp_async16(dst + r * Cfg<D>::LD + col, src + (in ? (size_t)(r0 + r) * D + col : 0),
+               in ? 16 : 0);
   }
 }
 
-// acc[i][j] = sum_d A[ty + 16i][d] B[tx + 16j][d] over two 64-row tiles of
-// stride D + 1, summed in the order of d.
-template <int D>
-__device__ __forceinline__ void tile_product(float (&acc)[4][4], const float* A, const float* B,
-                                             int ty, int tx) {
-  constexpr int LD = D + 1;
+// Whether the query at absolute position qpos sees the key at kpos.
+__device__ __forceinline__ bool visible(int qpos, int kpos, int causal, int window) {
+  return (!causal || qpos >= kpos) && (window <= 0 || qpos - kpos < window);
+}
+
+// acc (16 x 8NS, the m16n8 accumulator layout) = A·Bᵀ over D, both K-major
+// with rows of D + 4 floats: `a` the warp's 16 rows of A, `b` the NS x 8 rows
+// of B. k-step kk reads columns 8kk + t and 8kk + t + 4: one ldmatrix.x4 for
+// A's fragment and one for each two 8-row tiles of B. lo.hi' and hi.lo' go
+// into acc, hi.hi' into an accumulator of its own, added once at the end; in
+// each k-step the products are issued by kind, so no two in a row share an
+// accumulator.
+template <int D, int NS>
+__device__ __forceinline__ void scores(float (&acc)[NS][4], const float* a, const float* b) {
+  constexpr int LD = D + 4;
+  const int lane = threadIdx.x & 31;
+  // The row and column of this lane's ldmatrix address: A's blocks are rows
+  // 0-7 and 8-15 at column 0, then both at column 4; B's are rows 0-7 at
+  // columns 0 and 4, then rows 8-15 at both.
+  const float* ar = a + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 4;
+  const float* br = b + ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 4;
+  float big[NS][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < NS; ++n)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
+    for (int e = 0; e < 4; ++e) acc[n][e] = big[n][e] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * LD + d];
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t ah[4], al[4], bh[NS][2], bl[NS][2], r[4];
+    ldsm_x4(r, ar + 8 * kk);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * LD + d];
+    for (int i = 0; i < 4; ++i) split(__uint_as_float(r[i]), ah[i], al[i]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < NS; n += 2) {
+      ldsm_x4(r, br + 8 * n * LD + 8 * kk);
+      split(__uint_as_float(r[0]), bh[n][0], bl[n][0]);
+      split(__uint_as_float(r[1]), bh[n][1], bl[n][1]);
+      split(__uint_as_float(r[2]), bh[n + 1][0], bl[n + 1][0]);
+      split(__uint_as_float(r[3]), bh[n + 1][1], bl[n + 1][1]);
+    }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int n = 0; n < NS; ++n) mma(acc[n], al, bh[n]);
+#pragma unroll
+    for (int n = 0; n < NS; ++n) mma(big[n], ah, bh[n]);
+#pragma unroll
+    for (int n = 0; n < NS; ++n) mma(acc[n], ah, bl[n]);
+  }
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += big[n][e];
+}
+
+// A score tile in the accumulator layout as the split A operand of the next
+// product: in k-step j the thread's columns 8j + 2t and 8j + 2t + 1 are the
+// k indices t and t + 4.
+template <int NS>
+__device__ __forceinline__ void to_a(const float (&x)[NS][4], uint32_t (&hi)[NS][4],
+                                     uint32_t (&lo)[NS][4]) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    split(x[j][0], hi[j][0], lo[j][0]);
+    split(x[j][2], hi[j][1], lo[j][1]);
+    split(x[j][1], hi[j][2], lo[j][2]);
+    split(x[j][3], hi[j][3], lo[j][3]);
   }
 }
 
-// Whether query row qi (index into Sq) sees key kp.
-__device__ __forceinline__ bool visible(int qi, int kp, int Sq, int Skv, int causal, int window,
-                                        int q_offset) {
-  const int qpos = q_offset + qi;
-  bool ok = qi < Sq && kp < Skv;
-  if (causal) ok = ok && qpos >= kp;
-  if (window > 0) ok = ok && qpos - kp < window;
-  return ok;
+// sum (16 x D) += A·B over the 8NS rows of a streamed tile: A split in
+// registers (to_a), B the tile read MN-major, `b` at row 2t, column g (rows
+// of D + 4 floats): k-step j reads rows 8j + 2t and 8j + 2t + 1. FOLD D
+// tiles at a time, the tile's product goes into fresh mma accumulators (each
+// k-step's lo.hi', hi.lo', then hi.hi') and is then added into the fp32 sums
+// with round-to-nearest adds, so no mma accumulator runs longer than one tile.
+template <int D, int NS>
+__device__ __forceinline__ void accumulate(float (&sum)[D / 8][4], const uint32_t (&ah)[NS][4],
+                                           const uint32_t (&al)[NS][4], const float* b) {
+  constexpr int LD = D + 4, FOLD = Cfg<D>::FOLD;
+#pragma unroll
+  for (int n0 = 0; n0 < D / 8; n0 += FOLD) {
+    float part[FOLD][4];
+#pragma unroll
+    for (int n = 0; n < FOLD; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const float* r = b + 8 * j * LD + 8 * n0;
+      uint32_t bh[FOLD][2], bl[FOLD][2];
+#pragma unroll
+      for (int n = 0; n < FOLD; ++n) {
+        split(r[8 * n], bh[n][0], bl[n][0]);
+        split(r[LD + 8 * n], bh[n][1], bl[n][1]);
+      }
+#pragma unroll
+      for (int n = 0; n < FOLD; ++n) mma(part[n], al[j], bh[n]);
+#pragma unroll
+      for (int n = 0; n < FOLD; ++n) mma(part[n], ah[j], bl[n]);
+#pragma unroll
+      for (int n = 0; n < FOLD; ++n) mma(part[n], ah[j], bh[n]);
+    }
+#pragma unroll
+    for (int n = 0; n < FOLD; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[n0 + n][e] += part[n][e];
+  }
 }
 
-// Δ = rowsum(dO∘O) in fp32, one warp a row.
+// Rows row and row + 8 of a warp's 16 x D sums, times mul, into a (S, D)
+// matrix; rows at or past S are not written.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void store_rows(float* __restrict__ out, const float (&sum)[D / 8][4],
+                                           int row, int S, int t, float mul) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row + 8 * hh;
+    if (r < S) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(out + (size_t)r * D + 8 * n + 2 * t) =
+            make_float2(sum[n][2 * hh] * mul, sum[n][2 * hh + 1] * mul);
+    }
+  }
+}
+
+// ---- the kernels -------------------------------------------------------------
+
+// Δ = rowsum(dO∘O) in fp32: D/4 threads a row, 16 bytes each.
+template <int D>
+__global__ void __launch_bounds__(DELTA_THREADS)
 flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
-                float* __restrict__ delta, int rows) {
-  const int row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= rows) return;
+                float* __restrict__ delta, long long rows) {
+  constexpr int TPR = D / 4;
+  const long long row = (long long)blockIdx.x * (DELTA_THREADS / TPR) + threadIdx.x / TPR;
+  const int part = threadIdx.x % TPR;
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32)
-    acc = fmaf(dout[(size_t)row * D + d], o[(size_t)row * D + d], acc);
+  if (row < rows) {
+    const float4 a = *reinterpret_cast<const float4*>(o + row * D + 4 * part);
+    const float4 b = *reinterpret_cast<const float4*>(dout + row * D + 4 * part);
+    acc = fmaf(b.x, a.x, acc);
+    acc = fmaf(b.y, a.y, acc);
+    acc = fmaf(b.z, a.z, acc);
+    acc = fmaf(b.w, a.w, acc);
+  }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
+  for (int off = TPR / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && part == 0) delta[row] = acc;
+}
+
+// Stage of the dK/dV ring: query rows [m0, m0 + BS) of q head bh: Q, dO, then
+// the rows' lse and Δ (zeros past Sq, where the mask sets P to 0). Committed.
+template <int D>
+__device__ __forceinline__ void load_query_stage(float* st, const float* __restrict__ q,
+                                                 const float* __restrict__ dout,
+                                                 const float* __restrict__ lse,
+                                                 const float* __restrict__ delta, size_t bh,
+                                                 int m0, int Sq, int tid) {
+  using C = Cfg<D>;
+  load_rows<D, C::BS>(st, q + bh * Sq * D, m0, Sq, tid);
+  load_rows<D, C::BS>(st + C::TILE, dout + bh * Sq * D, m0, Sq, tid);
+  if (tid < 2 * C::BS) {
+    const int i = tid % C::BS;
+    const bool in = m0 + i < Sq;
+    cp_async4(st + 2 * C::TILE + tid, (tid < C::BS ? lse : delta) + (in ? bh * Sq + m0 + i : 0),
+              in ? 4 : 0);
+  }
+  cp_async_commit();
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, Cfg<D>::MIN_BLOCKS)
 flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dk, float* __restrict__ dv, int H, int KV, int Sq, int Skv,
                int causal, int window, int q_offset, float scale) {
   using C = Cfg<D>;
-  constexpr int LD = C::LD, LDS = C::LDS, DC = C::DC;
-  extern __shared__ float smem[];
-  float* ks = smem;             // BN x LD
-  float* vs = ks + BN * LD;     // BN x LD
-  float* qs = vs + BN * LD;     // BM x LD, q times scale
-  float* dos = qs + BM * LD;    // BM x LD
-  float* ps = dos + BM * LD;    // BM x LDS
-  float* dss = ps + BM * LDS;   // BM x LDS
-  float* ls = dss + BM * LDS;   // BM
-  float* dl = ls + BM;          // BM
+  constexpr int BS = C::BS, LD = C::LD, NS = C::NS, DT = C::DT;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;           // BR x LD
+  float* vs = ks + C::RES;    // BR x LD
+  float* ring = vs + C::RES;  // STAGES x KV_STAGE
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int n0 = blockIdx.x * BN;  // the tile's first key
-  const int bkv = blockIdx.y, b = bkv / KV, kvh = bkv % KV, G = H / KV;
-  load_rows<D, BN>(ks, k + (size_t)bkv * Skv * D, n0, Skv, 1.f, tid);
-  load_rows<D, BN>(vs, v + (size_t)bkv * Skv * D, n0, Skv, 1.f, tid);
-
-  // Query rows that see any key of the tile: at or past the tile's first
-  // key (causal), and before its last key's window ends.
-  const int n_last = min(n0 + BN, Skv) - 1;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // the mma fragment's row group and column pair
+  const int bkv = blockIdx.x, G = H / KV;
+  const int n0 = blockIdx.y * BR;  // the block's first key
+  const size_t bh0 = (size_t)bkv * G;  // the group's first q head: b H + kv_head G
+  // Query rows that see any key of the tile: at or past its first key
+  // (causal), before its last key's window ends.
+  const int n_last = min(n0 + BR, Skv) - 1;
   const int m_lo = causal ? max(0, n0 - q_offset) : 0;
   const int m_hi = window > 0 ? min(Sq, n_last + window - q_offset) : Sq;
-  const int t_lo = m_lo / BM, t_hi = m_hi > m_lo ? (m_hi + BM - 1) / BM : t_lo;
+  const int t_lo = m_lo / BS, t_hi = m_hi > m_lo ? (m_hi + BS - 1) / BS : t_lo;
+  const int per_head = t_hi - t_lo, n_iter = G * per_head;
 
-  float dka[4][DC], dva[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DC; ++j) dka[i][j] = dva[i][j] = 0.f;
+  load_rows<D, BR>(ks, k + (size_t)bkv * Skv * D, n0, Skv, tid);
+  load_rows<D, BR>(vs, v + (size_t)bkv * Skv * D, n0, Skv, tid);
+  cp_async_commit();
+  if (n_iter > 0) load_query_stage<D>(ring, q, dout, lse, delta, bh0, t_lo * BS, Sq, tid);
 
-  for (int g = 0; g < G; ++g) {
-    const size_t bh = (size_t)b * H + (size_t)kvh * G + g;
-    const float* qp = q + bh * Sq * D;
-    const float* dop = dout + bh * Sq * D;
-    for (int t = t_lo; t < t_hi; ++t) {
-      const int m0 = t * BM;
-      __syncthreads();  // K and V landed; the last tile's readers are done
-      load_rows<D, BM>(qs, qp, m0, Sq, scale, tid);
-      load_rows<D, BM>(dos, dop, m0, Sq, 1.f, tid);
-      if (tid < BM) {
-        const bool in = m0 + tid < Sq;
-        ls[tid] = in ? lse[bh * Sq + m0 + tid] : 0.f;
-        dl[tid] = in ? delta[bh * Sq + m0 + tid] : 0.f;
-      }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      tile_product<D>(s, qs, ks, ty, tx);    // S·scale: rows queries, columns keys
-      tile_product<D>(dp, dos, vs, ty, tx);  // dP = dO·Vᵀ
+  const int kw0 = n0 + 16 * warp;  // the warp's first key
+  const float* kw = ks + 16 * warp * LD;  // the warp's rows of K and V
+  const float* vw = vs + 16 * warp * LD;
+  float dka[DT][4], dva[DT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < DT; ++n)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = ty + 16 * i, c = tx + 16 * j;
-          const float p = visible(m0 + r, n0 + c, Sq, Skv, causal, window, q_offset)
-                              ? expf(s[i][j] - ls[r])
-                              : 0.f;
-          ps[r * LDS + c] = p;
-          dss[r * LDS + c] = p * (dp[i][j] - dl[r]);
-        }
-      __syncthreads();
-      // dV += Pᵀ·dO and dK += dSᵀ·(Q·scale): rows keys ty + 16i, columns tx + 16j.
-      for (int m = 0; m < BM; ++m) {
-        float pr[4], dr[4], orow[DC], qrow[DC];
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int it = 0; it < n_iter; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // stage it landed; every warp is done with the stage the next copy overwrites
+    if (it + 1 < n_iter)
+      load_query_stage<D>(ring + ((it + 1) % STAGES) * C::KV_STAGE, q, dout, lse, delta,
+                          bh0 + (it + 1) / per_head, (t_lo + (it + 1) % per_head) * BS, Sq, tid);
+    const int m0 = (t_lo + it % per_head) * BS, qpos0 = q_offset + m0;
+    // A warp whose keys no query of the tile sees has nothing to add.
+    if (kw0 >= Skv || (causal && qpos0 + BS - 1 < kw0) ||
+        (window > 0 && qpos0 - (kw0 + 15) >= window))
+      continue;
+    const float* qs = ring + (it % STAGES) * C::KV_STAGE;
+    const float* dos = qs + C::TILE;
+    const float* stat = dos + C::TILE;  // the rows' lse, then their Δ
+
+    float st[NS][4], dpt[NS][4];  // Sᵀ, then Pᵀ; dPᵀ, then dSᵀ: rows keys, columns queries
+    scores<D, NS>(st, kw, qs);
+    scores<D, NS>(dpt, vw, dos);
+    // Element e of column tile j: key kw0 + g + 8(e >> 1), query m0 + 8j + 2t + (e & 1).
+    const bool need_mask = m0 + BS > Sq || (causal && qpos0 < kw0 + 15) ||
+                           (window > 0 && qpos0 + BS - 1 - kw0 >= window);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pr[i] = ps[m * LDS + ty + 16 * i];
-          dr[i] = dss[m * LDS + ty + 16 * i];
-        }
+    for (int j = 0; j < NS; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(stat + 8 * j + 2 * t);
+      const float2 d = *reinterpret_cast<const float2*>(stat + BS + 8 * j + 2 * t);
 #pragma unroll
-        for (int j = 0; j < DC; ++j) {
-          orow[j] = dos[m * LD + tx + 16 * j];
-          qrow[j] = qs[m * LD + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < DC; ++j) {
-            dva[i][j] = fmaf(pr[i], orow[j], dva[i][j]);
-            dka[i][j] = fmaf(dr[i], qrow[j], dka[i][j]);
-          }
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        float p = expf(fmaf(st[j][e], scale, -((e & 1) ? l.y : l.x)));
+        if (need_mask && !(m0 + col < Sq &&
+                           visible(qpos0 + col, kw0 + g + 8 * (e >> 1), causal, window)))
+          p = 0.f;
+        dpt[j][e] = p * (dpt[j][e] - ((e & 1) ? d.y : d.x));
+        st[j][e] = p;
       }
     }
+    uint32_t ph[NS][4], pl[NS][4], dh[NS][4], dl[NS][4];
+    to_a<NS>(st, ph, pl);
+    to_a<NS>(dpt, dh, dl);
+    accumulate<D, NS>(dva, ph, pl, dos + 2 * t * LD + g);  // dV += Pᵀ dO
+    accumulate<D, NS>(dka, dh, dl, qs + 2 * t * LD + g);   // dK += dSᵀ Q
   }
+  cp_async_wait_all();
 
-  float* dkp = dk + (size_t)bkv * Skv * D;
-  float* dvp = dv + (size_t)bkv * Skv * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = n0 + ty + 16 * i;
-    if (key < Skv) {
-#pragma unroll
-      for (int j = 0; j < DC; ++j) {
-        dkp[(size_t)key * D + tx + 16 * j] = dka[i][j];
-        dvp[(size_t)key * D + tx + 16 * j] = dva[i][j];
-      }
-    }
-  }
+  store_rows<D>(dk + (size_t)bkv * Skv * D, dka, kw0 + g, Skv, t, scale);
+  store_rows<D>(dv + (size_t)bkv * Skv * D, dva, kw0 + g, Skv, t, 1.f);
+}
+
+// Stage of the dQ ring: keys [k0, k0 + BS) of K and V (zeros past Skv).
+// Committed.
+template <int D>
+__device__ __forceinline__ void load_key_stage(float* st, const float* __restrict__ kp,
+                                               const float* __restrict__ vp, int k0, int Skv,
+                                               int tid) {
+  load_rows<D, Cfg<D>::BS>(st, kp, k0, Skv, tid);
+  load_rows<D, Cfg<D>::BS>(st + Cfg<D>::TILE, vp, k0, Skv, tid);
+  cp_async_commit();
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, Cfg<D>::MIN_BLOCKS)
 flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              float* __restrict__ dq, int H, int KV, int Sq, int Skv, int causal, int window,
              int q_offset, float scale) {
   using C = Cfg<D>;
-  constexpr int LD = C::LD, LDS = C::LDS, DC = C::DC;
-  extern __shared__ float smem[];
-  float* qs = smem;            // BM x LD, q times scale
-  float* dos = qs + BM * LD;   // BM x LD
-  float* ks = dos + BM * LD;   // BN x LD
-  float* vs = ks + BN * LD;    // BN x LD
-  float* dss = vs + BN * LD;   // BM x LDS
-  float* ls = dss + BM * LDS;  // BM
-  float* dl = ls + BM;         // BM
+  constexpr int BS = C::BS, LD = C::LD, NS = C::NS, DT = C::DT;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;            // BR x LD
+  float* dos = qs + C::RES;    // BR x LD
+  float* ring = dos + C::RES;  // STAGES x (K, V: BS x LD each)
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * BM;  // heaviest query tiles first
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const size_t bkv = (size_t)b * KV + h / (H / KV);
-  load_rows<D, BM>(qs, q + (size_t)bh * Sq * D, m0, Sq, scale, tid);
-  load_rows<D, BM>(dos, dout + (size_t)bh * Sq * D, m0, Sq, 1.f, tid);
-  if (tid < BM) {
-    const bool in = m0 + tid < Sq;
-    ls[tid] = in ? lse[(size_t)bh * Sq + m0 + tid] : 0.f;
-    dl[tid] = in ? delta[(size_t)bh * Sq + m0 + tid] : 0.f;
-  }
-
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * BR;  // heaviest query tiles first
   // Keys that any row of the tile sees: up to the last row's diagonal
   // (causal), from the first row's window start.
-  const int qpos_first = q_offset + m0, qpos_last = q_offset + min(m0 + BM, Sq) - 1;
+  const int qpos_first = q_offset + m0, qpos_last = q_offset + min(m0 + BR, Sq) - 1;
   const int n_hi = causal ? min(Skv, qpos_last + 1) : Skv;
   const int n_lo = window > 0 ? max(0, qpos_first - window + 1) : 0;
-  const int t_lo = n_lo / BN, t_hi = n_hi > n_lo ? (n_hi + BN - 1) / BN : t_lo;
+  const int t_lo = n_lo / BS, t_hi = n_hi > n_lo ? (n_hi + BS - 1) / BS : t_lo;
   const float* kp = k + bkv * Skv * D;
   const float* vp = v + bkv * Skv * D;
 
-  float dqa[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DC; ++j) dqa[i][j] = 0.f;
+  load_rows<D, BR>(qs, q + (size_t)bh * Sq * D, m0, Sq, tid);
+  load_rows<D, BR>(dos, dout + (size_t)bh * Sq * D, m0, Sq, tid);
+  cp_async_commit();
+  if (t_lo < t_hi) load_key_stage<D>(ring, kp, vp, t_lo * BS, Skv, tid);
 
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int n0 = t * BN;
-    __syncthreads();  // Q, dO, lse, Δ landed; the last tile's readers are done
-    load_rows<D, BN>(ks, kp, n0, Skv, 1.f, tid);
-    load_rows<D, BN>(vs, vp, n0, Skv, 1.f, tid);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_product<D>(s, qs, ks, ty, tx);
-    tile_product<D>(dp, dos, vs, ty, tx);
+  const int row0 = m0 + 16 * warp + g;  // this thread's rows: row0 and row0 + 8
+  const int wq0 = q_offset + m0 + 16 * warp;  // absolute position of the warp's row 0
+  float ls[2], dl[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row0 + 8 * hh;
+    ls[hh] = r < Sq ? lse[(size_t)bh * Sq + r] : __int_as_float(0x7f800000);  // P = 0 past Sq
+    dl[hh] = r < Sq ? delta[(size_t)bh * Sq + r] : 0.f;
+  }
+  const float* qw = qs + 16 * warp * LD;  // the warp's rows of Q and dO
+  const float* dw = dos + 16 * warp * LD;
+  float dqa[DT][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const float p = visible(m0 + r, n0 + c, Sq, Skv, causal, window, q_offset)
-                            ? expf(s[i][j] - ls[r])
-                            : 0.f;
-        dss[r * LDS + c] = p * (dp[i][j] - dl[r]);
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+
+  for (int tile = t_lo; tile < t_hi; ++tile) {
+    cp_async_wait_all();
+    __syncthreads();  // stage landed; every warp is done with the stage the next copy overwrites
+    if (tile + 1 < t_hi)
+      load_key_stage<D>(ring + ((tile + 1 - t_lo) % STAGES) * 2 * C::TILE, kp, vp,
+                        (tile + 1) * BS, Skv, tid);
+    const int k0 = tile * BS;
+    // A warp whose rows see no key of the tile, or lie past Sq, has nothing to add.
+    if (row0 - g >= Sq || (causal && k0 > wq0 + 15) || (window > 0 && k0 + BS - 1 <= wq0 - window))
+      continue;
+    const float* kst = ring + ((tile - t_lo) % STAGES) * 2 * C::TILE;
+    const float* vst = kst + C::TILE;
+
+    float s[NS][4], dp[NS][4];  // S, then P; dP, then dS: rows queries, columns keys
+    scores<D, NS>(s, qw, kst);
+    scores<D, NS>(dp, dw, vst);
+    // Element e of column tile j: query row0 + 8(e >> 1), key k0 + 8j + 2t + (e & 1).
+    const bool need_mask = k0 + BS > Skv || (causal && k0 + BS - 1 > wq0) ||
+                           (window > 0 && k0 <= wq0 + 15 - window);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+        float p = expf(fmaf(s[j][e], scale, -ls[e >> 1]));
+        if (need_mask && !(kpos < Skv && visible(wq0 + g + 8 * (e >> 1), kpos, causal, window)))
+          p = 0.f;
+        dp[j][e] = p * (dp[j][e] - dl[e >> 1]);
       }
-    __syncthreads();
-    // dQ += dS·K: rows queries ty + 16i, columns tx + 16j.
-    for (int n = 0; n < BN; ++n) {
-      float dr[4], krow[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dr[i] = dss[(ty + 16 * i) * LDS + n];
-#pragma unroll
-      for (int j = 0; j < DC; ++j) krow[j] = ks[n * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DC; ++j) dqa[i][j] = fmaf(dr[i], krow[j], dqa[i][j]);
-    }
+    uint32_t dh[NS][4], dlo[NS][4];
+    to_a<NS>(dp, dh, dlo);
+    accumulate<D, NS>(dqa, dh, dlo, kst + 2 * t * LD + g);  // dQ += dS K
   }
+  cp_async_wait_all();
 
-  float* dqp = dq + (size_t)bh * Sq * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = m0 + ty + 16 * i;
-    if (r < Sq) {
-#pragma unroll
-      for (int j = 0; j < DC; ++j) dqp[(size_t)r * D + tx + 16 * j] = dqa[i][j] * scale;
-    }
-  }
+  store_rows<D>(dq + (size_t)bh * Sq * D, dqa, row0, Sq, t, scale);
 }
 
+// ---- host side -------------------------------------------------------------
+
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
-                   int KV, int Sq, int Skv, int causal, int window, int q_offset, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch(const float* q, const float* k, const float* v, const float* o,
+                   const float* dout, const float* lse, float* delta, float* dq, float* dk,
+                   float* dv, int B, int H, int KV, int Sq, int Skv, int causal, int window,
+                   int q_offset, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
-  const float *qt = static_cast<const float*>(q), *kt = static_cast<const float*>(k),
-          *vt = static_cast<const float*>(v), *ot = static_cast<const float*>(o),
-          *dot = static_cast<const float*>(dout);
   const long long rows = (long long)B * H * Sq;
-  const long long delta_blocks = (rows + THREADS / 32 - 1) / (THREADS / 32);
-  const int q_tiles = (Sq + BM - 1) / BM, k_tiles = (Skv + BN - 1) / BN;
-  if (delta_blocks > 0x7fffffffLL || (long long)B * H > 65535 || q_tiles > 0x7fffffff ||
-      k_tiles > 0x7fffffff)
+  const long long delta_blocks = (rows * (D / 4) + DELTA_THREADS - 1) / DELTA_THREADS;
+  const int q_tiles = (Sq + BR - 1) / BR, k_tiles = (Skv + BR - 1) / BR;
+  if (delta_blocks > 0x7fffffffLL || q_tiles > 65535 || k_tiles > 65535)
     return cudaErrorInvalidValue;
-  flash_bwd_delta<D><<<(unsigned)delta_blocks, THREADS, 0, stream>>>(ot, dot, delta, (int)rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)C::SMEM_KV);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)C::SMEM_KV);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_bwd_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)C::SMEM_Q);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv<D><<<dim3(k_tiles, B * KV), THREADS, C::SMEM_KV, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), H, KV, Sq, Skv,
-      causal, window, q_offset, scale);
+  flash_bwd_delta<D><<<(unsigned)delta_blocks, DELTA_THREADS, 0, stream>>>(o, dout, delta, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq<D><<<dim3(q_tiles, B * H), THREADS, C::SMEM_Q, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<float*>(dq), H, KV, Sq, Skv, causal, window,
-      q_offset, scale);
+  // key tile on the slowest axis, tile 0 first: under a causal mask the
+  // heaviest blocks start first and the light ones fill the last wave
+  flash_bwd_dkdv<D><<<dim3(B * KV, k_tiles), THREADS, C::SMEM_KV, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, H, KV, Sq, Skv, causal, window, q_offset, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq<D><<<dim3(B * H, q_tiles), THREADS, C::SMEM_Q, stream>>>(
+      q, k, v, dout, lse, delta, dq, H, KV, Sq, Skv, causal, window, q_offset, scale);
   return cudaGetLastError();
+}
+
+template <int D>
+constexpr int smem_bytes() {
+  return (int)(Cfg<D>::SMEM_KV > Cfg<D>::SMEM_Q ? Cfg<D>::SMEM_KV : Cfg<D>::SMEM_Q);
 }
 
 }  // namespace
@@ -373,33 +577,43 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 // head dim D, in bytes (-1 if D is not supported).
 extern "C" int flash_attention_bwd_smem_bytes(int D) {
   switch (D) {
-    case 16: return (int)Cfg<16>::SMEM_KV;
-    case 32: return (int)Cfg<32>::SMEM_KV;
-    case 64: return (int)Cfg<64>::SMEM_KV;
-    case 128: return (int)Cfg<128>::SMEM_KV;
+    case 16: return smem_bytes<16>();
+    case 32: return smem_bytes<32>();
+    case 64: return smem_bytes<64>();
+    case 128: return smem_bytes<128>();
     default: return -1;
   }
 }
 
 // q, o, do, dq (B, H, Sq, D); k, v, dk, dv (B, KV, Skv, D): fp32,
-// contiguous. lse and the scratch delta: (B, H, Sq) fp32. Three launches on
-// `stream`; returns cudaGetLastError() after the last (0 on success).
+// contiguous, 16-byte aligned (the cp.async copies and the Δ pass read 16
+// bytes at a time; cudaErrorMisalignedAddress otherwise, with no launch).
+// lse and the scratch delta: (B, H, Sq) fp32. Three launches on `stream`;
+// returns cudaGetLastError() after the last (0 on success).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, int B, int H, int KV, int Sq, int Skv,
                                    int D, int causal, int window, int q_offset, float scale,
                                    void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Skv <= 0 || q_offset < 0 ||
-      window < 0)
+      window < 0 || (long long)B * H > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const float* lf = static_cast<const float*>(lse);
-  float* df = static_cast<float*>(delta);
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+       reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
+       reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v), *of = static_cast<const float*>(o),
+              *df = static_cast<const float*>(dout), *lf = static_cast<const float*>(lse);
+  float *dl = static_cast<float*>(delta), *dqf = static_cast<float*>(dq),
+        *dkf = static_cast<float*>(dk), *dvf = static_cast<float*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return (int)launch<16>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 32: return (int)launch<32>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 64: return (int)launch<64>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 128: return (int)launch<128>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 16: return (int)launch<16>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 32: return (int)launch<32>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 64: return (int)launch<64>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 128: return (int)launch<128>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

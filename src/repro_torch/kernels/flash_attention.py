@@ -22,8 +22,10 @@ trains through autodiff of its jnp twin. It takes one of two routes too
 - bf16 takes ``csrc/flash_attention_bwd_sm90.cu``: all seven products on
   wgmma, Q/K/V/dO tiles loaded by TMA into swizzled shared memory, a ring
   of streamed tiles on mbarriers;
-- fp32 takes ``csrc/flash_attention_bwd.cu``: fp32 products on the CUDA
-  cores.
+- fp32 takes ``csrc/flash_attention_bwd.cu``: mma.sync on the tensor
+  cores, each fp32 product as three TF32 products of split operands (P and
+  dS kept fp32), a two-stage cp.async ring of streamed tiles; the forward's
+  TF32 helpers are shared through ``csrc/tf32.cuh``.
 
 Both are deterministic (the FlashAttention-2 split into a Δ pass, a dK/dV
 kernel and a dQ kernel, no atomics) and recompute the probabilities from
@@ -160,9 +162,10 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=0,
     """The attention backward on the card: (dq, dk, dv) in the inputs' dtype
     from q, k, v, the forward's o, its gradient ``do`` (all contiguous,
     one dtype: bf16 takes the wgmma route, whose TMA loads need o and do
-    16-byte aligned too, fp32 the CUDA-core one) and the forward's fp32
-    ``lse`` (B, H, Sq). head_dim 16 to 128. Two launches on the same inputs
-    give the same bits."""
+    16-byte aligned too, fp32 the split-TF32 one, whose cp.async loads need
+    the same and whose launch fails with cudaErrorMisalignedAddress
+    otherwise) and the forward's fp32 ``lse`` (B, H, Sq). head_dim 16 to
+    128. Two launches on the same inputs give the same bits."""
     _check(q, k, v)
     b, h, sq, d = q.shape
     if d not in BWD_HEAD_DIMS:

@@ -291,20 +291,22 @@ def test_tf32_rounding_is_nearest_ties_away():
 
 
 # --------------------------------------------------------------------------
-# The bf16 backward route's arithmetic: bf16 products with fp32 sums, P and
-# dS rounded to bf16 (csrc/flash_attention_bwd_sm90.cu)
+# The backward routes' arithmetic: bf16 products with fp32 sums, P and dS
+# rounded to bf16 (csrc/flash_attention_bwd_sm90.cu); split-TF32 products,
+# P and dS fp32 (csrc/flash_attention_bwd.cu)
 # --------------------------------------------------------------------------
 
 def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _bf16_backward(q, k, v, o, do, lse, *, causal, window, q_offset=0):
-    """A model of the bf16 backward route's arithmetic (not of its tile
-    schedule): every product takes bf16 operands and sums in fp32; P =
-    exp(S·scale − lse) in fp32, rounded to bf16 for dV = Pᵀ·dO; dS = P∘(dP −
-    Δ) rounded to bf16 for dQ = dS·K and dK = dSᵀ·Q, whose fp32 sums take
-    the scale before they are rounded to bf16. Returns bf16 (dq, dk, dv)."""
+def _model_backward(q, k, v, o, do, lse, product, *, causal, window, q_offset=0,
+                    round_p=lambda x: x, round_ds=lambda x: x):
+    """A backward route's arithmetic (not its tile schedule), fp32 inside:
+    every product is ``product(eq, x, y)``; P = exp(S·scale − lse) in fp32,
+    ``round_p`` applied to it for dV = Pᵀ·dO; dS = P∘(dP − Δ), ``round_ds``
+    applied to it for dQ = dS·K and dK = dSᵀ·Q, whose fp32 sums take the
+    scale. Returns fp32 (dq, dk, dv)."""
     b, h, sq, d = q.shape
     n_kv, skv = k.shape[1], k.shape[2]
     g, scale = h // n_kv, d ** -0.5
@@ -318,15 +320,34 @@ def _bf16_backward(q, k, v, o, do, lse, *, causal, window, q_offset=0):
         keep &= q_pos[:, None] >= k_pos[None, :]
     if window > 0:
         keep &= q_pos[:, None] - k_pos[None, :] < window
-    s = torch.einsum("bkgsd,bkcd->bkgsc", qg, kf)
+    s = product("bkgsd,bkcd->bkgsc", qg, kf)
     p = torch.exp(s * scale - lse.reshape(b, n_kv, g, sq, 1)) * keep
     delta = (dog * og).sum(-1, keepdim=True)
-    dv = torch.einsum("bkgsc,bkgsd->bkcd", _bf16(p), dog)
-    ds = _bf16(p * (torch.einsum("bkgsd,bkcd->bkgsc", dog, vf) - delta))
-    dq = torch.einsum("bkgsc,bkcd->bkgsd", ds, kf) * scale
-    dk = torch.einsum("bkgsc,bkgsd->bkcd", ds, qg) * scale
-    return (dq.reshape(b, h, sq, d).to(torch.bfloat16), dk.to(torch.bfloat16),
-            dv.to(torch.bfloat16))
+    dv = product("bkgsc,bkgsd->bkcd", round_p(p), dog)
+    ds = round_ds(p * (product("bkgsd,bkcd->bkgsc", dog, vf) - delta))
+    dq = product("bkgsc,bkcd->bkgsd", ds, kf) * scale
+    dk = product("bkgsc,bkgsd->bkcd", ds, qg) * scale
+    return dq.reshape(b, h, sq, d), dk, dv
+
+
+def _bf16_backward(q, k, v, o, do, lse, *, causal, window, q_offset=0):
+    """A model of the bf16 backward route's arithmetic: every product takes
+    bf16 operands and sums in fp32; P rounded to bf16 for dV, dS rounded to
+    bf16 for dQ and dK, whose fp32 sums take the scale before they are
+    rounded to bf16. Returns bf16 (dq, dk, dv)."""
+    grads = _model_backward(q, k, v, o, do, lse, torch.einsum, causal=causal, window=window,
+                            q_offset=q_offset, round_p=_bf16, round_ds=_bf16)
+    return tuple(t.to(torch.bfloat16) for t in grads)
+
+
+def _tf32_backward(q, k, v, o, do, lse, *, causal, window, q_offset=0, products=3):
+    """A model of the fp32 backward route's arithmetic: every product as
+    ``_tf32_product`` (three TF32 products of split operands, small terms
+    first; with ``products=1``, hi·hi' alone), P and dS kept fp32 and split
+    like any operand. Returns fp32 (dq, dk, dv)."""
+    return _model_backward(q, k, v, o, do, lse,
+                           lambda eq, x, y: _tf32_product(eq, x, y, products),
+                           causal=causal, window=window, q_offset=q_offset)
 
 
 # chip_smoke.BWD_CASES at a quarter of their lengths, windows and offsets
@@ -338,10 +359,31 @@ BWD_MODEL_CASES = [(b, h, kv, sq // 4, skv // 4, d, causal, window // 4, q_offse
 
 def _bwd_inputs(b, h, kv, sq, skv, d, seed=5):
     """q, k, v and the output's gradient do as fp32 numpy arrays from a seed
-    (the test rounds them to bf16 for both packages)."""
+    (a test may round them to bf16 for both packages)."""
     q_np, k_np, v_np = _qkv_np(b, h, kv, sq, d, skv, seed=seed)
     do_np = np.random.default_rng(seed + 1).standard_normal((b, h, sq, d), np.float32)
     return q_np, k_np, v_np, do_np
+
+
+def _model_errors(model, dtype, case, against):
+    """[(max |error|, max |wanted|)] of dq, dk and dv: ``model`` given the
+    plain forward's o and lse in ``dtype``, against the plain backward (fp32
+    inside) or against autodiff of the reference model's chunked twin
+    (``repro/nn/attention.py:flash_attention``) in ``dtype``."""
+    b, h, kv, sq, skv, d, causal, window, q_offset = case
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    jdt, tdt, _ = DTYPES[dtype]
+    arrays = _bwd_inputs(b, h, kv, sq, skv, d)
+    q, k, v, do = (torch.from_numpy(a).to(tdt) for a in arrays)
+    o, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    got = model(q, k, v, o, do, lse, **kw)
+    if against == "plain backward":
+        want = [w.float().numpy() for w in ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)]
+    else:
+        jq, jk, jv, jdo = (jnp.asarray(a).astype(jdt) for a in arrays)
+        _, vjp = jax.vjp(lambda q_, k_, v_: jax_chunked_twin(q_, k_, v_, **kw), jq, jk, jv)
+        want = [np.asarray(w, np.float32) for w in vjp(jdo)]
+    return [(np.abs(g.float().numpy() - w).max(), np.abs(w).max()) for g, w in zip(got, want)]
 
 
 @pytest.mark.parametrize("b,h,kv,sq,skv,d,causal,window,q_offset", BWD_MODEL_CASES)
@@ -354,22 +396,37 @@ def test_bf16_backward_rounding_holds_bf16_tolerance(b, h, kv, sq, skv, d, causa
     magnitude, and within 2e-2 of autodiff of the reference model's chunked
     twin in bf16 (``repro/nn/attention.py:flash_attention``): why the route
     may round them."""
-    kw = dict(causal=causal, window=window, q_offset=q_offset)
-    arrays = _bwd_inputs(b, h, kv, sq, skv, d)
-    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
-    o, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
-    got = _bf16_backward(q, k, v, o, do, lse, **kw)
-    if against == "plain backward":
-        want = [w.float().numpy() for w in ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)]
-        tol = chip_smoke.BWD_TOL[torch.bfloat16] / 2
-    else:
-        jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16) for a in arrays)
-        _, vjp = jax.vjp(lambda q_, k_, v_: jax_chunked_twin(q_, k_, v_, **kw), jq, jk, jv)
-        want = [np.asarray(w, np.float32) for w in vjp(jdo)]
-        tol = 2e-2
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        err = np.abs(g.float().numpy() - w).max()
-        assert err <= tol * np.abs(w).max(), (name, err, np.abs(w).max())
+    tol = chip_smoke.BWD_TOL[torch.bfloat16] / 2 if against == "plain backward" else 2e-2
+    case = (b, h, kv, sq, skv, d, causal, window, q_offset)
+    for name, (err, scale) in zip(("dq", "dk", "dv"),
+                                  _model_errors(_bf16_backward, "bfloat16", case, against)):
+        assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal,window,q_offset", BWD_MODEL_CASES)
+@pytest.mark.parametrize("against", ["plain backward", "jax.vjp of the reference twin"])
+def test_split_tf32_backward_holds_fp32_tolerance(b, h, kv, sq, skv, d, causal, window,
+                                                  q_offset, against):
+    """Three TF32 products per fp32 product in all five products, P and dS
+    kept fp32 and split, stay within half of chip_smoke's fp32 backward
+    tolerance of the plain backward, relative to each gradient's largest
+    magnitude, and within 2e-5 of autodiff of the reference model's chunked
+    twin in fp32: why the fp32 backward may run on the tensor cores."""
+    tol = chip_smoke.BWD_TOL[torch.float32] / 2 if against == "plain backward" else 2e-5
+    case = (b, h, kv, sq, skv, d, causal, window, q_offset)
+    for name, (err, scale) in zip(("dq", "dk", "dv"),
+                                  _model_errors(_tf32_backward, "float32", case, against)):
+        assert err <= tol * scale, (name, err, scale)
+
+
+def test_one_tf32_product_misses_fp32_tolerance_in_the_backward():
+    """hi·hi' alone in every product of the backward misses 2e-5 of
+    max|grad| by far, at smollm's grouping: why the fp32 backward splits
+    its operands."""
+    one = lambda *args, **kw: _tf32_backward(*args, products=1, **kw)  # noqa: E731
+    case = next(c for c in BWD_MODEL_CASES if c[1:3] == (15, 5))
+    errors = _model_errors(one, "float32", case, "plain backward")
+    assert max(err / scale for err, scale in errors) > 10 * 2e-5, errors
 
 
 def test_plain_head_dim_256_mqa_window_matches_jax_ref():
@@ -562,8 +619,8 @@ def test_flash_gradients_on_card_match_the_plain_backward():
     """With grad on, the kernel's output has FlashAttentionFn as its grad_fn
     and its gradients are the backward kernel's, of the route its dtype
     names (bf16: the wgmma kernels of flash_attention_bwd_sm90.cu, fp32:
-    the CUDA-core ones of flash_attention_bwd.cu, told apart by the
-    profiler's kernel names), within 2e-5 (fp32) or 2e-2 (bf16) of the
+    the split-TF32 mma.sync ones of flash_attention_bwd.cu, told apart by
+    the profiler's kernel names), within 2e-5 (fp32) or 2e-2 (bf16) of the
     plain backward relative to the gradients' magnitude; two backward
     launches give the same bits."""
     _card()
