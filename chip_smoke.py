@@ -15,8 +15,8 @@ Phases; any failure makes the script exit non-zero:
    or backward) whose SASS (cuobjdump) holds no HGMMA or an fp32 flash
    library (forward or backward) whose SASS holds no TF32 tensor-core
    instruction (HMMA or HGMMA on TF32). Prints each flash route's dynamic
-   shared memory per block at each head dim (forward and backward), and
-   the RG-LRU scan's per dtype.
+   shared memory per block at each head dim (forward and backward), the
+   RG-LRU scan's per dtype and its backward's.
 3. Kernels against plain: each kernel against its plain PyTorch version on
    the card over a case list (flash: 2e-5 in fp32, 2e-2 in bf16, with bf16
    cases at every head dim whose lengths no tile divides; RG-LRU scan:
@@ -37,7 +37,13 @@ Phases; any failure makes the script exit non-zero:
    and recurrentgemma's B8 S512, beside both its split-TF32 bound and the
    fp32 CUDA-core bound), with the scan's GB/s, its share of the bound
    and, as a yardstick of the rate the card reaches for the same bytes, an
-   elementwise ``torch.add`` of a and b into h.
+   elementwise ``torch.add`` of a and b into h. Then the scan's backward
+   (csrc/rglru_bwd.cu, run right after the scan): equal to its plain
+   version bit for bit over the scan's edge cases, each with and without
+   h0 and h_last's gradient, exact a = 0 and a = 1 and a view off 16 bytes,
+   two launches bit-equal, and its time at recurrentgemma-2b's train shape
+   (B8 S512 W2560 fp32) beside its bound and, as a yardstick, one
+   ``torch.addcmul`` of a, h and g.
 4. smollm-360m at full width: ``ServeEngine("smollm-360m", tiny=False)``
    (32 layers, stacked layout, seeded random weights) serves 3 ``infer``
    requests and one ``generate`` of 8 prompts of 512 tokens, 32 new tokens
@@ -63,17 +69,20 @@ Phases; any failure makes the script exit non-zero:
    split-TF32 mma.sync (csrc/flash_attention_bwd.cu). The kernel against
    its plain version over a case list (fp32 and bf16, head_dim 16 to 128,
    GQA, MQA and MHA, causal, window and bidirectional, ragged lengths, Sq
-   != Skv with an offset), each gradient within 2e-5 (fp32) or 2e-2 (bf16) of the
+   != Skv with an offset; bf16 at head_dim 256 too, with MQA, ragged
+   lengths, an offset and a 2048 window that masks at S3072), each
+   gradient within 2e-5 (fp32) or 2e-2 (bf16) of the
    largest magnitude of that gradient, given the forward kernel's o and
    lse; the forward's lse within 1e-5 of the plain logsumexp; two launches
-   bit-equal; head_dim 256 raises, and so does (ValueError, no launch) a
-   bf16 do that starts off 16 bytes. Times at the train path's shapes (B8
-   H15 KV5 S512 and S2048, D64, bf16, causal) and of the fp32 route at
+   bit-equal; fp32 at head_dim 256 raises, and so does (ValueError, no
+   launch) a bf16 do that starts off 16 bytes. Times at the train paths'
+   shapes (B8 H15 KV5 S512 and S2048, D64, and B8 H10 KV1 S512 D256, bf16,
+   causal) and of the fp32 route at
    S512 beside SDPA's backward (fwd+bwd minus fwd, both over replayed
    graphs; fp32 with TF32 off), each split into its three kernels by the
    profiler over the replayed graph. Then, with grad on, a flash output's
-   grad_fn must be FlashAttentionFn and the scan kernel, which has no
-   backward, must raise.
+   grad_fn must be FlashAttentionFn and a scan output's RGLRUScanFn, and
+   the fp32 backward at head_dim 256 must raise.
 7. smollm-360m training at full width (after both serving phases):
    deterministic algorithms on, 32 layers, remat full, true-fan-in
    attention projections, B8 x S512. The first step's loss and grad norm
@@ -89,7 +98,17 @@ Phases; any failure makes the script exit non-zero:
    uninterrupted job's state bit for bit (the learner's context and object
    store are in memory here: the platform itself lives in the JAX
    package).
-8. One JSON line ``{"kernels": [...]}``, then, as the last line,
+8. recurrentgemma-2b training at full width (after the learner): 26
+   layers (18 rglru + 8 local attention), list layout, remat full, bf16,
+   true-fan-in attention projections, deterministic algorithms, B8 x S512,
+   the state updated in place by the step (two fp32 optimizer states of
+   2.7 B params would not fit the card). The first step's loss
+   and grad norm within 2e-2 of the plain path's; 3 steps counted from 0
+   (a step: 16 flash forwards, 8 flash backwards, 36 scan forwards, 18
+   scan backwards); the same 3 steps again bit-equal; one profiled step
+   for the step time, tokens/s, peak memory, busy share and the kernels'
+   shares of it.
+9. One JSON line ``{"kernels": [...]}``, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package. With no CUDA, or outside
@@ -104,6 +123,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -132,8 +152,14 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda,
     smem_bytes,
 )
+from repro_torch.kernels.rglru import bwd_smem_bytes as scan_bwd_smem_bytes  # noqa: E402
+from repro_torch.kernels.rglru import (  # noqa: E402
+    bwd_uses_tma,
+    rglru_scan_bwd_cuda,
+    rglru_scan_cuda,
+    uses_tma,
+)
 from repro_torch.kernels.rglru import smem_bytes as scan_smem_bytes  # noqa: E402
-from repro_torch.kernels.rglru import uses_tma  # noqa: E402
 from repro_torch.launch.serve import ServeEngine  # noqa: E402
 from repro_torch.launch.train import deterministic  # noqa: E402
 from repro_torch.models import steps  # noqa: E402
@@ -231,10 +257,21 @@ BWD_CASES = [
     (2, 6, 2, 100, 300, 32, True, 96, 200),
     (1, 4, 4, 64, 256, 128, True, 0, 192),
 ]
+# head_dim 256 (recurrentgemma's), the bf16 route only: MQA with its 10-head
+# group, ragged lengths, Sq != Skv with an offset, bidirectional, and its
+# 2048 window masking at S3072
+BWD_CASES_D256 = [
+    (2, 10, 1, 512, 512, 256, True, 0, 0),
+    (1, 10, 1, 1000, 1000, 256, True, 256, 0),
+    (2, 6, 2, 100, 300, 256, True, 96, 200),
+    (1, 2, 1, 300, 300, 256, False, 0, 0),
+    (1, 10, 1, 3072, 3072, 256, True, 2048, 0),
+]
 # The train path's attention backward shapes (smollm, bf16, causal), and the
 # one the fp32 route is timed at
 BWD_MAIN = {"smollm train B8 S512": (8, 15, 5, 512, 64),
-            "smollm B8 S2048": (8, 15, 5, 2048, 64)}
+            "smollm B8 S2048": (8, 15, 5, 2048, 64),
+            "recurrentgemma train B8 S512": (8, 10, 1, 512, 256)}
 BWD_FP32 = "smollm train B8 S512"
 # The backward's kernels by their names in the sources (the profiler's names
 # carry template arguments): flash_bwd_{delta,dkdv,dq}, with _sm90 on the
@@ -252,6 +289,9 @@ TRAIN_TOL = 2e-2
 # Read on the H100: loss 0 and grad norm 5.3e-6 apart; the bf16 step's gap,
 # which an fp32 route computing in bf16 would show, is 2.4e-5 / 2.0e-4.
 TRAIN_TOL_FP32 = 5e-5
+# The RG-LRU scan's backward (csrc/rglru_bwd.cu) at recurrentgemma-2b's train
+# shape: (B, S, W), fp32, no h0 (the train path's)
+SCAN_BWD_MAIN = {"recurrentgemma train B8 S512": (8, 512, 2560)}
 
 
 def card_line() -> str:
@@ -432,7 +472,8 @@ def phase_build(failures):
     if not names:
         failures.append("no kernel sources found")
     print("  rglru (cuda) dynamic shared memory per block: " + ", ".join(
-        f"{str(dt).split('.')[-1]}: {scan_smem_bytes(dt)} B" for dt in (torch.float32, torch.bfloat16)))
+        f"{str(dt).split('.')[-1]}: {scan_smem_bytes(dt)} B" for dt in (torch.float32, torch.bfloat16))
+        + f"; its backward rglru_bwd (fp32): {scan_bwd_smem_bytes()} B")
     # both routes of the forward and of the backward must reach the tensor cores
     for lib, want in ((ROUTES[torch.bfloat16][0], ("HGMMA",)),
                       (ROUTES[torch.float32][0], ("TF32",)),
@@ -454,7 +495,7 @@ def phase_build(failures):
     for dtype, (source, route) in BWD_ROUTES.items():
         print(f"  {source} ({route}, {str(dtype).split('.')[-1]}) dynamic shared memory per "
               "block (the larger tile kernel): "
-              + ", ".join(f"D={d}: {bwd_smem_bytes(d, dtype)} B" for d in BWD_HEAD_DIMS))
+              + ", ".join(f"D={d}: {bwd_smem_bytes(d, dtype)} B" for d in BWD_HEAD_DIMS[dtype]))
 
 
 def flash_row(q, k, v, kw, err, library, route, shape):
@@ -622,10 +663,11 @@ def device_split(fn, iters=10, replays=3) -> tuple[dict, dict]:
 
 def phase_flash_bwd(failures):
     """The attention backward kernel against its plain version (given the
-    same o and lse) on both routes, the forward's lse against the plain
-    forward's, two launches bit-equal; head_dim 256 and a misaligned bf16
-    view raise. Then times at the train path's shapes beside SDPA's
-    backward, split by kernel, and the fp32 route's at smollm's S512.
+    same o and lse) on both routes (bf16 at head_dim 256 too), the
+    forward's lse against the plain forward's, two launches bit-equal;
+    head_dim 256 in fp32 and a misaligned bf16 view raise. Then times at
+    the train paths' shapes (smollm's D64, recurrentgemma's D256) beside
+    SDPA's backward, split by kernel, and the fp32 route's at smollm's S512.
     Returns ({dtype: {label: timed row}}, {dtype: worst max_abs_err})."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {dtype: {"abs": 0.0, "rel": 0.0} for dtype in BWD_ROUTES}
@@ -657,12 +699,13 @@ def phase_flash_bwd(failures):
 
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).split(".")[-1]
-        for b, h, kv, sq, skv, d, causal, window, q_offset in BWD_CASES:
+        cases = BWD_CASES + (BWD_CASES_D256 if dtype == torch.bfloat16 else [])
+        for b, h, kv, sq, skv, d, causal, window, q_offset in cases:
             check(f"B{b} H{h} KV{kv} Sq{sq} Skv{skv} D{d} causal={causal} window={window} "
                   f"q_offset={q_offset} {dt}", *grad_inputs(gen, b, h, kv, sq, skv, d, dtype),
                   causal=causal, window=window, q_offset=q_offset)
-    # head_dim 256 (recurrentgemma) has no backward yet: it raises
-    q, k, v, do = grad_inputs(gen, 1, 2, 1, 64, 64, 256, torch.bfloat16)
+    # head_dim 256 on the fp32 route (ROADMAP B.3): it raises, launching nothing
+    q, k, v, do = grad_inputs(gen, 1, 2, 1, 64, 64, 256, torch.float32)
     o, lse = flash_attention_cuda(q, k, v, return_lse=True)
     before = ops.launch_counts()["flash_attention_bwd"]
     raised = True
@@ -670,10 +713,10 @@ def phase_flash_bwd(failures):
         flash_attention_bwd_cuda(q, k, v, o, do, lse)
         raised = False
     ok = raised and ops.launch_counts()["flash_attention_bwd"] == before
-    print(f"case flash_bwd D256: {'NotImplementedError' if raised else 'no error'} "
+    print(f"case flash_bwd D256 fp32: {'NotImplementedError' if raised else 'no error'} "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        failures.append("flash_attention_bwd: head_dim 256 did not raise")
+        failures.append("flash_attention_bwd: head_dim 256 in fp32 did not raise")
     # the bf16 route's TMA loads need do (and o) 16-byte aligned: a contiguous
     # view 2 bytes past an aligned pointer raises and launches nothing
     q, k, v, do = grad_inputs(gen, 1, 2, 1, 128, 128, 64, torch.bfloat16)
@@ -744,7 +787,9 @@ def phase_flash_bwd(failures):
 
 def phase_grad_mode(failures):
     """With grad on: a flash output on the card carries FlashAttentionFn as
-    its grad_fn, and the scan kernel, which has no backward, raises."""
+    its grad_fn and a scan output RGLRUScanFn; the fp32 backward at head_dim
+    256 raises (ROADMAP B.3). Each kernel that encodes TMA descriptors
+    launches from a new thread with the main thread's bits."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     q, k, v = (t.requires_grad_(True) for t in qkv(gen, 1, 4, 2, 128, 64, torch.bfloat16))
     out = ops.flash_attention(q, k, v)
@@ -755,16 +800,43 @@ def phase_grad_mode(failures):
         failures.append(f"flash_attention under grad: grad_fn {name}, want FlashAttentionFn")
     a, bb, _ = scan_inputs(gen, 2, 64, 128, torch.float32, False)
     a.requires_grad_(True)
-    before = ops.launch_counts()["rglru_scan"]
+    h, _ = ops.rglru_scan(a, bb)
+    name = type(h.grad_fn).__name__
+    ok = name == "RGLRUScanFnBackward"
+    print(f"case grad mode: rglru scan output grad_fn {name} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"rglru_scan under grad: grad_fn {name}, want RGLRUScanFn")
+    q, k, v = (t.requires_grad_(True) for t in qkv(gen, 1, 2, 1, 64, 256, torch.float32))
+    before = ops.launch_counts()["flash_attention_bwd"]
     raised = True
     with contextlib.suppress(NotImplementedError):  # the outcome this case wants
-        ops.rglru_scan(a, bb)
+        ops.flash_attention(q, k, v).sum().backward()
         raised = False
-    ok = raised and ops.launch_counts()["rglru_scan"] == before
-    print(f"case grad mode: rglru scan with a requiring grad: "
+    ok = raised and ops.launch_counts()["flash_attention_bwd"] == before
+    print(f"case grad mode: fp32 flash backward at head_dim 256: "
           f"{'NotImplementedError' if raised else 'no error'} {'ok' if ok else 'FAIL'}")
     if not ok:
-        failures.append("rglru_scan under grad did not raise")
+        failures.append("flash_attention under grad: the fp32 backward at D256 did not raise")
+    # a thread whose first CUDA call is a TMA kernel's launch (autograd's
+    # device thread can be one): the same bits as on the main thread
+    a, bb, _ = scan_inputs(gen, 2, 100, 64, torch.float32, False)
+    h, _ = ref.rglru_scan_ref(a, bb)
+    q, k, v = qkv(gen, 1, 4, 2, 128, 64, torch.bfloat16)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    launches = {"rglru_scan": lambda: rglru_scan_cuda(a, bb),
+                "rglru_scan_bwd": lambda: rglru_scan_bwd_cuda(a, h, bb)[:2],
+                "flash_attention bf16": lambda: (flash_attention_cuda(q, k, v),),
+                "flash_attention_bwd bf16": lambda: flash_attention_bwd_cuda(q, k, v, o, q, lse)}
+    for name, launch in launches.items():
+        # a pool of one new thread; a launch that raises there raises here
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            out = pool.submit(lambda launch=launch: (launch(), torch.cuda.synchronize())[0]
+                              ).result(timeout=120)
+        ok = all(torch.equal(x, y) for x, y in zip(out, launch()))
+        print(f"case {name} launched from a new thread: "
+              f"{'the main thread' if ok else 'NOT the main thread'}'s bits {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{name} from a new thread: bits differ from the main thread's")
 
 
 def phase_rglru(failures):
@@ -840,6 +912,94 @@ def phase_rglru(failures):
     return timings, worst
 
 
+def scan_bwd_bound(b, s, w):
+    """a, h and g read once, da and db written once, fp32; 3 FLOP an
+    element (the carry's product, the add, da's product)."""
+    return bound(5 * b * s * w * 4, 3 * b * s * w, "fp32")
+
+
+def phase_rglru_bwd(failures):
+    """The scan's backward kernel (csrc/rglru_bwd.cu) against its plain
+    version, bit for bit, over the forward's edge cases, each with and
+    without h0 and h_last's gradient, exact a = 0 and a = 1, a view off 16
+    bytes; two launches bit-equal at the train shape; its time there beside
+    the bound and an elementwise yardstick (no PyTorch call computes a
+    reverse recurrence: no library time)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+
+    def check(label, a, h, g, h0, g_last):
+        nonlocal worst
+        got = rglru_scan_bwd_cuda(a, h, g, h0, g_last)
+        want = ref.rglru_scan_bwd_ref(a, h, g, h0, g_last)
+        torch.cuda.synchronize()
+        equal = all((x is None and y is None) or (x is not None and y is not None
+                                                  and torch.equal(x, y))
+                    for x, y in zip(got, want))
+        err = max((x - y).abs().max().item() for x, y in zip(got, want) if x is not None)
+        worst = max(worst, err)
+        print(f"case rglru_bwd {label} [loads: {'tma' if bwd_uses_tma(a, h, g) else 'ld/st'}]: "
+              f"max_abs_err={err:.3e} bit-equal={equal} {'ok' if equal else 'FAIL'}")
+        if not equal:
+            failures.append(f"rglru_scan_bwd {label}: max_abs_err {err:.3e}, not bit-equal")
+        return err
+
+    def inputs(b, s, w, with_h0, with_gl):
+        a, bb, h0 = scan_inputs(gen, b, s, w, torch.float32, with_h0)
+        h, _ = ref.rglru_scan_ref(a, bb, h0)
+        g = torch.randn((b, s, w), generator=gen, device="cuda")
+        g_last = torch.randn((b, w), generator=gen, device="cuda") if with_gl else None
+        return a, h, g, h0, g_last
+
+    for b, s, w in RGLRU_CASES:
+        for with_h0 in (False, True):
+            for with_gl in (False, True):
+                check(f"B{b} S{s} W{w} h0={with_h0} g_last={with_gl}",
+                      *inputs(b, s, w, with_h0, with_gl))
+    a, h, g, h0, g_last = inputs(2, 300, 96, True, True)
+    a[..., 0::3], a[..., 1::3] = 0.0, 1.0
+    h, _ = ref.rglru_scan_ref(a, torch.randn_like(a), h0)
+    check("B2 S300 W96 h0=True g_last=True, a exactly 0 and 1 on two lanes in three",
+          a, h, g, h0, g_last)
+    a, h, g, h0, g_last = inputs(2, 300, 96, True, False)
+    shifted = torch.empty(g.numel() + 1, dtype=g.dtype, device=g.device)[1:].view(g.shape)
+    shifted.copy_(g)
+    check("B2 S300 W96 h0=True, g a view at storage offset 1", a, h, shifted, h0, None)
+
+    timings = {}
+    for label, (b, s, w) in SCAN_BWD_MAIN.items():
+        a, h, g, _, _ = inputs(b, s, w, False, False)
+        err = check(f"main path {label} W{w} fp32 h0=False g_last=False", a, h, g, None, None)
+        first, second = (rglru_scan_bwd_cuda(a, h, g) for _ in range(2))
+        same = all(torch.equal(x, y) for x, y in zip(first[:2], second[:2]))
+        print(f"case rglru_bwd determinism {label}: two launches "
+              f"{'equal bit for bit' if same else 'DIFFER'}")
+        if not same:
+            failures.append(f"rglru_scan_bwd {label}: two launches differ")
+        del first, second
+        out = torch.empty_like(a)
+        kernel = lambda: rglru_scan_bwd_cuda(a, h, g)  # noqa: E731
+        yard = lambda: torch.addcmul(a, h, g, out=out)  # noqa: E731
+        row = {"shape": f"B{b} S{s} W{w} fp32, no h0", "route": "cuda", "max_abs_err": err,
+               "ms": device_ms(kernel), "eager_ms": time_ms(kernel),
+               "plain_ms": time_ms(lambda: ref.rglru_scan_bwd_ref(a, h, g), iters=3, warmup=1),
+               "library_ms": None, "yardstick_addcmul_ms": device_ms(yard),
+               **scan_bwd_bound(b, s, w)}
+        row["gb_s"] = row["bytes"] / row["ms"] / 1e6
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        yard_bytes = 4 * a.numel() * 4
+        print(f"rglru_bwd {label} ({row['shape']}): kernel {row['ms']:.4f} ms (eager "
+              f"{row['eager_ms']:.4f}), {row['gb_s']:.0f} GB/s, "
+              f"{100 * row['share_of_bound']:.1f}% of the bound; plain {row['plain_ms']:.4f} ms, "
+              f"library none, bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+              f"{row['bytes'] / 1e6:.2f} MB); yardstick torch.addcmul(a, h, g) (3 reads, 1 "
+              f"write, {yard_bytes / 1e6:.2f} MB) {row['yardstick_addcmul_ms']:.4f} ms "
+              f"({yard_bytes / row['yardstick_addcmul_ms'] / 1e6:.0f} GB/s)")
+        timings[label] = row
+    print(f"rglru_scan_bwd: worst max_abs_err over all cases {worst:.3e} (bit-equal required)")
+    return timings, worst
+
+
 # --------------------------------------------------------------------------
 # the main paths at full width
 # --------------------------------------------------------------------------
@@ -902,7 +1062,7 @@ def phase_smollm(failures):
     n_prefills = len(INFER_PAYLOADS) + len(generates)
     expect_launches("smollm-360m", launches,
                     {"flash_attention": engine.cfg.n_layers * n_prefills,
-                     "rglru_scan": 0}, failures)
+                     "rglru_scan": 0, "rglru_scan_bwd": 0}, failures)
     metrics.update(check_per_layer(engine, prompts[0], failures))
     logits, fp32_launches = check_logits(engine.cfg, engine.params, prompts[0], failures)
     metrics.update(logits)
@@ -917,7 +1077,8 @@ def phase_recurrentgemma(failures):
     n_prefills = len(INFER_PAYLOADS) + len(generates)
     expect_launches("recurrentgemma-2b", launches,
                     {"flash_attention": kinds.count("attn") * n_prefills,
-                     "rglru_scan": kinds.count("rglru") * n_prefills}, failures)
+                     "rglru_scan": kinds.count("rglru") * n_prefills, "rglru_scan_bwd": 0},
+                    failures)
     for tokens in prompts:
         metrics.update(check_per_layer(engine, tokens, failures))
     logits, fp32_launches = check_logits(engine.cfg, engine.params, prompts[0], failures)
@@ -1105,7 +1266,8 @@ def check_logits(cfg, params, tokens, failures):
             kinds = cfg.pattern_for_layers()
             expect_launches(f"{cfg.name} fp32 prefill (the fp32 flash route's main path)",
                             fp32_launches, {"flash_attention": kinds.count("attn"),
-                                            "rglru_scan": kinds.count("rglru")}, failures)
+                                            "rglru_scan": kinds.count("rglru"),
+                                            "rglru_scan_bwd": 0}, failures)
             if set(flash_dtypes) != {torch.float32}:
                 failures.append(f"{cfg.name} fp32 prefill: flash inputs of dtypes "
                                 f"{sorted(map(str, set(flash_dtypes)))}, want float32 only")
@@ -1171,12 +1333,14 @@ def profile_step(step_fn, state, batch):
 
 def fresh_states(cfg, device):
     """A function that returns, at each call, a new train state of ``cfg``
-    at step 0 from the same seeded weights (seed 0, the attention
-    projections at their true fan-in) in ``cfg.dtype``."""
-    params0 = true_fan_in(steps.init_params(cfg, 0, device), cfg)
+    on ``device`` at step 0 from the same seeded weights (seed 0, the
+    attention projections at their true fan-in) in ``cfg.dtype``. The
+    weights wait in host memory: a recurrentgemma-2b train state fills most
+    of the card, and the step updates it in place."""
+    params0 = true_fan_in(steps.init_params(cfg, 0, "cpu"), cfg)
 
     def fresh():
-        params = tree_map_with_path(lambda _, t: t.clone(), params0)
+        params = tree_map_with_path(lambda _, t: t.to(device, copy=True), params0)
         return steps.TrainState(torch.zeros((), dtype=torch.int32, device=device), params,
                                 adamw.init(params))
 
@@ -1220,7 +1384,7 @@ def phase_train(failures):
 
     n = TRAIN_STEPS
     want = {"flash_attention": 2 * cfg.n_layers * n, "flash_attention_bwd": cfg.n_layers * n,
-            "rglru_scan": 0}
+            "rglru_scan": 0, "rglru_scan_bwd": 0}
     expect_launches(f"smollm-360m train ({n} steps, remat full)", launches, want, failures)
     first = metrics[0]
     for key in ("loss", "grad_norm"):
@@ -1307,7 +1471,8 @@ def phase_train_fp32(failures):
     launches = ops.launch_counts()
     expect_launches("smollm-360m fp32 train step (the fp32 backward route's main path)",
                     launches, {"flash_attention": 2 * cfg.n_layers,
-                               "flash_attention_bwd": cfg.n_layers, "rglru_scan": 0}, failures)
+                               "flash_attention_bwd": cfg.n_layers, "rglru_scan": 0,
+                               "rglru_scan_bwd": 0}, failures)
     for key in ("loss", "grad_norm"):
         value = float(got[key])
         rel = abs(value - plain[key]) / abs(plain[key])
@@ -1320,6 +1485,128 @@ def phase_train_fp32(failures):
     print(f"smollm-360m fp32 train phase: {time.perf_counter() - t_phase:.1f} s "
           "(weights, the plain step and the kernels' step)")
     return launches
+
+
+def kernel_shares(by_name):
+    """Device ms of a profiled step's kernels by the port's kernel: the
+    flash forward, the flash backward, the scan and the scan's backward."""
+    shares = {"flash_fwd": 0.0, "flash_bwd": 0.0, "rglru_scan": 0.0, "rglru_scan_bwd": 0.0}
+    for name, (t, _) in by_name.items():
+        if "rglru_scan_bwd_kernel" in name:
+            shares["rglru_scan_bwd"] += t
+        elif "rglru_scan_kernel" in name:
+            shares["rglru_scan"] += t
+        elif BWD_KERNEL.search(name):
+            shares["flash_bwd"] += t
+        elif "flash_fwd" in name:
+            shares["flash_fwd"] += t
+    return shares
+
+
+def phase_train_recurrentgemma(failures):
+    """recurrentgemma-2b training at full width (26 layers: 18 rglru + 8
+    local attention, list layout, remat full, bf16, seeded weights with the
+    attention projections at their true fan-in, deterministic algorithms)
+    through ``steps.make_train_step``, which updates the state in place
+    (two fp32 optimizer states would not fit the card), on B x S =
+    TRAIN_BATCH x TRAIN_SEQ tokens of the
+    synthetic stream. The first step's loss and grad norm against the same
+    step on the plain versions; TRAIN_STEPS steps with the launch counts
+    set to 0 just before and read just after (a step: 16 flash forwards
+    and 8 backwards, 36 scan forwards and 18 backwards: each layer's
+    forward, its recompute, its backward); the same steps again from the
+    same seed must end on bit-equal state (the first run's kept in host
+    memory); one more step under the profiler. Returns (launches,
+    metrics)."""
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    deterministic(device)
+    cfg = get_config("recurrentgemma-2b")
+    kinds = cfg.pattern_for_layers()
+    opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    batches = [data.batch_at(i) for i in range(TRAIN_STEPS + 1)]
+    fresh = fresh_states(cfg, device)
+    step_fn = steps.make_train_step(cfg, opt_cfg)
+    plain_state, plain = steps.make_train_step(cfg, opt_cfg, force="ref")(
+        fresh(), batches[0])
+    plain = {k: float(v) for k, v in plain.items()}
+    del plain_state  # one train state fills half the card
+    torch.cuda.empty_cache()
+
+    state = fresh()
+    n_params = sum(t.numel() for _, t in tree_flatten_with_paths(state.params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, step_s = [], []
+    ops.reset_launch_counts()
+    for batch in batches[:TRAIN_STEPS]:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    n = TRAIN_STEPS
+    n_attn, n_rglru = kinds.count("attn"), kinds.count("rglru")
+    want = {"flash_attention": 2 * n_attn * n, "flash_attention_bwd": n_attn * n,
+            "rglru_scan": 2 * n_rglru * n, "rglru_scan_bwd": n_rglru * n}
+    expect_launches(f"recurrentgemma-2b train ({n} steps, remat full)", launches, want, failures)
+    first = metrics[0]
+    for key in ("loss", "grad_norm"):
+        rel = abs(first[key] - plain[key]) / abs(plain[key])
+        ok = rel <= TRAIN_TOL and math.isfinite(first[key])
+        print(f"recurrentgemma-2b train step 0 {key}: kernels {first[key]:.6f}, plain "
+              f"{plain[key]:.6f}, relative difference {rel:.2e} tol {TRAIN_TOL} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"recurrentgemma-2b train step 0 {key}: {first[key]} vs plain "
+                            f"{plain[key]}")
+    print(f"recurrentgemma-2b train losses {[round(m['loss'], 6) for m in metrics]}, grad norms "
+          f"{[round(m['grad_norm'], 6) for m in metrics]}, lr {[m['lr'] for m in metrics]}")
+
+    kept = [(p, t.to("cpu", copy=True)) for p, t in tree_flatten_with_paths(state)]
+    del state
+    torch.cuda.empty_cache()
+    again = fresh()
+    for batch in batches[:TRAIN_STEPS]:
+        again, _ = step_fn(again, batch)
+    torch.cuda.synchronize()
+    flat = tree_flatten_with_paths(again)
+    same = [p for p, _ in flat] == [p for p, _ in kept] and all(
+        x.dtype == y.dtype and torch.equal(x.cpu(), y) for (_, x), (_, y) in zip(flat, kept))
+    del kept, flat
+    print(f"recurrentgemma-2b train: two runs of {n} steps from the same seed "
+          f"{'equal bit for bit' if same else 'DIFFER'} (params, m, v, master, step)")
+    if not same:
+        failures.append("recurrentgemma-2b train: two runs from the same seed differ")
+
+    again, wall_ms, busy_ms, by_name = profile_step(step_fn, again, batches[TRAIN_STEPS])
+    del again
+    shares = kernel_shares(by_name)
+    n_kernels = sum(c for _, c in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    step_ms = 1e3 * sum(step_s[1:]) / max(len(step_s) - 1, 1)
+    out = {"params": n_params, "step_ms": step_ms, "first_step_ms": 1e3 * step_s[0],
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3), "peak_mem_gib": peak_gib,
+           "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "busy_share": busy_ms / wall_ms, "kernels_per_step": n_kernels,
+           "kernel_ms": shares, "loss": [m["loss"] for m in metrics],
+           "grad_norm": [m["grad_norm"] for m in metrics],
+           "plain_step0": {k: plain[k] for k in ("loss", "grad_norm")}}
+    print(f"recurrentgemma-2b train B{TRAIN_BATCH} S{TRAIN_SEQ} remat full bf16 ({n_params:,} "
+          f"params): step {step_ms:.2f} ms (steps 2-{n}; first {out['first_step_ms']:.2f} ms), "
+          f"{out['tokens_per_s']:,.0f} tok/s, peak device memory {peak_gib:.2f} GiB; profiled "
+          f"step wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+          f"({100 * out['busy_share']:.1f}%); of it "
+          + ", ".join(f"{k} {t:.2f} ms ({100 * t / busy_ms:.2f}%)" for k, t in shares.items())
+          + f"; {n_kernels} kernels in the step")
+    print("recurrentgemma-2b train device time by kernel (profiled step, top 8): "
+          + "; ".join(f"{name[:60]} {t:.2f} ms ({c})" for name, (t, c) in top))
+    print(f"recurrentgemma-2b train phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, out
 
 
 class MemoryStore:
@@ -1414,7 +1701,7 @@ def phase_crash_resume(failures):
           f"({len(straight)} leaves); launches of the uninterrupted run {launches}")
     cfg = learners[0].cfg
     want = {"flash_attention": 2 * cfg.n_layers * 60, "flash_attention_bwd": cfg.n_layers * 60,
-            "rglru_scan": 0}
+            "rglru_scan": 0, "rglru_scan_bwd": 0}
     expect_launches("smollm tiny learner (60 steps, remat full)", launches, want, failures)
     if not (ok_exit and same and steps_done == 60 and len(learners_b) == 2 and resumed_from):
         failures.append(f"crash-resume on the card: exits {ctx.files.get('exit')} / "
@@ -1427,7 +1714,8 @@ def kernel_entry(name, source, replaces, launches, timings, primary, worst):
     shape's numbers, and every main-path shape under "shapes"."""
     row = timings[primary]
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-    extra = ("eager_ms", "eager_library_ms", "same_bytes_add_ms", "gb_s", "share_of_bound",
+    extra = ("eager_ms", "eager_library_ms", "same_bytes_add_ms", "yardstick_addcmul_ms",
+             "gb_s", "share_of_bound",
              "cuda_core_bound_ms", "cuda_core_bound_by", "sdpa_fwd_ms", "sdpa_fwd_bwd_ms",
              "kernel_split_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1462,6 +1750,7 @@ def main() -> int:
     bwd_t, bwd_worst = phase_flash_bwd(failures)
     phase_grad_mode(failures)
     scan_t, scan_worst = phase_rglru(failures)
+    scan_bwd_t, scan_bwd_worst = phase_rglru_bwd(failures)
     sm_launches, sm_fp32_launches, sm_metrics = phase_smollm(failures)
     torch.cuda.empty_cache()
     rg_launches, rg_fp32_launches, rg_metrics = phase_recurrentgemma(failures)
@@ -1471,8 +1760,11 @@ def main() -> int:
     fp32_train_launches = phase_train_fp32(failures)
     torch.cuda.empty_cache()
     learner_launches = phase_crash_resume(failures)
+    torch.cuda.empty_cache()
+    rg_train_launches, rg_train_metrics = phase_train_recurrentgemma(failures)
     train_paths = {"smollm-360m train": train_launches,
-                   "smollm tiny learner crash-resume": learner_launches}
+                   "smollm tiny learner crash-resume": learner_launches,
+                   "recurrentgemma-2b train": rg_train_launches}
 
     kernels = [
         kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention_sm90.cu",
@@ -1491,8 +1783,15 @@ def main() -> int:
                      flash_t[torch.float32], "smollm B8 S512", flash_worst[torch.float32]),
         kernel_entry("rglru_scan", "src/repro_torch/csrc/rglru.cu",
                      "src/repro/kernels/rglru.py:31",
-                     {"recurrentgemma-2b": rg_launches["rglru_scan"]},
+                     {"recurrentgemma-2b": rg_launches["rglru_scan"],
+                      "recurrentgemma-2b train": rg_train_launches["rglru_scan"]},
                      scan_t, "recurrentgemma B8 S512", scan_worst),
+        # the scan's backward (the JAX package trains through autodiff of its
+        # associative scan), launched by the recurrentgemma train path
+        kernel_entry("rglru_scan_bwd", "src/repro_torch/csrc/rglru_bwd.cu",
+                     "src/repro/kernels/rglru.py:31",
+                     {"recurrentgemma-2b train": rg_train_launches["rglru_scan_bwd"]},
+                     scan_bwd_t, "recurrentgemma train B8 S512", scan_bwd_worst),
         # the backward of the flash forward (the JAX package trains through
         # autodiff of the jnp twin of the TPU kernel it names): the bf16
         # route, launched by the train paths, and the fp32 route, launched by
@@ -1509,6 +1808,7 @@ def main() -> int:
     print(f"card: {card}; smollm-360m: {json.dumps(sm_metrics)}; "
           f"recurrentgemma-2b: {json.dumps(rg_metrics)}; "
           f"smollm-360m train: {json.dumps(train_metrics)}; "
+          f"recurrentgemma-2b train: {json.dumps(rg_train_metrics)}; "
           f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     if failures:

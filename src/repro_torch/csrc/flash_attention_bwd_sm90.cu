@@ -1,17 +1,18 @@
 // Flash-attention backward in bf16 for Hopper (sm_90a): tensor-core products
 // with wgmma, TMA loads into swizzled shared memory, a ring of streamed tiles
-// on mbarriers, a producer warpgroup and a consumer warpgroup. Written by hand.
+// on mbarriers, a producer warpgroup and one or two consumer warpgroups.
+// Written by hand.
 //
 // The TPU side has no backward kernel: the JAX package trains through
 // autodiff of the jnp twin of src/repro/kernels/flash_attention.py:
 // _flash_kernel (src/repro/nn/attention.py:flash_attention). This is the
 // backward of the bf16 forward (flash_attention_sm90.cu), bound to it by
 // FlashAttentionFn in kernels/flash_attention.py; fp32 inputs take the
-// CUDA-core backward in flash_attention_bwd.cu. Same function as the
-// forward: GQA over q (B, H, Sq, D) and k/v (B, KV, Skv, D), H % KV == 0,
-// causal, local-window (q_pos - k_pos < window) or bidirectional masks, an
-// absolute q_offset, any Sq and Skv, head_dim 16, 32, 64 or 128 (256 is
-// recurrentgemma's, whose training is ROADMAP A.9). Its plain version is
+// split-TF32 mma.sync backward on the tensor cores in flash_attention_bwd.cu.
+// Same function as the forward: GQA over q (B, H, Sq, D) and k/v (B, KV,
+// Skv, D), H % KV == 0, causal, local-window (q_pos - k_pos < window) or
+// bidirectional masks, an absolute q_offset, any Sq and Skv, head_dim 16, 32,
+// 64, 128 or 256 (recurrentgemma's). Its plain version is
 // kernels/ref.py:flash_attention_bwd_ref.
 //
 // What it computes, from q, k, v, the forward's output o, the output's
@@ -50,12 +51,15 @@
 // shape B8 H15 KV5 S512 D64 bf16 causal that is 10.09 GFLOP (0.0102 ms at
 // 989 TFLOP/s) and 42.19 MB (0.0126 ms at 3.35 TB/s): the bytes bound it. At
 // B8 S2048 it is 161.1 GFLOP (0.163 ms) and 168.8 MB (0.050 ms): the
-// operations. The split does seven products a pair, not five (S and dP in
-// both tile kernels), and computes whole tiles on the causal diagonal, so
-// this design's own floor is 1.4× the operations bound and more.
+// operations. At recurrentgemma-2b's, B8 H10 KV1 S512 D256 bf16 causal, it
+// is 26.90 GFLOP (0.0272 ms) and 92.44 MB (0.0276 ms): the bytes, barely.
+// The split does seven products a pair, not five (S and dP in both tile
+// kernels; nine at D = 256, below), and computes whole tiles on the causal
+// diagonal, so this design's own floor is 1.4× the operations bound and more.
 //
-// What the design does about what made the first, CUDA-core bf16 backward
-// slow (flash_attention_bwd.cu, which now serves fp32 inputs only):
+// What the design does about what made the first bf16 backward slow (it ran
+// on the CUDA cores in flash_attention_bwd.cu, which now serves fp32 inputs
+// only, with split-TF32 mma.sync on the tensor cores):
 //   * fp32 widening in shared memory: gone. Q, K, V and dO stay bf16, in
 //     tiles that TMA loads into swizzled panels of PW = min(D, 64) columns
 //     (one 32-, 64- or 128-byte swizzle span, each panel on a 1024-byte
@@ -93,6 +97,29 @@
 // wgmma.fence and wait_group only wgmma instructions run (sm90.cuh:
 // fence_regs), and each group is waited out before its accumulators are
 // read: the forward's rule against ptxas serializing the wgmma (C7513).
+//
+// Head dim 256 (recurrentgemma-2b) does not fit that budget: dK and dV alone
+// take 256 registers a thread. So at D = 256:
+//   * dK/dV: two consumer warpgroups split the head dim (Cfg::KV_CONSUMERS,
+//     DC = 128 columns each): each keeps dK and dV for its 128 columns (128
+//     registers), and each computes the whole Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ over
+//     all 256 dims itself, from the same shared tiles, with the same wgmma,
+//     so both hold the same Pᵀ and dSᵀ bits and need no exchange: 9 products
+//     a (query, key) pair instead of 7, and no barrier between consumers but
+//     the stage's empty barrier, which waits for the 8 consumer warps. The
+//     other way, one consumer computing Sᵀ and the other dPᵀ and the two
+//     swapping Pᵀ and dSᵀ as bf16 through shared memory on a named barrier,
+//     saves 2 of the 9 products and adds that exchange and its waits a tile;
+//     it is not taken. 384 threads, one block a SM (setmaxnreg 40 / 232 /
+//     232), the dK/dV tile 32 queries wide: 176 registers of a consumer's
+//     before indices.
+//   * dQ: one consumer warpgroup holds the 64 x 256 fp32 dQ (128 registers
+//     a thread) and walks 32-key tiles (Cfg::Q_BN: S and dP 16 registers
+//     each), about 180 in all; one block a SM, launched with up to 255
+//     registers a thread, sets no setmaxnreg.
+//   * shared memory: K and V (dK/dV) or Q and dO (dQ) resident, 32 KB each,
+//     and two stages of two streamed 32 x 256 tiles, 16 KB each: 129.5 KB a
+//     block of either kernel.
 
 #include "sm90.cuh"  // mbarriers, TMA, wgmma, the tensor-map encoder
 
@@ -109,17 +136,30 @@ struct Cfg {
   static constexpr CUtensorMapSwizzle SWIZZLE = tma_swizzle(SPAN);
   // A consumer warpgroup owns BM resident rows (keys in dK/dV, queries in
   // dQ) and walks streamed tiles of KV_BN queries (dK/dV) or Q_BN keys (dQ).
-  // At D = 128 the dK/dV tile is 32 queries wide, so its registers (dK, dV,
-  // Sᵀ, dPᵀ) fit under CONSUMER_REGS.
+  // From D = 128 the dK/dV tile is 32 queries wide and from D = 256 the dQ
+  // tile 32 keys wide, so the consumers' registers fit their budgets.
   static constexpr int BM = 64;
   static constexpr int KV_BN = D <= 64 ? 64 : 32;
-  static constexpr int Q_BN = 64;
-  static constexpr int THREADS = 2 * WG_THREADS;  // producer + consumer
-  static constexpr int MIN_BLOCKS = 2;
-  // setmaxnreg targets: two blocks a SM, so a block's 256 threads share
-  // 32,768 registers; the producer keeps enough for its warp's lse/Δ copy.
+  static constexpr int Q_BN = D <= 128 ? 64 : 32;
+  // dK/dV consumer warpgroups: at D = 256, dK and dV would take 256
+  // registers a thread in one, so two split the head dim, each owning DC
+  // columns of dK and dV and computing the whole Sᵀ and dPᵀ itself.
+  static constexpr int KV_CONSUMERS = D <= 128 ? 1 : 2;
+  static constexpr int DC = D / KV_CONSUMERS;
+  static constexpr int KV_THREADS = (1 + KV_CONSUMERS) * WG_THREADS;  // producer + consumers
+  static constexpr int Q_THREADS = 2 * WG_THREADS;                    // producer + consumer
+  // Up to D = 128 two blocks share a SM (a block's 256 threads share 32,768
+  // registers); at D = 256 one block a SM, its shared memory being 129 KB.
+  static constexpr int MIN_BLOCKS = D <= 128 ? 2 : 1;
+  // setmaxnreg targets, multiples of 8 that spend the registers a block was
+  // launched with: 128 a thread at two blocks (40 + 216 = 2 x 128); 168 at
+  // D = 256 in the dK/dV kernel's 384 threads (40 + 2 x 232 = 3 x 168). The
+  // producer keeps enough for its warp's lse/Δ copy. The dQ kernel at D =
+  // 256 (256 threads, one block) sets none: launched at up to 255 registers
+  // a thread, it has more than its consumer needs.
   static constexpr int PRODUCER_REGS = 40;
-  static constexpr int CONSUMER_REGS = 216;
+  static constexpr int CONSUMER_REGS = D <= 128 ? 216 : 232;
+  static constexpr bool Q_SETMAXNREG = D <= 128;
   static constexpr int RES_BYTES = BM * D * 2;           // one resident tile
   static constexpr int KV_STREAM = KV_BN * D * 2;        // a streamed Q or dO tile
   static constexpr int Q_STREAM = Q_BN * D * 2;          // a streamed K or V tile
@@ -154,16 +194,16 @@ __device__ __forceinline__ void issue_ss(float (&acc)[N / 2], uint32_t a, int a_
   }
 }
 
-// acc (64 x D, fp32) += A . B over K rows in k16 steps (no wait): A from
-// registers (bf16 fragments), B the K x D tile at `b` in panels of K rows,
-// read MN-major.
-template <int D, int K>
-__device__ __forceinline__ void issue_rs(float (&acc)[D / 2], const uint32_t (&a)[K / 16][4],
+// acc (64 x N, fp32) += A . B over K rows in k16 steps (no wait): A from
+// registers (bf16 fragments), B the K x N columns of a tile at `b` (the
+// first of their panels of K rows), read MN-major.
+template <int D, int K, int N = D>
+__device__ __forceinline__ void issue_rs(float (&acc)[N / 2], const uint32_t (&a)[K / 16][4],
                                          uint32_t b) {
   using C = Cfg<D>;
 #pragma unroll
   for (int ks = 0; ks < K / 16; ++ks)
-    wgmma_rs<D>(acc, a[ks], smem_desc(b + ks * 16 * C::SPAN, K * C::SPAN, 8 * C::SPAN, C::LAYOUT));
+    wgmma_rs<N>(acc, a[ks], smem_desc(b + ks * 16 * C::SPAN, K * C::SPAN, 8 * C::SPAN, C::LAYOUT));
 }
 
 // One score tile's P and dS from S and dP, fragments of a 64 x N wgmma
@@ -218,18 +258,18 @@ __device__ __forceinline__ void probs(const float (&s)[N / 2], const float (&dp)
   }
 }
 
-// Rows row and row + 8 of a 64 x D accumulator, times mul, as bf16 into a
-// (S, D) matrix; rows at or past S are not written.
-template <int D>
+// Rows row and row + 8 of a 64 x N accumulator, times mul, as bf16 into N
+// columns of a (S, D) matrix from `out`; rows at or past S are not written.
+template <int D, int N = D>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out,
-                                           const float (&acc)[D / 2], int row, int S, int quad,
+                                           const float (&acc)[N / 2], int row, int S, int quad,
                                            float mul) {
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = row + 8 * hh;
     if (r < S) {
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < N / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * D + 8 * j + 2 * quad) =
             __floats2bfloat162_rn(acc[4 * j + 2 * hh] * mul, acc[4 * j + 2 * hh + 1] * mul);
     }
@@ -265,7 +305,7 @@ flash_bwd_delta_sm90(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* _
 }
 
 template <int D>
-__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
+__global__ void __launch_bounds__(Cfg<D>::KV_THREADS, Cfg<D>::MIN_BLOCKS)
 flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
@@ -274,7 +314,7 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
                     __nv_bfloat16* __restrict__ dv, int H, int KV, int Sq, int Skv, int causal,
                     int window, int q_offset, float scale, float scale_log2) {
   using C = Cfg<D>;
-  constexpr int BM = C::BM, BN = C::KV_BN, SPAN = C::SPAN, PW = C::PW;
+  constexpr int BM = C::BM, BN = C::KV_BN, SPAN = C::SPAN, PW = C::PW, DC = C::DC;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t s_k = (raw + 1023) & ~1023u;  // NP panels of BM rows
@@ -300,7 +340,7 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
     mbar_init(kv_full, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1 + 32);  // the TMA's expect_tx, then the producer warp's 32 lanes
-      mbar_init(empty + 8 * s, 4);      // lane 0 of every consumer warp
+      mbar_init(empty + 8 * s, 4 * C::KV_CONSUMERS);  // lane 0 of every consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -343,16 +383,20 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   } else {
-    // Consumer: keys n0 .. n0 + 63, the rows of every tile it computes.
+    // Consumer cw: keys n0 .. n0 + 63, the rows of every tile it computes,
+    // and columns col0 .. col0 + DC - 1 of their dK and dV.
     setmaxnreg_inc<C::CONSUMER_REGS>();
     const int tid = threadIdx.x - WG_THREADS;
-    const int warp = tid / 32, lane = tid % 32, quad = lane % 4;
+    const int cw = tid / WG_THREADS, col0 = cw * DC;
+    const int warp = (tid % WG_THREADS) / 32, lane = tid % 32, quad = lane % 4;
     const int key0 = n0 + 16 * warp + lane / 4;  // this thread's keys: key0 and key0 + 8
     const float unused[2] = {0.f, 0.f};
+    // the first panel of this consumer's columns in a streamed tile
+    const uint32_t col_off = (col0 / PW) * BN * SPAN;
 
-    float dka[D / 2], dva[D / 2];
+    float dka[DC / 2], dva[DC / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    for (int i = 0; i < DC / 2; ++i) dka[i] = dva[i] = 0.f;
     mbar_wait(kv_full, 0);
 
     for (int it = 0; it < n_iter; ++it) {
@@ -374,21 +418,21 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
       probs<BN, true>(sc, dp, pa, da, scale_log2, stat + s * 2 * BN + 2 * quad, unused, unused,
                       need_mask, key0, qpos0 + 2 * quad, Skv, causal, window);
       wgmma_fence();
-      issue_rs<D, BN>(dva, pa, do_st);  // dV += Pᵀ dO
-      issue_rs<D, BN>(dka, da, q_st);   // dK += dSᵀ Q
+      issue_rs<D, BN, DC>(dva, pa, do_st + col_off);  // dV += Pᵀ dO, this consumer's columns
+      issue_rs<D, BN, DC>(dka, da, q_st + col_off);   // dK += dSᵀ Q
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dva);
       fence_regs(dka);
       if (lane == 0) mbar_arrive(empty + 8 * s);
     }
-    store_rows<D>(dk + (size_t)bkv * Skv * D, dka, key0, Skv, quad, scale);
-    store_rows<D>(dv + (size_t)bkv * Skv * D, dva, key0, Skv, quad, 1.f);
+    store_rows<D, DC>(dk + (size_t)bkv * Skv * D + col0, dka, key0, Skv, quad, scale);
+    store_rows<D, DC>(dv + (size_t)bkv * Skv * D + col0, dva, key0, Skv, quad, 1.f);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
+__global__ void __launch_bounds__(Cfg<D>::Q_THREADS, Cfg<D>::MIN_BLOCKS)
 flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
@@ -429,7 +473,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
 
   if (threadIdx.x < WG_THREADS) {
     // Producer: one thread keeps the ring full.
-    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if constexpr (C::Q_SETMAXNREG) setmaxnreg_dec<C::PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, 2 * C::RES_BYTES);
 #pragma unroll
@@ -451,7 +495,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
     }
   } else {
     // Consumer: query rows m0 .. m0 + 63.
-    setmaxnreg_inc<C::CONSUMER_REGS>();
+    if constexpr (C::Q_SETMAXNREG) setmaxnreg_inc<C::CONSUMER_REGS>();
     const int tid = threadIdx.x - WG_THREADS;
     const int warp = tid / 32, lane = tid % 32, quad = lane % 4;
     const int row0 = m0 + 16 * warp + lane / 4;  // this thread's rows: row0 and row0 + 8
@@ -535,13 +579,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const float scale_log2 = scale * LOG2E;
-  flash_bwd_dkdv_sm90<D><<<dim3(B * KV, k_tiles), C::THREADS, C::SMEM_KV, stream>>>(
+  flash_bwd_dkdv_sm90<D><<<dim3(B * KV, k_tiles), C::KV_THREADS, C::SMEM_KV, stream>>>(
       q_kv, k_res, v_res, do_kv, lse, delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), H, KV, Sq, Skv, causal, window, q_offset, scale,
       scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_sm90<D><<<dim3(B * H, q_tiles), C::THREADS, C::SMEM_Q, stream>>>(
+  flash_bwd_dq_sm90<D><<<dim3(B * H, q_tiles), C::Q_THREADS, C::SMEM_Q, stream>>>(
       q_res, k_q, v_q, do_res, lse, delta, static_cast<__nv_bfloat16*>(dq), H, KV, Sq, Skv,
       causal, window, q_offset, scale, scale_log2);
   return cudaGetLastError();
@@ -562,6 +606,7 @@ extern "C" int flash_attention_bwd_sm90_smem_bytes(int D) {
     case 32: return smem_bytes<32>();
     case 64: return smem_bytes<64>();
     case 128: return smem_bytes<128>();
+    case 256: return smem_bytes<256>();
     default: return -1;
   }
 }
@@ -591,6 +636,7 @@ extern "C" int flash_attention_bwd_sm90(const void* q, const void* k, const void
     case 32: return (int)launch<32>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
     case 64: return (int)launch<64>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
     case 128: return (int)launch<128>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 256: return (int)launch<256>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -67,10 +67,7 @@
 // predecessors had finished, so two launches could differ. The kernel
 // allocates nothing and launches on the caller's stream.
 
-#include <cuda.h>  // CUtensorMap and its enums; the entry point comes from the runtime
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"  // mbarriers, TMA, the tensor-map encoder
 
 namespace {
 
@@ -96,58 +93,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2
 // h_t = a_t * h_{t-1} + b_t with two roundings, not one FMA.
 __device__ __forceinline__ float step(float a, float h, float b) {
   return __fadd_rn(__fmul_rn(a, h), b);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers -------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Release semantics: this thread's earlier shared-memory accesses are seen by
-// a thread whose wait observes the phase complete.
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed. A phase that has
-// not completed after about 2^35 cycles (some 20 s) is a fault: trap, so the
-// launch fails instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long start = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) start = clock64();
-    else if (clock64() - start > (1ll << 35)) __trap();
-  }
-}
-
-// One box of a 3-D tensor map into shared memory; completes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
 }
 
 // ---- the kernel ------------------------------------------------------------
@@ -257,25 +202,6 @@ rglru_scan_kernel(const __grid_constant__ CUtensorMap tm_a,
 }
 
 // ---- host side -------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status) ==
-            cudaSuccess &&
-        status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // A 3-D map over a contiguous (B, S, W) tensor, as (W, S, B), boxes of
 // LANES x STEPS x 1.

@@ -2,9 +2,9 @@
 // mbarriers, TMA loads, wgmma descriptors and instructions, setmaxnreg, and
 // the tensor-map encoder taken from the driver through the runtime (so no
 // library links -lcuda). Included by flash_attention_sm90.cu (the bf16
-// flash forward) and flash_attention_bwd_sm90.cu (its backward); each
-// builds into a library of its own, so everything here has internal
-// linkage. kernels/_build.py hashes this header into every library's name,
+// flash forward), flash_attention_bwd_sm90.cu (its backward), rglru.cu (the
+// RG-LRU scan) and rglru_bwd.cu (its backward); each builds into a library
+// of its own, so everything here has internal linkage. kernels/_build.py hashes this header into every library's name,
 // so an edited header rebuilds them.
 
 #pragma once
@@ -314,9 +314,17 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda),
+// with a context current in the calling thread, which the driver call needs
+// (else it returns CUDA_ERROR_INVALID_CONTEXT). A thread that has made no
+// runtime call yet has none: a new thread, or autograd's device thread
+// before its first CUDA operation. cudaSetDevice on the runtime's current
+// device makes that device's primary context current, as the launch that
+// follows would. Null if either fails.
 EncodeTiled tensor_map_encoder() {
   static EncodeTiled fn = nullptr;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) return nullptr;
   if (!fn) {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult status;

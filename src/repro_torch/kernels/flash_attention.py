@@ -15,15 +15,16 @@ bidirectional masks; absolute ``q_offset``; fp32 online softmax), at head_dim
 what bounds it on the card and what its design does about it. Their plain
 version is ``repro_torch.kernels.ref.flash_attention_ref``.
 
-The backward (head_dim 16 to 128) has no TPU counterpart: the JAX package
-trains through autodiff of its jnp twin. It takes one of two routes too
-(``BWD_ROUTES``):
+The backward has no TPU counterpart: the JAX package trains through
+autodiff of its jnp twin. It takes one of two routes too (``BWD_ROUTES``,
+head dims by route in ``BWD_HEAD_DIMS``):
 
-- bf16 takes ``csrc/flash_attention_bwd_sm90.cu``: all seven products on
-  wgmma, Q/K/V/dO tiles loaded by TMA into swizzled shared memory, a ring
-  of streamed tiles on mbarriers;
-- fp32 takes ``csrc/flash_attention_bwd.cu``: mma.sync on the tensor
-  cores, each fp32 product as three TF32 products of split operands (P and
+- bf16 takes ``csrc/flash_attention_bwd_sm90.cu`` (head_dim 16 to 256): all
+  seven products on wgmma, Q/K/V/dO tiles loaded by TMA into swizzled
+  shared memory, a ring of streamed tiles on mbarriers; at head_dim 256 two
+  consumer warpgroups split dK and dV by columns;
+- fp32 takes ``csrc/flash_attention_bwd.cu`` (head_dim 16 to 128): mma.sync
+  on the tensor cores, each fp32 product as three TF32 products of split operands (P and
   dS kept fp32), a two-stage cp.async ring of streamed tiles; the forward's
   TF32 helpers are shared through ``csrc/tf32.cuh``.
 
@@ -49,7 +50,8 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+# the backward's head dims by route (dtype)
+BWD_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128, 256), torch.float32: (16, 32, 64, 128)}
 # dtype -> (source in csrc/, which is also its C entry points' prefix; route name)
 ROUTES = {torch.bfloat16: ("flash_attention_sm90", "cuda-wgmma"),
           torch.float32: ("flash_attention", "cuda-fp32")}
@@ -165,13 +167,15 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=0,
     16-byte aligned too, fp32 the split-TF32 one, whose cp.async loads need
     the same and whose launch fails with cudaErrorMisalignedAddress
     otherwise) and the forward's fp32 ``lse`` (B, H, Sq). head_dim 16 to
-    128. Two launches on the same inputs give the same bits."""
+    256 in bf16, 16 to 128 in fp32 (``BWD_HEAD_DIMS``). Two launches on the
+    same inputs give the same bits."""
     _check(q, k, v)
     b, h, sq, d = q.shape
-    if d not in BWD_HEAD_DIMS:
+    if d not in BWD_HEAD_DIMS[q.dtype]:
         raise NotImplementedError(
-            f"flash_attention_bwd_cuda: head_dim {d} not in {BWD_HEAD_DIMS}; head_dim 256 "
-            "is recurrentgemma's, whose training is ROADMAP A.9")
+            f"flash_attention_bwd_cuda: head_dim {d} not in {BWD_HEAD_DIMS[q.dtype]} on the "
+            f"{q.dtype} route; the fp32 backward at head_dim 256 is ROADMAP B.3 "
+            "(recurrentgemma, the arch with head_dim 256, trains in bf16)")
     if window < 0 or q_offset < 0:
         raise ValueError("flash_attention_bwd_cuda: window and q_offset must be >= 0")
     for name, t in (("o", o), ("do", do)):

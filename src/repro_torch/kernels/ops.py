@@ -5,8 +5,9 @@ The model code calls these. ``force`` picks a path explicitly: ``"kernel"``
 (raises on a CPU tensor) or ``"ref"`` (the plain version, on any device).
 There is no fallback: a CUDA tensor reaches the kernel or an exception.
 With grad on, flash attention on the card goes through
-``FlashAttentionFn`` (the forward kernel, then the backward kernel); the
-plain versions carry autograd on their own.
+``FlashAttentionFn`` and the RG-LRU scan through ``RGLRUScanFn`` (each the
+forward kernel, then its backward kernel); the plain versions carry
+autograd on their own.
 """
 
 from __future__ import annotations
@@ -19,12 +20,13 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd_cuda,
     flash_attention_cuda,
 )
-from repro_torch.kernels.rglru import rglru_scan_cuda
+from repro_torch.kernels.rglru import RGLRUScanFn, rglru_scan_bwd_cuda, rglru_scan_cuda
 
 _FORCES = (None, "kernel", "ref")
 _KERNELS = {"flash_attention": flash_attention_cuda,
             "flash_attention_bwd": flash_attention_bwd_cuda,
-            "rglru_scan": rglru_scan_cuda}
+            "rglru_scan": rglru_scan_cuda,
+            "rglru_scan_bwd": rglru_scan_bwd_cuda}
 
 
 def _plain(x, force) -> bool:
@@ -51,9 +53,14 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
 
 def rglru_scan(a, b, h0=None, *, force: str | None = None):
     """Linear recurrence h_t = a_t*h_{t-1} + b_t over axis 1. Returns
-    (h in b's dtype, h_last fp32). force in {None, 'kernel', 'ref'}."""
+    (h in b's dtype, h_last fp32). force in {None, 'kernel', 'ref'}. On the
+    card, with grad on and an input that requires grad, the outputs'
+    grad_fn is ``RGLRUScanFn``, whose backward is the backward kernel."""
     if _plain(a, force):
         return ref.rglru_scan_ref(a, b, h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (a, b, h0)):
+        return RGLRUScanFn.apply(a, b, h0)
     return rglru_scan_cuda(a, b, h0)
 
 

@@ -81,3 +81,27 @@ def rglru_scan_ref(a, b, h0=None):
         h = af[:, t] * h + bf[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1).to(b.dtype), h
+
+
+def rglru_scan_bwd_ref(a, h, g, h0=None, g_last=None):
+    """The scan's backward by a reverse loop in fp32: the gradients of
+    ``rglru_scan_ref`` given its output h, the gradient g of h and the
+    gradient g_last of h_last (None: zero).
+
+    a, h, g: (B, S, W); h0, g_last: (B, W) or None. With dh_t the gradient
+    that reaches h_t:
+      dh_{S-1} = g_{S-1} + g_last,  dh_t = g_t + a_{t+1}·dh_{t+1}
+      da_t = dh_t·h_{t-1} (h_{-1} = h0, or 0),  db_t = dh_t,  dh0 = a_0·dh_0
+    each product rounded, then the add: the order the kernel keeps, bit for
+    bit. Returns (da, db (B, S, W) fp32, dh0 (B, W) fp32 or None without
+    h0)."""
+    af, hf, gf = a.float(), h.float(), g.float()
+    h_prev = torch.zeros_like(hf[:, 0]) if h0 is None else h0.float()
+    carry = None if g_last is None else g_last.float()
+    da, db = torch.empty_like(gf), torch.empty_like(gf)
+    for t in reversed(range(a.shape[1])):
+        dh = gf[:, t] if carry is None else gf[:, t] + carry
+        db[:, t] = dh
+        da[:, t] = dh * (hf[:, t - 1] if t > 0 else h_prev)
+        carry = af[:, t] * dh
+    return da, db, (None if h0 is None else carry)

@@ -2,6 +2,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --tiny \\
         --steps 100 --batch 8 --seq 128 --ckpt-dir /tmp/run1 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \\
+        --steps 20 --batch 8 --seq 512
+
+It trains the ported archs, smollm-360m and recurrentgemma-2b (``--tiny``
+for their reduced configs, which run on the CPU).
 
 The reference's ``repro/launch/train.py`` on one device: it builds the
 train state, resumes from the newest valid checkpoint in ``--ckpt-dir`` if

@@ -91,10 +91,15 @@ def loss_fn(params, batch, cfg: ModelConfig, force=None):
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, force=None):
     """Returns fn(state, batch) → (new_state, metrics): the loss and its
-    gradients by autograd (through the flash kernel's backward on the
-    card), then AdamW. ``metrics`` holds 0-d tensors ``loss, ce, aux,
-    grad_norm, lr`` and ``step`` (the step the update was taken at).
-    ``force`` goes to ``kernels.ops``; ``"ref"`` runs the plain versions."""
+    gradients by autograd (through the kernels' backwards on the card:
+    flash attention's and the RG-LRU scan's), then AdamW. ``metrics`` holds
+    0-d tensors ``loss, ce, aux, grad_norm, lr`` and ``step`` (the step the
+    update was taken at). ``force`` goes to ``kernels.ops``; ``"ref"`` runs
+    the plain versions. The step consumes ``state``, as the reference's
+    train CLI donates its jitted step's: the params and the optimizer state
+    are updated in place (the functional update's bits), so a step holds
+    one copy of the fp32 optimizer state, not two (recurrentgemma-2b's take
+    32 GB)."""
 
     def train_step(state: TrainState, batch):
         flat = tree_flatten_with_paths(state.params)
@@ -105,7 +110,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, force=None):
             loss, parts = loss_fn(params, batch, cfg, force=force)
             grads = torch.autograd.grad(loss, leaves)
         grads = tree_unflatten({path: g for (path, _), g in zip(flat, grads)})
-        new_params, new_opt, om = adamw.update(opt_cfg, grads, state.opt, state.step)
+        new_params, new_opt, om = adamw.update(opt_cfg, grads, state.opt, state.step,
+                                               donate=state.params)
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()},
                    **om, "step": state.step}
         return TrainState(state.step + 1, new_params, new_opt), metrics

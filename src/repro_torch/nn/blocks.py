@@ -149,13 +149,12 @@ def apply_attn_block(p, x, cfg: ModelConfig, *, positions, mode="prefill",
 
 def apply_rglru_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None,
                       force=None):
-    """Returns (x, {"conv": (B, width-1, W), "h": (B, W) fp32}). Prefill's
-    conv state is the last width-1 *pre-conv* inputs; ``force`` goes to the
-    scan kernel. Train mode raises: the scan kernel has no backward yet."""
-    if mode == "train":
-        raise NotImplementedError(
-            "rglru blocks do not train in repro_torch yet: the RG-LRU scan's "
-            "backward is ROADMAP A.9")
+    """Returns (x, {"conv": (B, width-1, W), "h": (B, W) fp32}), or (x,
+    None) in train mode. Prefill's conv state is the last width-1 *pre-conv*
+    inputs; ``force`` goes to the scan kernel. Train mode computes what
+    prefill computes from no state and returns no state (the reference's
+    ``apply_rglru_block``); under grad on the card its scan is
+    ``RGLRUScanFn``."""
     h = rmsnorm(p["norm1"], x)
     gate = activation("gelu")(
         interior_einsum("bsd,dw->bsw", h, p["w_gate"]).float()).to(x.dtype)
@@ -165,17 +164,19 @@ def apply_rglru_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None,
         r, h_new = rglru_step(p["lru"], u1, state["h"], cfg.n_heads)
         r = r[:, None]
         new_state = {"conv": conv_state, "h": h_new}
-    elif mode == "prefill":
-        # the last width-1 inputs, zeros before the prompt's start
-        width = p["conv"]["w"].shape[0]
-        conv_state = F.pad(u[:, -(width - 1):],
-                           (0, 0, max(0, width - 1 - u.shape[1]), 0))
+    elif mode in ("prefill", "train"):
         r, h_last = rglru(p["lru"], causal_conv(p["conv"], u), cfg.n_heads,
                           h0=state["h"] if state is not None else None,
                           force=force)
-        new_state = {"conv": conv_state, "h": h_last}
+        new_state = None
+        if mode == "prefill":
+            # the last width-1 inputs, zeros before the prompt's start
+            width = p["conv"]["w"].shape[0]
+            conv_state = F.pad(u[:, -(width - 1):],
+                               (0, 0, max(0, width - 1 - u.shape[1]), 0))
+            new_state = {"conv": conv_state, "h": h_last}
     else:
-        raise ValueError(f"mode must be prefill or decode, got {mode!r}")
+        raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
     x = x + interior_einsum("bsw,wd->bsd", (r * gate).to(x.dtype), p["w_out"])
     x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x), cfg.act)
     return x, new_state

@@ -4,8 +4,11 @@ its causal depthwise conv and block-diagonal gate projections.
 The parallel RG-LRU calls ``kernels.ops.rglru_scan``: the Hopper scan
 kernel for a CUDA tensor, its plain version for a CPU one. This is where
 the reference runs ``jax.lax.associative_scan`` (its Pallas scan is reached
-only from its kernel tests). Decode takes one O(1) step and stays plain
-PyTorch. mLSTM and sLSTM (xLSTM) are not ported yet (ROADMAP.md).
+only from its kernel tests). In training (grad on) the kernel's outputs
+carry ``RGLRUScanFn``, whose backward is the port's reverse-scan kernel;
+the reference differentiates its associative scan. Decode takes one O(1)
+step and stays plain PyTorch. mLSTM and sLSTM (xLSTM) are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -103,7 +106,10 @@ def _rglru_coeffs(p, x, n_heads):
 
 def rglru(p, x, n_heads, h0=None, force=None):
     """Parallel RG-LRU over a sequence. x: (B,S,W) → (y (B,S,W) in x's dtype,
-    h_last (B,W) fp32). ``force`` goes to ``kernels.ops.rglru_scan``."""
+    h_last (B,W) fp32). ``force`` goes to ``kernels.ops.rglru_scan``. Under
+    grad it differentiates through the scan: its plain version's autograd
+    on the CPU, ``RGLRUScanFn`` on the card (a and b are fp32 here, as the
+    backward kernel takes them)."""
     log_a, b = _rglru_coeffs(p, x, n_heads)
     h0 = None if h0 is None else h0.float().contiguous()
     h, h_last = ops.rglru_scan(torch.exp(log_a), b, h0, force=force)

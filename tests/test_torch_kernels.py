@@ -28,7 +28,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd_cuda,
     flash_attention_cuda,
 )
-from repro_torch.kernels.rglru import rglru_scan_cuda
+from repro_torch.kernels.rglru import rglru_scan_bwd_cuda, rglru_scan_cuda
 from repro_torch.nn import attention
 
 # (B, H, KV, S, D, causal, window), as in tests/test_kernels.py
@@ -182,9 +182,10 @@ def test_reset_launch_counts():
     flash_attention_cuda.launches = 5
     flash_attention_bwd_cuda.launches = 4
     rglru_scan_cuda.launches = 3
+    rglru_scan_bwd_cuda.launches = 2
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
-                                   "rglru_scan": 0}
+                                   "rglru_scan": 0, "rglru_scan_bwd": 0}
 
 
 # --------------------------------------------------------------------------
@@ -599,19 +600,68 @@ def _grad_inputs(case, dtype, seed=0):
 
 
 @pytest.mark.gpu
-def test_rglru_kernel_raises_under_grad_on_card():
-    """The scan kernel has no backward: with grad on and an input that
-    requires grad it raises, naming ROADMAP A.9, instead of returning an
-    output that carries no gradient."""
+def test_rglru_scan_gradients_on_card_equal_the_plain_backward():
+    """With grad on, the scan's outputs carry RGLRUScanFn, whose backward is
+    the reverse-scan kernel (csrc/rglru_bwd.cu): da, db and dh0 equal the
+    plain backward (ref.rglru_scan_bwd_ref) bit for bit, on both load paths
+    (TMA on 16-byte rows, the producer's own loads on W = 37), with and
+    without h0 and h_last's gradient; one forward and one backward launch
+    each; two backward launches give the same bits; bf16 raises."""
     _card()
-    _, (a, b, h0) = _scan_both(2, 20, 16, "float32", True)
-    a, b, h0 = a.cuda().requires_grad_(True), b.cuda(), h0.cuda()
-    before = ops.launch_counts()
-    with pytest.raises(NotImplementedError, match="A.9"):
-        ops.rglru_scan(a, b, h0)
-    assert ops.launch_counts() == before
-    with torch.no_grad():
-        ops.rglru_scan(a, b, h0)  # no grad: the kernel runs
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, s, w in ((2, 100, 64), (2, 70, 37), (1, 1, 16)):
+        for with_h0 in (False, True):
+            a = (torch.rand((b, s, w), generator=gen, device="cuda") * 0.5 + 0.5)
+            bb = torch.randn((b, s, w), generator=gen, device="cuda")
+            h0 = torch.randn((b, w), generator=gen, device="cuda") if with_h0 else None
+            g = torch.randn((b, s, w), generator=gen, device="cuda")
+            gl = torch.randn((b, w), generator=gen, device="cuda")
+            leaves = [t.clone().requires_grad_(True) for t in (a, bb)]
+            if with_h0:
+                leaves.append(h0.clone().requires_grad_(True))
+            before = ops.launch_counts()
+            h, h_last = ops.rglru_scan(*leaves)
+            assert type(h.grad_fn).__name__ == "RGLRUScanFnBackward"
+            got = torch.autograd.grad([h, h_last], leaves, [g, gl])
+            after = ops.launch_counts()
+            assert after["rglru_scan"] - before["rglru_scan"] == 1
+            assert after["rglru_scan_bwd"] - before["rglru_scan_bwd"] == 1
+            want_h, _ = ref.rglru_scan_ref(a, bb, h0)
+            assert torch.equal(h.detach(), want_h)
+            want = ref.rglru_scan_bwd_ref(a, want_h, g, h0, gl)
+            again = rglru_scan_bwd_cuda(a, want_h, g, h0, gl)
+            torch.cuda.synchronize()
+            for x, y, z in zip(got, want, again):
+                assert torch.equal(x, y) and torch.equal(x, z), (b, s, w, with_h0)
+    with pytest.raises(ValueError, match="fp32"):
+        ops.rglru_scan(a.to(torch.bfloat16).requires_grad_(True), bb.to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+def test_tma_kernels_launch_from_a_thread_with_no_cuda_call_yet():
+    """The kernels that encode TMA descriptors (the scan and its backward,
+    the bf16 flash forward and backward) launch from a new thread, whose
+    first CUDA call is theirs, as autograd's device thread's can be: the
+    driver's encoder needs a current context there (csrc/sm90.cuh). Each
+    gives the bits of the same launch on the main thread."""
+    _card()
+    from concurrent.futures import ThreadPoolExecutor
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.rand((2, 100, 64), generator=gen, device="cuda") * 0.5 + 0.5
+    b, g = (torch.randn((2, 100, 64), generator=gen, device="cuda") for _ in range(2))
+    h, _ = rglru_scan_cuda(a, b)
+    q, k, v = (torch.randn((1, 4, 128, 64), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    launches = {"scan": lambda: rglru_scan_cuda(a, b),
+                "scan backward": lambda: rglru_scan_bwd_cuda(a, h, g)[:2],
+                "flash": lambda: (flash_attention_cuda(q, k, v),),
+                "flash backward": lambda: flash_attention_bwd_cuda(q, k, v, o, q, lse)}
+    for name, launch in launches.items():
+        with ThreadPoolExecutor(max_workers=1) as pool:  # a new thread; its errors raise here
+            out = pool.submit(lambda: (launch(), torch.cuda.synchronize())[0]).result(timeout=60)
+        assert all(torch.equal(x, y) for x, y in zip(out, launch())), name
 
 
 @pytest.mark.gpu
@@ -681,7 +731,7 @@ def test_flash_bwd_shared_memory_fits_a_block_at_every_head_dim():
     bytes) a block may use, at every head dim the backward takes."""
     _card()
     for dtype in BWD_ROUTES:
-        for d in BWD_HEAD_DIMS:
+        for d in BWD_HEAD_DIMS[dtype]:
             assert 0 < bwd_smem_bytes(d, dtype) <= 232_448, (dtype, d)
 
 
@@ -733,7 +783,12 @@ def test_checkpoint_recompute_reproduces_the_forward_on_card(monkeypatch):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        d256 = [torch.zeros((1, 2, 8, 256), device="cuda", dtype=torch.bfloat16,
-                            requires_grad=True) for _ in range(3)]
+    # head_dim 256 (recurrentgemma's): bf16 has a backward, fp32 raises
+    d256 = [torch.randn((1, 2, 8, 256), device="cuda").to(torch.bfloat16).requires_grad_(True)
+            for _ in range(3)]
+    ops.flash_attention(*d256).float().sum().backward()
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad.float()).all()) for t in d256)
+    with pytest.raises(NotImplementedError, match="B.3"):
+        d256 = [torch.randn((1, 2, 8, 256), device="cuda", requires_grad=True)
+                for _ in range(3)]
         ops.flash_attention(*d256).sum().backward()

@@ -410,7 +410,7 @@ def test_generate_runs_no_kernel_on_cpu(engine):
     ops.reset_launch_counts()
     engine.generate(engine.synthetic_prompts(1, 8), 3)
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
-                                   "rglru_scan": 0}
+                                   "rglru_scan": 0, "rglru_scan_bwd": 0}
 
 
 def test_infer_payload_knobs(engine):

@@ -361,15 +361,6 @@ def test_remat_does_not_change_gradients(layout):
             assert torch.equal(g[path], g0[path]), (remat, path)
 
 
-def test_rglru_blocks_do_not_train_yet():
-    from repro_torch.configs import get_tiny_config as tiny
-    cfg = tiny("recurrentgemma-2b")
-    params = steps.init_params(cfg, 0)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        steps.loss_fn(params, {k: torch.from_numpy(v).long()
-                               for k, v in _batch(0, vocab=cfg.vocab_size).items()}, cfg)
-
-
 # --------------------------------------------------------------------------
 # whole train steps
 # --------------------------------------------------------------------------
@@ -494,7 +485,7 @@ def test_remat_policies_agree_on_card():
     n = jcfg.n_layers
     for remat, (loss, grads, launches) in results.items():
         want = {"flash_attention": n * (1 if remat == "none" else 2),
-                "flash_attention_bwd": n, "rglru_scan": 0}
+                "flash_attention_bwd": n, "rglru_scan": 0, "rglru_scan_bwd": 0}
         assert launches == want, (remat, launches)
         assert torch.equal(loss, results["none"][0]), remat
         for g, g0 in zip(grads, results["none"][1]):
