@@ -25,16 +25,16 @@ Phases; any failure makes the script exit non-zero:
    16-lane tile and off 16-byte rows, exact a = 0 and a = 1, a view that
    starts off 16 bytes); a misaligned contiguous view must raise
    ValueError in flash; two launches on the same inputs must agree bit
-   for bit at each main-path shape of both kernels and at both fp32 flash
-   shapes. Then CUDA-event times of the kernel, the
+   for bit at each main-path shape of both kernels and at each fp32 flash
+   shape. Then CUDA-event times of the kernel, the
    plain version and, where there is one, the one PyTorch call that
    computes the same function (kernel and library call: device time over
    a replayed CUDA graph, and the eager time of a call, host included),
    beside the card's least time for the work,
    at the shapes the main paths give each kernel (flash: the bf16 wgmma
-   route at its four shapes, and the fp32 split-TF32 route at the two
-   shapes the fp32 logits checks of phases 4-5 give it, smollm's B8 S512
-   and recurrentgemma's B8 S512, beside both its split-TF32 bound and the
+   route at its seven shapes, and the fp32 split-TF32 route at the five
+   shapes the fp32 logits checks of phases 4-5d give it, B8 S512 of each
+   arch, beside both its split-TF32 bound and the
    fp32 CUDA-core bound), with the scan's GB/s, its share of the bound
    and, as a yardstick of the rate the card reaches for the same bytes, an
    elementwise ``torch.add`` of a and b into h. Then the scan's backward
@@ -64,6 +64,29 @@ Phases; any failure makes the script exit non-zero:
    kernels against both plain versions, the fp32 run again counted (8
    flash, 18 scan launches); the scan must equal its plain version bit for
    bit on every layer.
+5b-5d. llama3-8b (32 layers, d_model 4096, 32/8 heads, head_dim 128, vocab
+   128,256, untied), granite-moe-3b-a800m (32 layers, 24/8 heads, head_dim
+   64, 40 experts top-8) and qwen2.5-3b (36 layers, 16/2 heads, head_dim
+   128, QKV bias) at full width, stacked layout, seeded random weights
+   (``phase_decoder``): the 3 ``infer`` requests and one ``generate`` of 8 x
+   512 -> 32 tokens, counted (one flash launch a layer a prefill);
+   per-layer attention as in phase 4; one profiled ``generate`` (8 x 512
+   -> 8): each phase's busy share and the prefill's device time by part
+   (flash, the fp32 unembedding, the MoE's router, dispatch, experts and
+   combine, the other GEMMs, the rest); qwen2.5's QKV bias against one
+   rounding of the fp32 product plus the bias; granite's routing choices
+   that differ between the kernel and plain paths, per layer, and two
+   prefills bit-equal; then the last logits as in phase 4 (the fp32 run
+   counted), an MoE arch's with its routing pinned to the plain path's
+   choices (the same runs with their own routing reported), its fp32
+   routing held (at most 0.01% of the choices move, pinned or free; in the
+   pinned run, only at plain-path gaps within 1e-5 of a tie), and the peak
+   memory of those checks.
+5e. chameleon-34b, deepseek-coder-33b and qwen3-moe-235b-a22b at their
+   tiny configs on the card: a prefill and 6 greedy decode steps through
+   the kernels against the plain path, in fp32 (last logits within 1e-3,
+   tokens equal where the plain path's margin decides them) and bf16
+   (within 0.1); one flash launch a layer a prefill.
 6. The flash backward (run right after phase 3), both routes on the tensor
    cores: bf16 on wgmma (csrc/flash_attention_bwd_sm90.cu), fp32 as
    split-TF32 mma.sync (csrc/flash_attention_bwd.cu). The kernel against
@@ -116,6 +139,7 @@ a checkout of the repository, it fails before printing any result.
 """
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -137,7 +161,7 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
 from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_tiny_config  # noqa: E402
 from repro_torch.core.executor import TorchLearner  # noqa: E402
 from repro_torch.data.objectstore import MountedBucket  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
@@ -160,10 +184,10 @@ from repro_torch.kernels.rglru import (  # noqa: E402
     uses_tma,
 )
 from repro_torch.kernels.rglru import smem_bytes as scan_smem_bytes  # noqa: E402
-from repro_torch.launch.serve import ServeEngine  # noqa: E402
+from repro_torch.launch.serve import PHASES, ServeEngine, _install_prefill  # noqa: E402
 from repro_torch.launch.train import deterministic  # noqa: E402
-from repro_torch.models import steps  # noqa: E402
-from repro_torch.nn import attention, blocks, layers, recurrent  # noqa: E402
+from repro_torch.models import lm, steps  # noqa: E402
+from repro_torch.nn import attention, blocks, layers, moe, recurrent  # noqa: E402
 from repro_torch.nn.policy import interior_einsum  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.utils.trees import tree_flatten_with_paths, tree_map_with_path  # noqa: E402
@@ -183,6 +207,16 @@ SPLIT_TF32_PRODUCTS = 3
 # (``check_logits`` widens the bf16 bound to the spread of correct bf16 paths
 # where that is larger); in fp32 only the order of the sums differs.
 LOGITS_TOL = {torch.bfloat16: 0.1, torch.float32: 1e-3}
+# An MoE router's choices in the fp32 logits check. With the upstream routing
+# pinned to the plain path's, a layer's router input differs from the plain
+# path's only by the kernels' fp32 sums in another order, which moves a
+# router probability (at most 1, softmax over the experts) by far less than
+# 1e-5: a choice the kernel path would make differently must sit within
+# ROUTE_GAP_TOL of a tie on the plain path. A fault that moves the router's
+# input moves choices with wide gaps, and many of them: at most
+# ROUTE_FLIP_LIMIT of all the (token, choice) pairs may move, pinned or not.
+ROUTE_GAP_TOL = 1e-5
+ROUTE_FLIP_LIMIT = 1e-4
 # The bf16 route rounds each unnormalized probability to bf16 as the A
 # operand of P.V, where the reference model's chunked twin rounds it
 # (src/repro/nn/attention.py:95). Each moves by at most bf16's unit roundoff
@@ -215,9 +249,21 @@ FLASH_MAIN = {
     "smollm B8 S2048": (8, 15, 5, 2048, 64, True, 0),
     "recurrentgemma B8 S512": (8, 10, 1, 512, 256, True, 2048),
     "recurrentgemma B1 S3072": (1, 10, 1, 3072, 256, True, 2048),
+    "llama3 B8 S512": (8, 32, 8, 512, 128, True, 0),
+    "qwen2.5 B8 S512": (8, 16, 2, 512, 128, True, 0),
+    "granite B8 S512": (8, 24, 8, 512, 64, True, 0),
 }
 # The fp32 route's shapes: those the fp32 logits checks give it
-FLASH_FP32 = ("smollm B8 S512", "recurrentgemma B8 S512")
+FLASH_FP32 = ("smollm B8 S512", "recurrentgemma B8 S512", "llama3 B8 S512",
+              "qwen2.5 B8 S512", "granite B8 S512")
+# The decoder-only attention archs served at full width (phases 5b-5d), and
+# those whose tiny configs are served on the card (phase 5e; the full widths
+# of 33-235 B params do not fit one card beside an fp32 check)
+FULL_WIDTH_ARCHS = ("llama3-8b", "granite-moe-3b-a800m", "qwen2.5-3b")
+TINY_ARCHS = ("chameleon-34b", "deepseek-coder-33b", "qwen3-moe-235b-a22b")
+TINY_DECODE_STEPS = 6
+# Kernel names of cuBLAS's and CUTLASS's GEMMs (the profiled prefill's split)
+GEMM_KERNEL = re.compile(r"gemm|nvjet|xmma|cutlass|cublas", re.IGNORECASE)
 # (B, S, W): tests/test_kernels.py's cases, ragged ones, the edges of the
 # kernel's ring (16-lane tiles, 64-step stages, TMA only on 16-byte rows),
 # and the main paths'
@@ -1131,7 +1177,7 @@ def check_per_layer(engine, tokens, failures):
             worst[kind] = max(worst[kind], err)
             if not ok:
                 bad.append((i, kind))
-            x, _ = blocks.apply_block(lp, x, cfg, kind, positions=positions, force="ref")
+            x, _, _ = blocks.apply_block(lp, x, cfg, kind, positions=positions, force="ref")
     torch.cuda.synchronize()
     label = f"{cfg.name} B{b} S{s}"
     print(f"{label} per layer, kernel vs plain on each layer's own inputs "
@@ -1183,17 +1229,23 @@ def last_logits(cfg, params, tokens, force):
 
 
 @contextlib.contextmanager
-def swapped(fns):
-    """Within the block, the model's calls of ``ops.<name>`` go to
-    ``fns[name]`` instead."""
-    orig = {name: getattr(ops, name) for name in fns}
-    for name, fn in fns.items():
-        setattr(ops, name, fn)
+def patched(replacements):
+    """Within the block, each ``module.name`` of ``replacements`` ({(module,
+    name): fn}) is ``fn``: the model's calls of it go there."""
+    orig = {key: getattr(*key) for key in replacements}
+    for (mod, name), fn in replacements.items():
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        for name, fn in orig.items():
-            setattr(ops, name, fn)
+        for (mod, name), fn in orig.items():
+            setattr(mod, name, fn)
+
+
+def swapped(fns):
+    """Within the block, the model's calls of ``ops.<name>`` go to
+    ``fns[name]`` instead."""
+    return patched({(ops, name): fn for name, fn in fns.items()})
 
 
 def plain(name):
@@ -1214,6 +1266,70 @@ def chunked_rounding(q, k, v, force=None, **kw):
     return attention.chunked_attention(q, k, v, **kw)
 
 
+def routing(record=None, pinned=None, own=None):
+    """Within the block, ``moe.router_topk`` appends each MoE layer's
+    routing to ``record``: its choices (T, k) and each token's gap between
+    its k-th and (k+1)-th router probability (T,). Or it takes the choices,
+    layer by layer, from ``pinned``: the weights are then the path's own
+    router probabilities at those experts, renormalized over the k, and the
+    choices the path would have made itself go to ``own``. With neither,
+    nothing changes."""
+    router_topk, pins = moe.router_topk, iter(pinned or ())
+
+    def routed(p_router, x, top_k):
+        w, idx, aux = router_topk(p_router, x, top_k)
+        if record is not None:
+            top = torch.softmax(x.float() @ p_router, dim=-1).topk(top_k + 1, dim=-1).values
+            record.append((idx, top[:, top_k - 1] - top[:, top_k]))
+            return w, idx, aux
+        own.append(idx)
+        idx = next(pins)
+        w = torch.softmax(x.float() @ p_router, dim=-1).gather(-1, idx)
+        return w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9), idx, aux
+
+    active = record is not None or pinned is not None
+    return patched({(moe, "router_topk"): routed} if active else {})
+
+
+def routing_flips(own, plain, n_experts):
+    """Where a path's routing choices ``own`` ([(T, k)] a layer) leave the
+    plain path's (``plain``: [(choices, gaps)] a layer): per layer, the
+    choices lost (each expert a token's set lost counts once), and the
+    plain path's k-th to (k+1)-th probability gaps at the tokens whose set
+    changed."""
+    counts, gaps = [], []
+    for x, (y, gap) in zip(own, plain, strict=True):
+        lost = (torch.nn.functional.one_hot(x, n_experts).sum(1)
+                - torch.nn.functional.one_hot(y, n_experts).sum(1)).clamp(min=0)
+        counts.append(int(lost.sum()))
+        gaps += gap[lost.sum(-1) > 0].tolist()
+    return counts, gaps
+
+
+def check_routing(cfg, label, run, own, chosen, gated, failures):
+    """Prints how far ``run``'s routing choices ``own`` left the plain
+    path's ``chosen``; where ``gated`` (the fp32 run) fails when more than
+    ROUTE_FLIP_LIMIT of the choices moved or, for the pinned run, when any
+    token that moved had a plain-path gap above ROUTE_GAP_TOL."""
+    flipped, gaps = routing_flips(own, chosen, cfg.n_experts)
+    t, k = chosen[0][0].shape
+    share = sum(flipped) / (t * k * len(flipped))
+    worst = max(gaps, default=0.0)
+    print(f"{cfg.name} routing ({label}, {run}): choices that differ from the plain "
+          f"path's, per layer of {t} x {k}: {flipped} (total {sum(flipped)}, "
+          f"{100 * share:.4f}%); the plain path's k-th to (k+1)-th probability gap at "
+          f"the {len(gaps)} tokens whose set moved: max {worst:.3e}, sorted "
+          f"{[float(f'{g:.3e}') for g in sorted(gaps)[-12:]]}")
+    if gated and (share > ROUTE_FLIP_LIMIT
+                  or (run == "pinned" and worst > ROUTE_GAP_TOL)):
+        failures.append(f"{cfg.name} routing ({label}, {run}): {sum(flipped)} choices "
+                        f"({100 * share:.4f}%, limit {100 * ROUTE_FLIP_LIMIT}%) moved, "
+                        f"the widest plain gap among them {worst:.3e} (limit "
+                        f"{ROUTE_GAP_TOL} in the pinned run)")
+    return {f"routing_choices_differ ({cfg.name}, {label}, {run})": flipped,
+            f"routing_flipped_gap_max ({cfg.name}, {label}, {run})": worst}
+
+
 def check_logits(cfg, params, tokens, failures):
     """Prefill's last logits through the kernels against the plain
     versions, at full width. Asserted on the true-fan-in weights: in fp32
@@ -1228,7 +1344,20 @@ def check_logits(cfg, params, tokens, failures):
     The fp32 run is the fp32 flash route's main path: its launches are
     counted from 0 just before it and read just after, and must be one
     flash launch per attention layer (one scan launch per rglru layer), all
-    on fp32 inputs. Returns (metrics, those launches)."""
+    on fp32 inputs. Returns (metrics, those launches).
+
+    An MoE arch's router makes discrete choices: where two paths that
+    round differently (even in fp32, by the order of sums) put a token's
+    router probabilities on either side of a tie, or move which rows
+    overflow an expert's capacity, that token's FFN output changes as a
+    whole. So each run of an MoE arch is held to the plain path with the
+    routing pinned to the plain path's choices (``routing``), and the same
+    run with its own routing is reported beside it, with how many choices
+    differ. Routing is held too, in the fp32 run (``check_routing``): in
+    the pinned run each layer's router sees the plain path's upstream
+    choices, so the choices it would have made itself may leave the plain
+    path's only at near-ties (gap at most ROUTE_GAP_TOL); in both runs at
+    most ROUTE_FLIP_LIMIT of the choices may move."""
     fan_in = true_fan_in(params, cfg)
     scan_plain = {"rglru_scan": plain("rglru_scan")}
     flash_dtypes, flash_attention = [], ops.flash_attention
@@ -1257,9 +1386,14 @@ def check_logits(cfg, params, tokens, failures):
     out, fp32_launches = {}, {}
     for label, run_cfg, run_params, tol, fns in runs:
         fp32 = run_cfg.dtype == "float32"
+        chosen, held = [], []  # the plain path's routing, pinned in the run
+        if cfg.is_moe:
+            with routing(record=chosen):
+                want = last_logits(run_cfg, run_params, tokens, "ref")
         if fp32:
             ops.reset_launch_counts()
-        with swapped(fns):
+        with swapped(fns), routing(pinned=[c for c, _ in chosen] if cfg.is_moe else None,
+                                   own=held):
             last = last_logits(run_cfg, run_params, tokens, None)
         if fp32:
             fp32_launches = ops.launch_counts()
@@ -1271,7 +1405,21 @@ def check_logits(cfg, params, tokens, failures):
             if set(flash_dtypes) != {torch.float32}:
                 failures.append(f"{cfg.name} fp32 prefill: flash inputs of dtypes "
                                 f"{sorted(map(str, set(flash_dtypes)))}, want float32 only")
-        want = last_logits(run_cfg, run_params, tokens, "ref")
+        if cfg.is_moe:
+            own = []
+            with swapped(fns), routing(record=own):
+                free = last_logits(run_cfg, run_params, tokens, None)
+            free_err = (free - want).abs().max().item()
+            print(f"{cfg.name} prefill last logits against the plain path ({label}), the run "
+                  f"with its own routing (reported): max_abs_err={free_err:.3e}")
+            out[f"logits_max_abs_err ({cfg.name}, {label}, own routing)"] = free_err
+            gated = fp32 and tol is not None
+            out.update(check_routing(cfg, label, "pinned", held, chosen, gated, failures))
+            out.update(check_routing(cfg, label, "own routing", [c for c, _ in own], chosen,
+                                     gated, failures))
+            del free
+        else:
+            want = last_logits(run_cfg, run_params, tokens, "ref")
         torch.cuda.synchronize()
         err = (last - want).abs().max().item()
         if label in spread_runs:
@@ -1281,7 +1429,8 @@ def check_logits(cfg, params, tokens, failures):
         same = last.argmax(-1) == want.argmax(-1)
         top2 = want.topk(2, dim=-1).values
         margin = top2[:, 0] - top2[:, 1]
-        print(f"{cfg.name} prefill last logits against the plain path ({label}): "
+        print(f"{cfg.name} prefill last logits against the plain path ({label}"
+              f"{', routing pinned to the plain path' if cfg.is_moe else ''}): "
               f"max_abs_err={err:.3e} tol={tol} argmax equal on {int(same.sum())}/"
               f"{len(want)} rows (plain top-1 margins "
               f"{[round(m, 4) for m in margin.tolist()]}) "
@@ -1299,6 +1448,242 @@ def check_logits(cfg, params, tokens, failures):
                             f"(tol {tol}), argmax differs on "
                             f"{int((~same & decided).sum())} decided rows")
     return out, fp32_launches
+
+
+# --------------------------------------------------------------------------
+# the decoder-only attention archs: QKV bias, QK-norm, the MoE FFN
+# --------------------------------------------------------------------------
+
+def spans(targets):
+    """Within the block, each ``module.name`` of ``targets`` ({label:
+    (module, name)}) runs inside ``record_function(label)``."""
+    def wrap(label, fn):
+        def spanned(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return spanned
+
+    return patched({(mod, name): wrap(label, getattr(mod, name))
+                    for label, (mod, name) in targets.items()})
+
+
+# The parts of a prefill, each the device time of the kernels launched inside
+# the function that computes it (nested: the router, the dispatch and the
+# experts lie inside the MoE FFN)
+PREFILL_SPANS = {"flash": (ops, "flash_attention"), "unembed": (lm, "unembed"),
+                 "moe": (moe, "moe_ffn_local"), "moe router": (moe, "router_topk"),
+                 "moe dispatch": (moe, "_dispatch_indices"),
+                 "moe experts": (moe, "_expert_ffn")}
+
+
+def profile_generate(engine, prompts, gen):
+    """One ``generate`` under torch.profiler: each phase's wall time, device
+    busy time and share, and the prefill's device time by part
+    (PREFILL_SPANS, the other GEMMs by kernel name, the rest). A device
+    record belongs to a part when the host call that launched it (matched by
+    correlation id) lies inside the part's span. Kineto drops the first GPU
+    records of a session, so the session opens with one CUDA operation of
+    its own."""
+    engine.generate(prompts, gen)  # warm
+    torch.cuda.synchronize()
+    with spans(PREFILL_SPANS), profile(activities=[ProfilerActivity.CPU,
+                                                   ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").sum().item()
+        engine.generate(prompts, gen)
+    events = prof.profiler.kineto_results.events()
+    labels = set(PREFILL_SPANS) | set(PHASES)  # PHASES: generate's own spans
+    cpu = [e for e in events if e.device_type() == DeviceType.CPU]
+    launch_at = {e.correlation_id(): e.start_ns() for e in cpu if e.name().startswith("cu")}
+    windows = {}
+    for e in cpu:
+        if e.name() in labels:
+            windows.setdefault(e.name(), []).append((e.start_ns(), e.end_ns()))
+    device = [e for e in events if e.device_type() == DeviceType.CUDA and e.name() not in labels]
+
+    def inside(label, e):
+        t = launch_at.get(e.correlation_id())
+        return t is not None and any(lo <= t <= hi for lo, hi in windows.get(label, ()))
+
+    out = {}
+    for phase in PHASES:
+        lo, hi = windows[phase][0]
+        ran = [e for e in device if lo <= e.start_ns() and e.end_ns() <= hi]
+        busy = sum(e.end_ns() - e.start_ns() for e in ran) / 1e6
+        wall = (hi - lo) / 1e6
+        out[phase] = {"wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall,
+                      "device_records": len(ran)}
+        if phase == "prefill":
+            ms = lambda keep: sum(e.end_ns() - e.start_ns() for e in ran if keep(e)) / 1e6  # noqa: E731
+            parts = {label: ms(lambda e, label=label: inside(label, e)) for label in PREFILL_SPANS}
+            parts["other GEMMs (projections, MLP)"] = ms(
+                lambda e: GEMM_KERNEL.search(e.name()) is not None
+                and not any(inside(label, e) for label in ("unembed", "moe")))
+            parts["moe combine and gathers"] = parts["moe"] - sum(
+                parts[k] for k in ("moe router", "moe dispatch", "moe experts"))
+            parts["rest"] = busy - sum(parts[k] for k in ("flash", "unembed", "moe",
+                                                          "other GEMMs (projections, MLP)"))
+            out["prefill_parts_ms"] = parts
+    b, s = prompts.shape
+    pf, dec = out["prefill"], out["decode"]
+    print(f"{engine.cfg.name} profiled generate B{b} S{s} gen {gen}: prefill wall "
+          f"{pf['wall_ms']:.2f} ms, busy {pf['busy_ms']:.2f} ms ({100 * pf['busy_share']:.1f}%); "
+          f"decode ({gen - 1} steps) wall {dec['wall_ms']:.2f} ms, busy {dec['busy_ms']:.2f} ms "
+          f"({100 * dec['busy_share']:.1f}%); the prefill's device time by part: "
+          + ", ".join(f"{k} {v:.2f} ms ({100 * v / pf['busy_ms']:.1f}%)"
+                      for k, v in out["prefill_parts_ms"].items() if v or "moe" not in k))
+    return out
+
+
+def check_bias_rounding(engine, tokens, failures):
+    """The QKV bias joins the fp32-accumulated product before its one
+    rounding to bf16 (``attention._project``, cuBLAS's addmm), as the
+    reference adds it to the fp32 product: on layer 0's wq and real inputs,
+    with a seeded nonzero bias (the init's are zeros), the port's projection
+    must equal the fp32 product plus the bias rounded once on at least 99%
+    of the elements (sums in another order flip a rounding where a value
+    lies within the fp32 sums' error of a bf16 boundary: about 0.1% at
+    d_model 2048), and on at least 10 points more of them than the product
+    rounded first and then the sum does."""
+    cfg, p = engine.cfg, engine.params
+    lp = (tree_map_with_path(lambda _, t: t[0], p["blocks"]["scan"]) if "scan" in p["blocks"]
+          else p["blocks"]["layers"][0])
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bias = torch.randn((cfg.n_heads, cfg.hd), generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        x = layers.rmsnorm(lp["norm1"], layers.embed_lookup(p["embed"], tokens).to(torch.bfloat16))
+        got = attention._project(x, lp["attn"]["wq"], bias)
+        prod = torch.einsum("bsd,dhk->bhsk", x.float(), lp["attn"]["wq"].float())  # TF32 off
+        b32 = bias.float()[None, :, None]
+        once = (prod + b32).to(torch.bfloat16)
+        twice = (prod.to(torch.bfloat16).float() + b32).to(torch.bfloat16)
+    same_once = (got == once).float().mean().item()
+    same_twice = (got == twice).float().mean().item()
+    ok = same_once >= 0.99 and same_once - same_twice >= 0.1
+    print(f"{cfg.name} QKV bias rounding (layer 0 wq, B{tokens.shape[0]} S{tokens.shape[1]}, "
+          f"seeded bias): the port's projection equals the fp32 product + bias rounded once on "
+          f"{100 * same_once:.3f}% of elements, rounded twice (product, then sum) on "
+          f"{100 * same_twice:.3f}% {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{cfg.name}: the QKV bias is not added before the one rounding "
+                        f"({100 * same_once:.3f}% equal)")
+    return {"bias_rounding_equal_once": same_once, "bias_rounding_equal_twice": same_twice}
+
+
+def check_repeat(engine, tokens, failures):
+    """Two prefills of the same prompts through the kernels must give
+    bit-equal last logits and KV caches (an MoE arch's dispatch and combine
+    use no atomics)."""
+    prefill = steps.make_prefill_step(engine.cfg)
+    with torch.inference_mode():
+        (_, sa, la), (_, sb, lb) = (prefill(engine.params, {"tokens": tokens}) for _ in range(2))
+    torch.cuda.synchronize()
+    same = torch.equal(la, lb) and torch.equal(sa.k, sb.k) and torch.equal(sa.v, sb.v)
+    print(f"{engine.cfg.name} two prefills of the same prompts: last logits and KV caches "
+          f"{'equal bit for bit' if same else 'DIFFER'}")
+    if not same:
+        failures.append(f"{engine.cfg.name}: two prefills of the same prompts differ")
+    return {"two_prefills_bit_equal": same}
+
+
+def phase_decoder(arch, failures):
+    """One decoder-only attention arch's serving path at full width: the 3
+    ``infer`` requests and ``generate`` 8 x 512 -> 32, counted (one flash
+    launch a layer a prefill); per-layer attention against the plain
+    version; a profiled generate; the QKV bias's rounding point where the
+    arch has the bias; an MoE arch's routing against the plain path's and
+    two prefills bit-equal; then, with the engine gone and the caches freed,
+    the last logits in bf16 and fp32 (the fp32 run counted) and the peak
+    memory of those checks. Returns (launches, fp32 launches, metrics)."""
+    t_phase = time.perf_counter()
+    generates = [(8, 512, 32)]
+    engine, launches, prompts, metrics = serve(arch, generates, failures)
+    cfg = engine.cfg
+    n_prefills = len(INFER_PAYLOADS) + len(generates)
+    expect_launches(arch, launches, {"flash_attention": cfg.n_layers * n_prefills,
+                                     "rglru_scan": 0, "rglru_scan_bwd": 0}, failures)
+    metrics.update(check_per_layer(engine, prompts[0], failures))
+    metrics["profile"] = profile_generate(engine, prompts[0], 8)
+    if cfg.qkv_bias:
+        metrics.update(check_bias_rounding(engine, prompts[0], failures))
+    if cfg.is_moe:
+        metrics.update(check_repeat(engine, prompts[0], failures))
+    params = engine.params
+    del engine
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    logits, fp32_launches = check_logits(cfg, params, prompts[0], failures)
+    metrics.update(logits)
+    metrics["logits_checks_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{arch} logits checks: peak device memory {metrics['logits_checks_peak_gib']:.2f} GiB "
+          f"(the bf16 weights, their true-fan-in copy, an fp32 copy); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, fp32_launches, metrics
+
+
+def greedy(cfg, params, tokens, force, n_steps):
+    """Prefill through ``force``'s path, then ``n_steps`` greedy decode
+    steps: (prefill's last logits, [each step's logits], tokens (B, 1 +
+    n_steps))."""
+    b, s = tokens.shape
+    with torch.inference_mode():
+        tok, pf_states, last = steps.make_prefill_step(cfg, force=force)(params, {"tokens": tokens})
+        states = _install_prefill(steps.decode_state(cfg, b, s + n_steps, tokens.device),
+                                  pf_states)
+        toks, step_logits = [tok], []
+        for i in range(n_steps):
+            logits, states = lm.lm_apply(params, tok, cfg, mode="decode", states=states,
+                                         cache_len=s + i)
+            step_logits.append(logits[:, -1])
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            toks.append(tok)
+    return last, step_logits, torch.cat(toks, dim=1)
+
+
+def phase_tiny_archs(failures):
+    """chameleon-34b (QK-norm), deepseek-coder-33b and qwen3-moe-235b-a22b
+    (QK-norm, MoE) at their tiny configs on the card: 4 prompts of 64
+    tokens, a prefill and TINY_DECODE_STEPS greedy decode steps through the
+    kernels against the plain path, in fp32 (last logits within 1e-3, the
+    tokens equal wherever the plain path's top-1 margin decides them) and in
+    bf16 (last logits within 0.1); each prefill launches flash once a layer,
+    counted from 0 just before it. Returns {"<arch> <dtype>": launches}."""
+    out = {}
+    for arch in TINY_ARCHS:
+        base = get_tiny_config(arch)
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        tokens = torch.randint(0, base.vocab_size, (4, 64), generator=gen).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            cfg = base.replace(dtype=str(dtype).split(".")[-1])
+            params = steps.init_params(cfg, 0, "cuda")
+            ops.reset_launch_counts()
+            last, step_logits, toks = greedy(cfg, params, tokens, None, TINY_DECODE_STEPS)
+            launches = ops.launch_counts()
+            want_last, want_steps, want_toks = greedy(cfg, params, tokens, "ref",
+                                                      TINY_DECODE_STEPS)
+            torch.cuda.synchronize()
+            tol = LOGITS_TOL[dtype]
+            err = (last - want_last).abs().max().item()
+            # the first step where the paths' tokens part, and whether the plain
+            # path's top-1 margin there left it undecided within tol
+            parted = [i for i in range(toks.shape[1]) if not torch.equal(toks[:, i], want_toks[:, i])]
+            margins = [float((lg.topk(2, dim=-1).values[:, 0] - lg.topk(2, dim=-1).values[:, 1]).min())
+                       for lg in [want_last] + want_steps]
+            decided = not parted or margins[parted[0]] > 2 * tol
+            ok = (err <= tol and bool(torch.isfinite(last).all())
+                  and (dtype == torch.bfloat16 or not (parted and decided)))
+            print(f"{arch} tiny {cfg.dtype} on the card ({cfg.n_layers} layers, B4 S64 + "
+                  f"{TINY_DECODE_STEPS} decode steps): prefill last logits against the plain path "
+                  f"max_abs_err={err:.3e} tol={tol}; tokens {'equal' if not parted else f'part at step {parted[0]} (plain top-1 margin there {margins[parted[0]]:.2e})'}"
+                  f"; launches {launches} {'ok' if ok else 'FAIL'}")
+            expect_launches(f"{arch} tiny {cfg.dtype} prefill", launches,
+                            {"flash_attention": cfg.n_layers, "rglru_scan": 0,
+                             "rglru_scan_bwd": 0}, failures)
+            if not ok:
+                failures.append(f"{arch} tiny {cfg.dtype}: logits err {err:.3e}, tokens part at "
+                                f"{parted[:1]}")
+            out[f"{arch} tiny {cfg.dtype}"] = launches
+            del params
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1745,23 +2130,34 @@ def main() -> int:
     t_start = time.perf_counter()
 
     failures = []
-    phase_build(failures)
-    flash_t, flash_worst = phase_flash(failures)
-    bwd_t, bwd_worst = phase_flash_bwd(failures)
-    phase_grad_mode(failures)
-    scan_t, scan_worst = phase_rglru(failures)
-    scan_bwd_t, scan_bwd_worst = phase_rglru_bwd(failures)
-    sm_launches, sm_fp32_launches, sm_metrics = phase_smollm(failures)
-    torch.cuda.empty_cache()
-    rg_launches, rg_fp32_launches, rg_metrics = phase_recurrentgemma(failures)
-    torch.cuda.empty_cache()
-    train_launches, train_metrics = phase_train(failures)
-    torch.cuda.empty_cache()
-    fp32_train_launches = phase_train_fp32(failures)
-    torch.cuda.empty_cache()
-    learner_launches = phase_crash_resume(failures)
-    torch.cuda.empty_cache()
-    rg_train_launches, rg_train_metrics = phase_train_recurrentgemma(failures)
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args, failures)
+        gc.collect()  # a phase's tensors caught in reference cycles go with it
+        torch.cuda.empty_cache()
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s (wall); device memory still "
+              f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        return out
+
+    phase("build", phase_build)
+    flash_t, flash_worst = phase("flash", phase_flash)
+    bwd_t, bwd_worst = phase("flash backward", phase_flash_bwd)
+    phase("grad mode", phase_grad_mode)
+    scan_t, scan_worst = phase("rglru scan", phase_rglru)
+    scan_bwd_t, scan_bwd_worst = phase("rglru scan backward", phase_rglru_bwd)
+    sm_launches, sm_fp32_launches, sm_metrics = phase("smollm-360m serving", phase_smollm)
+    rg_launches, rg_fp32_launches, rg_metrics = phase("recurrentgemma-2b serving",
+                                                      phase_recurrentgemma)
+    decoders = {arch: phase(f"{arch} serving", phase_decoder, arch) for arch in FULL_WIDTH_ARCHS}
+    tiny_launches = phase("tiny configs on the card", phase_tiny_archs)
+    train_launches, train_metrics = phase("smollm-360m train", phase_train)
+    fp32_train_launches = phase("smollm-360m fp32 train step", phase_train_fp32)
+    learner_launches = phase("learner crash-resume", phase_crash_resume)
+    rg_train_launches, rg_train_metrics = phase("recurrentgemma-2b train",
+                                                phase_train_recurrentgemma)
+    tiny = {dtype: {p: n["flash_attention"] for p, n in tiny_launches.items() if p.endswith(dtype)}
+            for dtype in ("float32", "bfloat16")}
     train_paths = {"smollm-360m train": train_launches,
                    "smollm tiny learner crash-resume": learner_launches,
                    "recurrentgemma-2b train": rg_train_launches}
@@ -1771,6 +2167,8 @@ def main() -> int:
                      "src/repro/kernels/flash_attention.py:36",
                      {"smollm-360m": sm_launches["flash_attention"],
                       "recurrentgemma-2b": rg_launches["flash_attention"],
+                      **{arch: d[0]["flash_attention"] for arch, d in decoders.items()},
+                      **tiny["bfloat16"],
                       **{p: n["flash_attention"] for p, n in train_paths.items()}},
                      flash_t[torch.bfloat16], "smollm B8 S512", flash_worst[torch.bfloat16]),
         # the fp32 route, launched by the fp32 prefills of check_logits and
@@ -1779,6 +2177,9 @@ def main() -> int:
                      "src/repro/kernels/flash_attention.py:36",
                      {"smollm-360m fp32 prefill": sm_fp32_launches["flash_attention"],
                       "recurrentgemma-2b fp32 prefill": rg_fp32_launches["flash_attention"],
+                      **{f"{arch} fp32 prefill": d[1]["flash_attention"]
+                         for arch, d in decoders.items()},
+                      **tiny["float32"],
                       "smollm-360m fp32 train step": fp32_train_launches["flash_attention"]},
                      flash_t[torch.float32], "smollm B8 S512", flash_worst[torch.float32]),
         kernel_entry("rglru_scan", "src/repro_torch/csrc/rglru.cu",
@@ -1807,6 +2208,7 @@ def main() -> int:
     ]
     print(f"card: {card}; smollm-360m: {json.dumps(sm_metrics)}; "
           f"recurrentgemma-2b: {json.dumps(rg_metrics)}; "
+          + "".join(f"{arch}: {json.dumps(d[2])}; " for arch, d in decoders.items()) +
           f"smollm-360m train: {json.dumps(train_metrics)}; "
           f"recurrentgemma-2b train: {json.dumps(rg_train_metrics)}; "
           f"total {time.perf_counter() - t_start:.1f} s")

@@ -119,7 +119,16 @@ class ModelConfig:
 
 
 # Archs the port runs so far; ROADMAP.md queues the rest.
-ARCH_IDS = ["smollm-360m", "recurrentgemma-2b"]
+ARCH_IDS = [
+    "qwen3-moe-235b-a22b",
+    "granite-moe-3b-a800m",
+    "smollm-360m",
+    "deepseek-coder-33b",
+    "llama3-8b",
+    "qwen2.5-3b",
+    "chameleon-34b",
+    "recurrentgemma-2b",
+]
 
 
 def _module_for(arch_id: str):

@@ -1,0 +1,33 @@
+"""llama3-8b [dense] — 32L d_model=4096 32H (GQA kv=8) d_ff=14336
+vocab=128256; GQA, 128k vocab. [arXiv:2407.21783]
+"""
+
+from repro_torch.configs.base import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="llama3-8b",
+        family="dense",
+        n_layers=32,
+        d_model=4096,
+        n_heads=32,
+        n_kv_heads=8,
+        d_ff=14336,
+        vocab_size=128256,
+        rope_theta=500000.0,
+    )
+
+
+def tiny() -> ModelConfig:
+    return config().replace(
+        name="llama3-tiny",
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=2,
+        d_ff=128,
+        vocab_size=256,
+        scan_layers=False,
+        attn_chunk=64,
+    )

@@ -1,0 +1,35 @@
+"""qwen2.5-3b [dense] — 36L d_model=2048 16H (GQA kv=2) d_ff=11008
+vocab=151936; GQA with QKV bias. [hf:Qwen/Qwen2.5-0.5B]
+"""
+
+from repro_torch.configs.base import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2.5-3b",
+        family="dense",
+        n_layers=36,
+        d_model=2048,
+        n_heads=16,
+        n_kv_heads=2,
+        d_ff=11008,
+        vocab_size=151936,
+        qkv_bias=True,
+        rope_theta=1000000.0,
+        tie_embeddings=True,
+    )
+
+
+def tiny() -> ModelConfig:
+    return config().replace(
+        name="qwen2.5-tiny",
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=2,
+        d_ff=128,
+        vocab_size=256,
+        scan_layers=False,
+        attn_chunk=64,
+    )

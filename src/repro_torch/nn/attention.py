@@ -16,14 +16,14 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.nn import params as prm
-from repro_torch.nn.layers import apply_rope
+from repro_torch.nn.layers import apply_rope, def_headnorm, rmsnorm
 from repro_torch.nn.policy import interior_einsum
 
 NEG_INF = -1e30
 
 
-def def_gqa(d_model, n_heads, n_kv_heads, head_dim):
-    return {
+def def_gqa(d_model, n_heads, n_kv_heads, head_dim, qkv_bias=False, qk_norm=False):
+    d = {
         "wq": prm.ParamDef((d_model, n_heads, head_dim), ("embed", "heads", "head_dim"),
                            init="scaled_fan_in"),
         "wk": prm.ParamDef((d_model, n_kv_heads, head_dim), ("embed", "kv_heads", "head_dim"),
@@ -33,6 +33,14 @@ def def_gqa(d_model, n_heads, n_kv_heads, head_dim):
         "wo": prm.ParamDef((n_heads, head_dim, d_model), ("heads", "head_dim", "embed"),
                            init="scaled_fan_in"),
     }
+    if qkv_bias:
+        d["bq"] = prm.ParamDef((n_heads, head_dim), ("heads", "head_dim"), init="zeros")
+        d["bk"] = prm.ParamDef((n_kv_heads, head_dim), ("kv_heads", "head_dim"), init="zeros")
+        d["bv"] = prm.ParamDef((n_kv_heads, head_dim), ("kv_heads", "head_dim"), init="zeros")
+    if qk_norm:
+        d["q_norm"] = def_headnorm(head_dim)
+        d["k_norm"] = def_headnorm(head_dim)
+    return d
 
 
 class KVCache(NamedTuple):
@@ -40,11 +48,30 @@ class KVCache(NamedTuple):
     v: torch.Tensor  # (B, n_kv, S_max, head_dim)
 
 
+def _project(x, w, bias=None):
+    """x (B, S, d) · w (d, heads, hd) → (B, heads, S, hd) in x's dtype. A
+    bias (heads, hd) is added to the fp32-accumulated product before its one
+    rounding to x's dtype, as the reference adds it to the fp32 product
+    (``addmm``: cuBLAS adds it in the GEMM's fp32 epilogue)."""
+    if bias is None:
+        return interior_einsum("bsd,dhk->bhsk", x, w)
+    b, s, d = x.shape
+    _, heads, hd = w.shape
+    y = torch.addmm(bias.reshape(-1), x.reshape(b * s, d), w.reshape(d, heads * hd))
+    return y.view(b, s, heads, hd).permute(0, 2, 1, 3)
+
+
 def _project_qkv(p, x, positions, rope_theta, use_rope=True):
-    """x: (B, S, d) → q (B, H, S, hd), k/v (B, KV, S, hd), contiguous."""
-    q = interior_einsum("bsd,dhk->bhsk", x, p["wq"])
-    k = interior_einsum("bsd,dhk->bhsk", x, p["wk"])
-    v = interior_einsum("bsd,dhk->bhsk", x, p["wv"])
+    """x: (B, S, d) → q (B, H, S, hd), k/v (B, KV, S, hd), contiguous. The
+    reference's order: the products, with the biases where the arch has
+    them (qkv_bias), in x's dtype, then the per-head norms (qk_norm), then
+    RoPE."""
+    q = _project(x, p["wq"], p.get("bq"))
+    k = _project(x, p["wk"], p.get("bk"))
+    v = _project(x, p["wv"], p.get("bv"))
+    if "q_norm" in p:
+        q = rmsnorm(p["q_norm"], q)
+        k = rmsnorm(p["k_norm"], k)
     if use_rope:
         q = apply_rope(q, positions[:, None, :], rope_theta)
         k = apply_rope(k, positions[:, None, :], rope_theta)

@@ -1,7 +1,8 @@
 """Per-layer blocks and the layer stack.
 
 Block kinds ported so far (``cfg.block_pattern`` entries):
-  * ``attn``  — GQA attention + dense MLP
+  * ``attn``  — GQA attention (with QKV bias or QK-norm where the arch has
+    them) + dense MLP or MoE FFN
   * ``rglru`` — Griffin recurrent block (+ dense MLP)
 
 Two parameter layouts load, as in the reference: the stacked
@@ -34,6 +35,7 @@ from repro_torch.nn import params as prm
 from repro_torch.nn.attention import KVCache, def_gqa, gqa_attention
 from repro_torch.nn.layers import activation, def_rmsnorm, rmsnorm
 from repro_torch.nn.mlp import def_mlp, mlp
+from repro_torch.nn.moe import def_moe, moe_ffn
 from repro_torch.nn.policy import interior_einsum
 from repro_torch.nn.recurrent import (
     causal_conv,
@@ -57,16 +59,12 @@ def _check_ported(cfg: ModelConfig):
     unported = []
     if not set(cfg.pattern_for_layers()) <= set(_PORTED_KINDS):
         unported.append(f"block pattern {cfg.block_pattern}")
-    if cfg.is_moe:
-        unported.append("MoE")
     if cfg.is_encoder_decoder:
         unported.append("encoder-decoder")
     if not cfg.rms_norm:
         unported.append("layernorm")
     if cfg.act != "silu":
         unported.append(f"{cfg.act} MLP")
-    if cfg.qkv_bias or cfg.qk_norm:
-        unported.append("qkv bias / qk norm")
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unported)} not ported yet (see ROADMAP.md)")
@@ -78,12 +76,17 @@ def _check_ported(cfg: ModelConfig):
 
 def def_attn_block(cfg: ModelConfig):
     _check_ported(cfg)
-    return {
+    d = {
         "norm1": def_rmsnorm(cfg.d_model),
-        "attn": def_gqa(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd),
+        "attn": def_gqa(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                        cfg.qkv_bias, cfg.qk_norm),
         "norm2": def_rmsnorm(cfg.d_model),
-        "mlp": def_mlp(cfg.d_model, cfg.d_ff),
     }
+    if cfg.is_moe:
+        d["moe"] = def_moe(cfg.d_model, cfg.n_experts, cfg.moe_d_ff, cfg.top_k)
+    else:
+        d["mlp"] = def_mlp(cfg.d_model, cfg.d_ff)
+    return d
 
 
 def def_rglru_block(cfg: ModelConfig):
@@ -135,7 +138,8 @@ def init_block_state(cfg: ModelConfig, kind: str, batch: int, s_max: int,
 def apply_attn_block(p, x, cfg: ModelConfig, *, positions, mode="prefill",
                      state: Optional[KVCache] = None, cache_len=None,
                      force=None):
-    """Returns (x, cache); train returns no cache. ``force`` goes to the
+    """Returns (x, cache, aux); train returns no cache. aux is the MoE FFN's
+    load-balancing loss, or None for a dense MLP. ``force`` goes to the
     flash kernel."""
     h = rmsnorm(p["norm1"], x)
     attn_out, new_cache = gqa_attention(
@@ -143,8 +147,13 @@ def apply_attn_block(p, x, cfg: ModelConfig, *, positions, mode="prefill",
         use_rope=cfg.use_rope, causal=True, window=cfg.local_window,
         cache=state, cache_len=cache_len, mode=mode, force=force)
     x = x + attn_out
-    x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x), cfg.act)
-    return x, new_cache
+    h = rmsnorm(p["norm2"], x)
+    if cfg.is_moe:
+        ffn_out, aux = moe_ffn(p["moe"], h, top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor, act=cfg.act)
+    else:
+        ffn_out, aux = mlp(p["mlp"], h, cfg.act), None
+    return x + ffn_out, new_cache, aux
 
 
 def apply_rglru_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None,
@@ -184,11 +193,13 @@ def apply_rglru_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None,
 
 def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions=None,
                 mode="prefill", state=None, cache_len=None, force=None):
+    """Returns (x, state, aux): aux as ``apply_attn_block``'s, None for an
+    rglru block."""
     if kind == "attn":
         return apply_attn_block(p, x, cfg, positions=positions, mode=mode,
                                 state=state, cache_len=cache_len, force=force)
     if kind == "rglru":
-        return apply_rglru_block(p, x, cfg, mode=mode, state=state, force=force)
+        return (*apply_rglru_block(p, x, cfg, mode=mode, state=state, force=force), None)
     raise ValueError(kind)
 
 
@@ -247,19 +258,24 @@ def _remat_wrap(fn, cfg: ModelConfig):
 
 def _train_stack(p, x, cfg: ModelConfig, *, positions, force=None):
     """Train mode: every block under the remat policy. Returns (x, aux): aux
-    is the zero fp32 scalar of a dense stack (MoE is not ported)."""
+    is the sum of the MoE blocks' load-balancing losses, an fp32 scalar
+    (zero for a dense stack)."""
     if _stackable(cfg):
         layer_ps = _unstack(p["scan"], cfg.n_layers)
         kinds = ("attn",) * cfg.n_layers
     else:
         layer_ps, kinds = p["layers"], cfg.pattern_for_layers()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer_p, kind in zip(layer_ps, kinds):
         def one(h, lp, kind=kind):
-            return apply_block(lp, h, cfg, kind, positions=positions, mode="train",
-                               force=force)[0]
+            y, _, a = apply_block(lp, h, cfg, kind, positions=positions, mode="train",
+                                  force=force)
+            return y, a
 
-        x = _remat_wrap(one, cfg)(x, layer_p)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, a = _remat_wrap(one, cfg)(x, layer_p)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def stack_apply(p, x, cfg: ModelConfig, *, positions, mode="prefill",
@@ -277,9 +293,9 @@ def stack_apply(p, x, cfg: ModelConfig, *, positions, mode="prefill",
         ks, vs = [], []
         for i, layer_p in enumerate(_unstack(p["scan"], cfg.n_layers)):
             st = KVCache(states.k[i], states.v[i]) if mode == "decode" else None
-            x, cache = apply_attn_block(layer_p, x, cfg, positions=positions,
-                                        mode=mode, state=st, cache_len=cache_len,
-                                        force=force)
+            x, cache, _ = apply_attn_block(layer_p, x, cfg, positions=positions,
+                                           mode=mode, state=st, cache_len=cache_len,
+                                           force=force)
             if mode == "prefill":
                 ks.append(cache.k)
                 vs.append(cache.v)
@@ -290,9 +306,9 @@ def stack_apply(p, x, cfg: ModelConfig, *, positions, mode="prefill",
     new_states = []
     for i, kind in enumerate(cfg.pattern_for_layers()):
         st = states[i] if states is not None else None
-        x, state = apply_block(p["layers"][i], x, cfg, kind, positions=positions,
-                               mode=mode, state=st, cache_len=cache_len,
-                               force=force)
+        x, state, _ = apply_block(p["layers"][i], x, cfg, kind, positions=positions,
+                                  mode=mode, state=st, cache_len=cache_len,
+                                  force=force)
         new_states.append(state)
     return x, new_states
 

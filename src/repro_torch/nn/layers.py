@@ -41,6 +41,12 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+# Per-head norm of the qk-norm archs (qwen3, chameleon): normalizes head_dim.
+def def_headnorm(head_dim):
+    return {"scale": prm.ParamDef((head_dim,), ("head_dim",), init="ones",
+                                  dtype="float32")}
+
+
 # --------------------------------------------------------------------------
 # Rotary position embeddings (half-split rotation)
 # --------------------------------------------------------------------------

@@ -1,0 +1,142 @@
+"""Mixture-of-Experts FFN with top-k routing (granite-moe, qwen3-moe).
+
+The reference's single-device path, ``moe_ffn_local``: a sort-based
+dispatch of the (T·k) routed rows into per-expert capacity buffers, the
+experts' SwiGLU as batched products over those buffers (the reference's
+default ``impl="einsum"``; no caller takes its ``ragged_dot`` form), and a
+combine of each token's k weighted expert outputs. Token dropping follows
+GShard/Switch capacity semantics: per-expert capacity C = ceil(T·k / E ·
+capacity_factor), floored at 4 and capped at T·k; rows past it are dropped
+(weight 0). Which rows overflow depends on the stable sort's order over the
+whole flattened stream, so a token's result depends on the rest of its
+batch, as in the reference.
+
+Two steps differ in form from the reference's, not in what they compute:
+the dispatch map is built by a gather from the sorted order (the reference
+scatters into it), and the combine gathers each token's k slots and sums
+them in k order in fp32 (the reference scatter-adds the slots in expert
+order). Both are free of atomics, so two calls give the same bits on the
+card too. The expert-parallel and token-parallel ``shard_map`` branches of
+the reference's ``moe_ffn`` need a mesh, which the port does not have yet
+(ROADMAP.md A.13).
+"""
+
+from __future__ import annotations
+
+import math
+import torch
+
+from repro_torch.nn import params as prm
+from repro_torch.nn.layers import activation
+
+
+def def_moe(d_model, n_experts, moe_d_ff, top_k, act="silu"):
+    del top_k, act
+    return {
+        "router": prm.matrix(d_model, n_experts, "embed", "experts", dtype="float32"),
+        "up": prm.ParamDef((n_experts, d_model, moe_d_ff),
+                           ("experts", "embed", "expert_mlp"), init="scaled_fan_in"),
+        "gate": prm.ParamDef((n_experts, d_model, moe_d_ff),
+                             ("experts", "embed", "expert_mlp"), init="scaled_fan_in"),
+        "down": prm.ParamDef((n_experts, moe_d_ff, d_model),
+                             ("experts", "expert_mlp", "embed"), init="scaled_fan_in"),
+    }
+
+
+def capacity(t_local: int, top_k: int, n_experts: int, factor: float,
+             min_capacity: int = 4) -> int:
+    c = math.ceil(t_local * top_k / n_experts * factor)
+    return max(min(max(c, min_capacity), t_local * top_k), 1)
+
+
+def router_topk(p_router, x, top_k: int):
+    """x: (T, d) → weights (T, k) fp32 (softmax over the selected k,
+    renormalized), indices (T, k) int64, and the Switch-style load-balancing
+    aux loss. The router's logits are an fp32 product, not TF32
+    (``nn.policy``)."""
+    logits = x.float() @ p_router
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = torch.topk(probs, top_k, dim=-1)
+    w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+    # aux loss: n_experts * mean(frac_tokens_e * mean_prob_e)
+    n_experts = logits.shape[-1]
+    experts = torch.arange(n_experts, device=idx.device)
+    hard = (idx[:, :1] == experts).float()  # one-hot of the top choice, no host sync
+    aux = n_experts * torch.mean(hard.mean(dim=0) * probs.mean(dim=0))
+    return w, idx, aux
+
+
+def _dispatch_indices(idx, n_experts: int, cap: int):
+    """The gather map of every expert's capacity buffer.
+
+    idx: (T, k) expert assignment. Returns
+      src:   (n_experts * cap,) int64, the source row in the flattened (T·k)
+             stream of each capacity slot (T·k marks an empty slot),
+      sizes: (n_experts,) int32, the valid rows of each expert (<= cap).
+    Slot c of expert e holds the c-th row routed to e in the stable sort of
+    the flattened stream, if c < min(count_e, cap): the reference's map,
+    read from the sorted order instead of scattered into."""
+    t, k = idx.shape
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)  # rows grouped by expert
+    # each expert's first row in the sorted stream and its row count (a
+    # search of the sorted experts: bincount would wait on the host)
+    experts = torch.arange(n_experts + 1, device=idx.device)
+    bounds = torch.searchsorted(flat[order], experts)
+    starts, counts = bounds[:-1], bounds[1:] - bounds[:-1]
+    sizes = torch.clamp(counts, max=cap)
+    c = torch.arange(cap, device=idx.device)
+    pos = starts[:, None] + c  # (n_experts, cap)
+    valid = c < sizes[:, None]
+    src = torch.where(valid, order[torch.clamp(pos, max=t * k - 1)], t * k)
+    return src.reshape(-1), sizes.to(torch.int32)
+
+
+def _expert_ffn(up, gate, down, rows, act="silu"):
+    """The experts' SwiGLU over their capacity buffers: rows (E·C, d)
+    grouped by expert → (E·C, d), batched products in rows' dtype with
+    the activation and gating product in fp32 (the reference's einsum
+    form)."""
+    fn = activation(act)
+    buf = rows.reshape(up.shape[0], -1, rows.shape[-1])  # (E, C, d)
+    h_up = torch.bmm(buf, up)
+    h_gate = torch.bmm(buf, gate)
+    h = (fn(h_gate.float()) * h_up.float()).to(rows.dtype)
+    return torch.bmm(h, down).reshape(rows.shape[0], -1)
+
+
+def moe_ffn_local(p, x, *, top_k: int, capacity_factor: float = 1.25,
+                  act: str = "silu"):
+    """MoE FFN on local rows over all the experts.
+
+    x: (T, d). Returns (y (T, d) in x's dtype, aux_loss () fp32)."""
+    t, d = x.shape
+    n_experts = p["router"].shape[-1]
+    w, idx, aux = router_topk(p["router"], x, top_k)
+    cap = capacity(t, top_k, n_experts, capacity_factor)
+    src, _ = _dispatch_indices(idx, n_experts, cap)
+    # Gather rows (empty slots read the last row, as the reference's do, and
+    # are weighted 0 on combine).
+    n_rows, n_slots = t * top_k, n_experts * cap
+    rows = x[torch.clamp(src, max=n_rows - 1) // top_k]  # (E*cap, d)
+    out_rows = _expert_ffn(p["up"], p["gate"], p["down"], rows, act)
+    # Combine: the slot of each (token, choice), or none where it was
+    # dropped at capacity; a gather of its output, weighted.
+    slot_of = torch.full((n_rows + 1,), n_slots, dtype=src.dtype, device=x.device)
+    slot_of[src] = torch.arange(n_slots, device=x.device)  # empty slots write n_rows
+    slot_of = slot_of[:n_rows].view(t, top_k)
+    weight = torch.where(slot_of < n_slots, w, 0.0)
+    picked = out_rows[torch.clamp(slot_of, max=n_slots - 1)].float()  # (T, k, d)
+    y = picked[:, 0] * weight[:, 0, None]
+    for j in range(1, top_k):
+        y = y + picked[:, j] * weight[:, j, None]
+    return y.to(x.dtype), aux
+
+
+def moe_ffn(p, x, *, top_k: int, capacity_factor: float = 1.25, act: str = "silu"):
+    """MoE FFN over x (B, S, d) → ((B, S, d), aux ()): the reference's path
+    with no mesh, ``moe_ffn_local`` over all B·S tokens."""
+    b, s, d = x.shape
+    y, aux = moe_ffn_local(p, x.reshape(-1, d), top_k=top_k,
+                           capacity_factor=capacity_factor, act=act)
+    return y.reshape(b, s, d), aux

@@ -8,7 +8,10 @@ PyTorch's bf16 GEMMs already work that way: on the card cuBLAS accumulates
 in fp32 and rounds the result once (``ServeEngine`` turns off the
 reduced-precision split-K reduction that would otherwise be allowed), and
 on the CPU the bf16 GEMM accumulates in fp32 too. So an interior product
-runs in its operands' dtype, with no fp32 copy of the weights.
+runs in its operands' dtype, with no fp32 copy of the weights. An fp32
+product (the logits, the MoE router) stays fp32 on the card: PyTorch keeps
+``torch.backends.cuda.matmul.allow_tf32`` off by default, and nothing in the
+port turns it on.
 """
 
 from __future__ import annotations

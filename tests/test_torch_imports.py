@@ -37,7 +37,7 @@ def test_port_files_exist():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*")}
     for want in ("kernels/flash_attention.py", "kernels/ops.py", "kernels/ref.py",
                  "csrc/flash_attention.cu", "launch/serve.py", "convert.py",
-                 "kernels/rglru.py", "csrc/rglru.cu", "nn/recurrent.py"):
+                 "kernels/rglru.py", "csrc/rglru.cu", "nn/recurrent.py", "nn/moe.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
 
