@@ -92,45 +92,49 @@ Phases; any failure makes the script exit non-zero:
    split-TF32 mma.sync (csrc/flash_attention_bwd.cu). The kernel against
    its plain version over a case list (fp32 and bf16, head_dim 16 to 128,
    GQA, MQA and MHA, causal, window and bidirectional, ragged lengths, Sq
-   != Skv with an offset; bf16 at head_dim 256 too, with MQA, ragged
+   != Skv with an offset, qwen2.5's GQA 8:1 at head_dim 128 and granite's
+   3:1; bf16 at head_dim 256 too, with MQA, ragged
    lengths, an offset and a 2048 window that masks at S3072), each
    gradient within 2e-5 (fp32) or 2e-2 (bf16) of the
    largest magnitude of that gradient, given the forward kernel's o and
    lse; the forward's lse within 1e-5 of the plain logsumexp; two launches
    bit-equal; fp32 at head_dim 256 raises, and so does (ValueError, no
    launch) a bf16 do that starts off 16 bytes. Times at the train paths'
-   shapes (B8 H15 KV5 S512 and S2048, D64, and B8 H10 KV1 S512 D256, bf16,
-   causal) and of the fp32 route at
+   shapes (B8 H15 KV5 S512 and S2048, D64, B8 H10 KV1 S512 D256, B8 H16
+   KV2 S512 D128 and B8 H24 KV8 S512 D64, bf16, causal) and of the fp32
+   route at
    S512 beside SDPA's backward (fwd+bwd minus fwd, both over replayed
    graphs; fp32 with TF32 off), each split into its three kernels by the
    profiler over the replayed graph. Then, with grad on, a flash output's
    grad_fn must be FlashAttentionFn and a scan output's RGLRUScanFn, and
    the fp32 backward at head_dim 256 must raise.
-7. smollm-360m training at full width (after both serving phases):
-   deterministic algorithms on, 32 layers, remat full, true-fan-in
-   attention projections, B8 x S512. The first step's loss and grad norm
-   within 2e-2 of the same step on the plain versions; 3 steps with the
-   launch counts set to 0 just before and read just after (64 forward and
-   32 backward flash launches a step); the same 3 steps again must end on
-   bit-equal state; one profiled step gives the device's busy share and
-   the backward's kernels' share of it. The same first step in fp32, the
-   fp32 flash routes' train path: 64 + 32 launches, loss and grad norm
-   within TRAIN_TOL_FP32 (5e-5) of the plain path's. Then the platform's
-   learner, ``TorchLearner``, on the card at the tiny config: a job of 60 steps
-   killed at step 30 and resumed from its checkpoint must end on the
-   uninterrupted job's state bit for bit (the learner's context and object
-   store are in memory here: the platform itself lives in the JAX
-   package).
-8. recurrentgemma-2b training at full width (after the learner): 26
-   layers (18 rglru + 8 local attention), list layout, remat full, bf16,
+7. Full-width training after the serving phases
+   (``phase_train_full_width``): smollm-360m (32 layers),
+   recurrentgemma-2b (26 layers: 18 rglru + 8 local attention, list
+   layout), qwen2.5-3b (36 layers, QKV bias drawn nonzero from a seed) and
+   granite-moe-3b-a800m (32 layers, the MoE FFN), remat full, bf16,
    true-fan-in attention projections, deterministic algorithms, B8 x S512,
    the state updated in place by the step (two fp32 optimizer states of
-   2.7 B params would not fit the card). The first step's loss
-   and grad norm within 2e-2 of the plain path's; 3 steps counted from 0
-   (a step: 16 flash forwards, 8 flash backwards, 36 scan forwards, 18
-   scan backwards); the same 3 steps again bit-equal; one profiled step
-   for the step time, tokens/s, peak memory, busy share and the kernels'
-   shares of it.
+   2.7-3.3 B params would not fit the card). Step 0 through the kernels,
+   its launches counted, against the same step on the plain versions, loss
+   and grad norm within 2e-2 (``step0``; granite's with its routing pinned
+   to the plain step's, after its fp32 routing on the same batch is gated
+   as in phases 5b-5d); 3 steps counted from 0 (a step: two flash forwards
+   and one backward an attention layer, two scan forwards and one backward
+   an rglru layer); the same 3 steps again bit-equal (the first run's state
+   kept on the host); one profiled step for the step time, tokens/s, peak
+   memory, busy share and the kernels' shares of it.
+8. The same smollm-360m step 0 in fp32 (the fp32 routes' train path: 64 +
+   32 launches, within TRAIN_TOL_FP32 = 5e-5 of the plain path's). Then the
+   platform's learner, ``TorchLearner``, on the card at the tiny config: a
+   job of 60 steps killed at step 30 and resumed from its checkpoint must
+   end on the uninterrupted job's state bit for bit (the learner's context
+   and object store are in memory here: the platform itself lives in the
+   JAX package).
+8b. llama3-8b, deepseek-coder-33b, chameleon-34b and qwen3-moe-235b-a22b
+   at their tiny configs: one bf16 and one fp32 step each through the
+   kernels (both routes of the forward and the backward) against the plain
+   path, within 2e-2 and TRAIN_TOL_FP32 (qwen3-moe's routing pinned).
 9. One JSON line ``{"kernels": [...]}``, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -261,6 +265,11 @@ FLASH_FP32 = ("smollm B8 S512", "recurrentgemma B8 S512", "llama3 B8 S512",
 # of 33-235 B params do not fit one card beside an fp32 check)
 FULL_WIDTH_ARCHS = ("llama3-8b", "granite-moe-3b-a800m", "qwen2.5-3b")
 TINY_ARCHS = ("chameleon-34b", "deepseek-coder-33b", "qwen3-moe-235b-a22b")
+# The archs trained at full width (phase 7: the three larger train states
+# take 38-46 GB), and those trained at their tiny configs only (phase 8b:
+# llama3-8b's state needs about 128 GB, the others' more)
+TRAIN_FULL_WIDTH = ("smollm-360m", "recurrentgemma-2b", "qwen2.5-3b", "granite-moe-3b-a800m")
+TINY_TRAIN_ARCHS = ("llama3-8b", "deepseek-coder-33b", "chameleon-34b", "qwen3-moe-235b-a22b")
 TINY_DECODE_STEPS = 6
 # Kernel names of cuBLAS's and CUTLASS's GEMMs (the profiled prefill's split)
 GEMM_KERNEL = re.compile(r"gemm|nvjet|xmma|cutlass|cublas", re.IGNORECASE)
@@ -302,6 +311,8 @@ BWD_CASES = [
     (1, 4, 2, 300, 300, 16, False, 0, 0),
     (2, 6, 2, 100, 300, 32, True, 96, 200),
     (1, 4, 4, 64, 256, 128, True, 0, 192),
+    (1, 16, 2, 600, 600, 128, True, 0, 0),  # qwen2.5's GQA 8:1 at head_dim 128, ragged
+    (2, 24, 8, 300, 300, 64, True, 0, 0),   # granite's GQA 3:1, ragged
 ]
 # head_dim 256 (recurrentgemma's), the bf16 route only: MQA with its 10-head
 # group, ragged lengths, Sq != Skv with an offset, bidirectional, and its
@@ -313,11 +324,13 @@ BWD_CASES_D256 = [
     (1, 2, 1, 300, 300, 256, False, 0, 0),
     (1, 10, 1, 3072, 3072, 256, True, 2048, 0),
 ]
-# The train path's attention backward shapes (smollm, bf16, causal), and the
-# one the fp32 route is timed at
+# The train paths' attention backward shapes (bf16, causal), and the one the
+# fp32 route is timed at
 BWD_MAIN = {"smollm train B8 S512": (8, 15, 5, 512, 64),
             "smollm B8 S2048": (8, 15, 5, 2048, 64),
-            "recurrentgemma train B8 S512": (8, 10, 1, 512, 256)}
+            "recurrentgemma train B8 S512": (8, 10, 1, 512, 256),
+            "qwen2.5 train B8 S512": (8, 16, 2, 512, 128),
+            "granite train B8 S512": (8, 24, 8, 512, 64)}
 BWD_FP32 = "smollm train B8 S512"
 # The backward's kernels by their names in the sources (the profiler's names
 # carry template arguments): flash_bwd_{delta,dkdv,dq}, with _sm90 on the
@@ -676,8 +689,11 @@ def device_split(fn, iters=10, replays=3) -> tuple[dict, dict]:
     """Device time of one call of ``fn`` by kernel, from the profiler:
     ``iters`` calls captured in a CUDA graph and replayed ``replays`` times
     under torch.profiler, each kernel execution counted once (by name and
-    start). Returns ({kernel name as in the source: ms a call},
-    {kernel name: executions the profiler saw a call})."""
+    start). Kineto drops a session's first GPU records (ROADMAP C.12), so
+    the session opens with a CUDA operation of its own, and only the
+    records that start inside the replays' span count. Returns ({kernel
+    name as in the source: ms a call}, {kernel name: executions the
+    profiler saw a call})."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -691,14 +707,20 @@ def device_split(fn, iters=10, replays=3) -> tuple[dict, dict]:
     graph.replay()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(replays):
-            graph.replay()
-        torch.cuda.synchronize()
+        torch.ones(1, device="cuda").sum().item()  # the session's first records
+        with record_function("replays"):
+            for _ in range(replays):
+                graph.replay()
+            torch.cuda.synchronize()
     del graph
     torch.cuda.empty_cache()
+    events = prof.events()
+    start = [e for e in events
+             if e.name == "replays" and e.device_type == DeviceType.CPU][0].time_range.start
     runs = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name != "replays" \
+                and e.time_range.start >= start:
             found = BWD_KERNEL.search(e.name)
             name = found.group(0) if found else e.name[:40]
             runs.setdefault(name, {})[e.time_range.start] = e.time_range.elapsed_us()
@@ -1270,22 +1292,27 @@ def routing(record=None, pinned=None, own=None):
     """Within the block, ``moe.router_topk`` appends each MoE layer's
     routing to ``record``: its choices (T, k) and each token's gap between
     its k-th and (k+1)-th router probability (T,). Or it takes the choices,
-    layer by layer, from ``pinned``: the weights are then the path's own
-    router probabilities at those experts, renormalized over the k, and the
-    choices the path would have made itself go to ``own``. With neither,
-    nothing changes."""
+    call by call, from ``pinned``: the weights are then the path's own
+    router probabilities at those experts, renormalized over the k, the aux
+    loss counts the pinned top choices, and the choices the path would have
+    made itself go to ``own``. With neither, nothing changes. A train step
+    under remat calls each layer's router again in its backward (layers in
+    reverse order): a record of a step pins the same calls of another."""
     router_topk, pins = moe.router_topk, iter(pinned or ())
 
     def routed(p_router, x, top_k):
         w, idx, aux = router_topk(p_router, x, top_k)
         if record is not None:
-            top = torch.softmax(x.float() @ p_router, dim=-1).topk(top_k + 1, dim=-1).values
+            with torch.no_grad():  # a record with a graph would hold the step's activations
+                top = torch.softmax(x.float() @ p_router, dim=-1).topk(top_k + 1, dim=-1).values
             record.append((idx, top[:, top_k - 1] - top[:, top_k]))
             return w, idx, aux
         own.append(idx)
         idx = next(pins)
-        w = torch.softmax(x.float() @ p_router, dim=-1).gather(-1, idx)
-        return w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9), idx, aux
+        probs = torch.softmax(x.float() @ p_router, dim=-1)
+        w = probs.gather(-1, idx)
+        return (w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9), idx,
+                moe.load_balance_aux(probs, idx))
 
     active = record is not None or pinned is not None
     return patched({(moe, "router_topk"): routed} if active else {})
@@ -1690,12 +1717,6 @@ def phase_tiny_archs(failures):
 # training at full width, and crash-resume through the learner
 # --------------------------------------------------------------------------
 
-def leaves_equal(a, b) -> bool:
-    fa, fb = tree_flatten_with_paths(a), tree_flatten_with_paths(b)
-    return [p for p, _ in fa] == [p for p, _ in fb] and all(
-        x.dtype == y.dtype and torch.equal(x, y) for (_, x), (_, y) in zip(fa, fb))
-
-
 def profile_step(step_fn, state, batch):
     """One train step under torch.profiler: (new state, wall ms, device busy
     ms, {kernel name: (device ms, launches)}). Busy is the kernels' time
@@ -1717,156 +1738,138 @@ def profile_step(step_fn, state, batch):
 
 
 def fresh_states(cfg, device):
-    """A function that returns, at each call, a new train state of ``cfg``
-    on ``device`` at step 0 from the same seeded weights (seed 0, the
-    attention projections at their true fan-in) in ``cfg.dtype``. The
-    weights wait in host memory: a recurrentgemma-2b train state fills most
-    of the card, and the step updates it in place."""
+    """(params, fresh): the seeded weights (seed 0, the attention
+    projections at their true fan-in, and where the arch has QKV biases,
+    zeros at init, those drawn N(0, 1) from a seeded generator so that the
+    bias path carries values) in ``cfg.dtype`` on the host, and a function
+    that returns, at each call, a new train state of them on ``device`` at
+    step 0. The weights wait in host memory: a full-width train state fills
+    most of the card, and the step updates it in place."""
     params0 = true_fan_in(steps.init_params(cfg, 0, "cpu"), cfg)
+    if cfg.qkv_bias:
+        gen = torch.Generator(device="cpu").manual_seed(6)
+        params0 = tree_map_with_path(
+            lambda path, t: (torch.randn(t.shape, generator=gen).to(t.dtype)
+                             if path.rsplit("/", 1)[-1] in ("bq", "bk", "bv") else t), params0)
 
     def fresh():
         params = tree_map_with_path(lambda _, t: t.to(device, copy=True), params0)
         return steps.TrainState(torch.zeros((), dtype=torch.int32, device=device), params,
                                 adamw.init(params))
 
-    return fresh
+    return params0, fresh
 
 
-def phase_train(failures):
-    """smollm-360m training at full width (32 layers, stacked layout,
-    remat full, bf16, seeded weights with the attention projections at
-    their true fan-in) through the train CLI's step function, on B x S =
-    TRAIN_BATCH x TRAIN_SEQ tokens of the synthetic stream. The first
-    step's loss and grad norm against the same step on the plain versions;
-    then the main path, TRAIN_STEPS steps with the launch counts set to 0
-    just before and read just after (64 forward and 32 backward flash
-    launches a step: each layer's forward, its recompute, its backward);
-    the same steps again from the same seed must end on bit-equal state;
-    one more step under the profiler for the device's busy share."""
-    device = torch.device("cuda")
-    deterministic(device)  # use_deterministic_algorithms from here on
-    cfg = get_config("smollm-360m")
-    opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
-    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
-    batches = [data.batch_at(i) for i in range(TRAIN_STEPS + 1)]
-    fresh = fresh_states(cfg, device)
-    step_fn = steps.make_train_step(cfg, opt_cfg)
-    _, plain = steps.make_train_step(cfg, opt_cfg, force="ref")(fresh(), batches[0])
-    plain = {k: float(v) for k, v in plain.items()}
+def step_launches(cfg, n_steps):
+    """The kernel launches of ``n_steps`` train steps under remat full: each
+    layer's forward, its recompute and its backward."""
+    kinds = cfg.pattern_for_layers()
+    n_attn, n_rglru = kinds.count("attn"), kinds.count("rglru")
+    return {"flash_attention": 2 * n_attn * n_steps, "flash_attention_bwd": n_attn * n_steps,
+            "rglru_scan": 2 * n_rglru * n_steps, "rglru_scan_bwd": n_rglru * n_steps}
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    state, metrics, step_s = fresh(), [], []
-    ops.reset_launch_counts()
-    for batch in batches[:TRAIN_STEPS]:
-        t0 = time.perf_counter()
-        state, m = step_fn(state, batch)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        metrics.append({k: float(v) for k, v in m.items()})
-    launches = ops.launch_counts()
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    n = TRAIN_STEPS
-    want = {"flash_attention": 2 * cfg.n_layers * n, "flash_attention_bwd": cfg.n_layers * n,
-            "rglru_scan": 0, "rglru_scan_bwd": 0}
-    expect_launches(f"smollm-360m train ({n} steps, remat full)", launches, want, failures)
-    first = metrics[0]
+def check_step(label, got, plain, tol, failures):
+    """A step's loss and grad norm through the kernels against the plain
+    path's, each within ``tol`` relative."""
     for key in ("loss", "grad_norm"):
-        rel = abs(first[key] - plain[key]) / abs(plain[key])
-        ok = rel <= TRAIN_TOL and math.isfinite(first[key])
-        print(f"smollm-360m train step 0 {key}: kernels {first[key]:.6f}, plain "
-              f"{plain[key]:.6f}, relative difference {rel:.2e} tol {TRAIN_TOL} "
-              f"{'ok' if ok else 'FAIL'}")
+        rel = abs(got[key] - plain[key]) / abs(plain[key])
+        ok = rel <= tol and math.isfinite(got[key])
+        print(f"{label} {key}: kernels {got[key]:.6f}, plain {plain[key]:.6f}, relative "
+              f"difference {rel:.2e} tol {tol} {'ok' if ok else 'FAIL'}")
         if not ok:
-            failures.append(f"smollm-360m train step 0 {key}: {first[key]} vs plain {plain[key]}")
-    print(f"smollm-360m train losses {[round(m['loss'], 6) for m in metrics]}, grad norms "
-          f"{[round(m['grad_norm'], 6) for m in metrics]}, lr {[m['lr'] for m in metrics]}")
+            failures.append(f"{label} {key}: {got[key]} vs plain {plain[key]}")
 
-    again = fresh()
-    for batch in batches[:TRAIN_STEPS]:
-        again, _ = step_fn(again, batch)
+
+def floats(metrics):
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def step0(cfg, opt_cfg, fresh, batch, label, failures):
+    """Step 0 on the plain versions (``force="ref"``) and through the
+    kernels, from the same fresh state, the launch counts set to 0 just
+    before the kernels' step and read just after (``step_launches``: 2
+    forward and 1 backward flash launch an attention layer); the loss and
+    grad norm within TRAIN_TOL, or TRAIN_TOL_FP32 in fp32. An MoE arch's
+    kernels' step takes the plain step's routing choices, call by call
+    (``routing``: each router's forward, then its recompute in the
+    backward), and the choices it would have made itself are reported
+    (``check_routing``, not gated). Returns (the kernels' metrics, the plain
+    metrics, the launches)."""
+    chosen, held = [], []
+    with routing(record=chosen if cfg.is_moe else None):
+        state, plain = steps.make_train_step(cfg, opt_cfg, force="ref")(fresh(), batch)
+    plain = floats(plain)
+    del state  # one full-width train state fills half the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = fresh()
     torch.cuda.synchronize()
-    same = leaves_equal(state, again)
-    print(f"smollm-360m train: two runs of {n} steps from the same seed "
-          f"{'equal bit for bit' if same else 'DIFFER'} (params, m, v, master, step)")
-    if not same:
-        failures.append("smollm-360m train: two runs from the same seed differ")
-    del again
+    ops.reset_launch_counts()
+    with routing(pinned=[c for c, _ in chosen] if cfg.is_moe else None, own=held):
+        state, got = steps.make_train_step(cfg, opt_cfg)(state, batch)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    got = floats(got)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    expect_launches(label, launches, step_launches(cfg, 1), failures)
+    tol = TRAIN_TOL_FP32 if cfg.dtype == "float32" else TRAIN_TOL
+    check_step(label + (" (routing pinned to the plain step's)" if cfg.is_moe else ""), got,
+               plain, tol, failures)
+    if cfg.is_moe:
+        check_routing(cfg, f"{label}, router calls forward then recompute", "pinned", held,
+                      chosen, False, failures)
+    return got, plain, launches
 
-    _, wall_ms, busy_ms, by_name = profile_step(step_fn, state, batches[TRAIN_STEPS])
-    bwd_split = {}  # the backward's kernels, by their names in the source
-    for name, (t, runs) in by_name.items():
-        found = BWD_KERNEL.search(name)
-        if found:
-            ms, count = bwd_split.get(found.group(0), (0.0, 0))
-            bwd_split[found.group(0)] = (ms + t, count + runs)
-    bwd_ms = sum(t for t, _ in bwd_split.values())
-    fwd_ms = sum(t for name, (t, _) in by_name.items() if "flash_fwd" in name)
-    n_kernels = sum(n for _, n in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    step_ms = 1e3 * sum(step_s[1:]) / max(len(step_s) - 1, 1)
-    out = {"step_ms": step_ms, "first_step_ms": 1e3 * step_s[0],
-           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3), "peak_mem_gib": peak_gib,
-           "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "busy_share": busy_ms / wall_ms, "flash_bwd_ms": bwd_ms, "flash_fwd_ms": fwd_ms,
-           "kernels_per_step": n_kernels,
-           "flash_bwd_by_kernel_ms": {n: t for n, (t, _) in bwd_split.items()},
-           "loss": [m["loss"] for m in metrics], "grad_norm": [m["grad_norm"] for m in metrics],
-           "plain_step0": {k: plain[k] for k in ("loss", "grad_norm")}}
-    print(f"smollm-360m train B{TRAIN_BATCH} S{TRAIN_SEQ} remat full bf16: step "
-          f"{step_ms:.2f} ms (steps 2-{n}; first {out['first_step_ms']:.2f} ms), "
-          f"{out['tokens_per_s']:,.0f} tok/s, peak device memory {peak_gib:.2f} GiB; profiled "
-          f"step wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-          f"({100 * out['busy_share']:.1f}%), of it flash backward {bwd_ms:.2f} ms "
-          f"({100 * bwd_ms / busy_ms:.1f}%: "
-          + ", ".join(f"{n} {t:.2f} ms ({c})" for n, (t, c) in sorted(bwd_split.items()))
-          + f"), flash forward {fwd_ms:.2f} ms; {n_kernels} kernels in the step")
-    print("smollm-360m train device time by kernel (profiled step, top 8): "
-          + "; ".join(f"{name[:60]} {t:.2f} ms ({n})" for name, (t, n) in top))
-    return launches, out
+
+def check_train_routing(cfg, params0, batch, device, failures):
+    """The fp32 routing of a train batch, gated as ``check_routing`` gates
+    serving's: the weights in fp32 through the eval step (the train-mode
+    forward and loss, no grad) on the plain versions, recorded, then through
+    the kernels (the fp32 flash route) with the routing pinned to those
+    choices and with its own. At most ROUTE_FLIP_LIMIT of the choices may
+    move; in the pinned run only at plain-path gaps within ROUTE_GAP_TOL of
+    a tie. Returns the metrics."""
+    cfg32 = cfg.replace(dtype="float32")
+    params = tree_map_with_path(lambda _, t: t.to(device, torch.float32), params0)
+    chosen, held, own = [], [], []
+    with routing(record=chosen):
+        plain = floats(steps.make_eval_step(cfg32, force="ref")(params, batch))
+    with routing(pinned=[c for c, _ in chosen], own=held):
+        pinned = floats(steps.make_eval_step(cfg32)(params, batch))
+    with routing(record=own):
+        free = floats(steps.make_eval_step(cfg32)(params, batch))
+    del params
+    torch.cuda.empty_cache()
+    print(f"{cfg.name} train batch in fp32, loss through the kernels against the plain path: "
+          f"pinned {pinned['loss']:.7f}, own routing {free['loss']:.7f}, plain "
+          f"{plain['loss']:.7f} (aux {pinned['aux']:.7f} / {free['aux']:.7f} / {plain['aux']:.7f})")
+    out = {"fp32_loss": {"pinned": pinned["loss"], "own": free["loss"], "plain": plain["loss"]}}
+    label = f"train batch B{TRAIN_BATCH} S{TRAIN_SEQ}, true fan-in, fp32"
+    out.update(check_routing(cfg, label, "pinned", held, chosen, True, failures))
+    out.update(check_routing(cfg, label, "own routing", [c for c, _ in own], chosen, True,
+                             failures))
+    return out
 
 
 def phase_train_fp32(failures):
     """The fp32 flash routes' train path: one smollm-360m train step at full
     width in fp32 (the same seeded true-fan-in weights and first batch as
-    phase_train) through the kernels, with the launch counts set to 0 just
-    before and read just after (64 forward and 32 backward flash launches,
-    all on the fp32 routes since every input is fp32), and its loss and grad
-    norm against the same step on the plain versions within
-    TRAIN_TOL_FP32. It is the one path through the model's entry points
-    that launches the fp32 backward route, so the launches of that route's
-    entry in the kernels line are a path's count. Returns the launches."""
+    its bf16 train phase) through the kernels against the plain versions
+    (``step0``: 64 forward and 32 backward flash launches, all on the fp32
+    routes since every input is fp32, loss and grad norm within
+    TRAIN_TOL_FP32). It is the one full-width path through the model's
+    entry points that launches the fp32 backward route. Returns the
+    launches."""
     t_phase = time.perf_counter()
-    device = torch.device("cuda")
     cfg = get_config("smollm-360m").replace(dtype="float32")
-    opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
     batch = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)).batch_at(0)
-    fresh = fresh_states(cfg, device)
-    _, plain = steps.make_train_step(cfg, opt_cfg, force="ref")(fresh(), batch)
-    plain = {k: float(v) for k, v in plain.items()}
-    step_fn = steps.make_train_step(cfg, opt_cfg)
-    state = fresh()
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    _, got = step_fn(state, batch)
-    torch.cuda.synchronize()
-    step_ms = 1e3 * (time.perf_counter() - t0)
-    launches = ops.launch_counts()
-    expect_launches("smollm-360m fp32 train step (the fp32 backward route's main path)",
-                    launches, {"flash_attention": 2 * cfg.n_layers,
-                               "flash_attention_bwd": cfg.n_layers, "rglru_scan": 0,
-                               "rglru_scan_bwd": 0}, failures)
-    for key in ("loss", "grad_norm"):
-        value = float(got[key])
-        rel = abs(value - plain[key]) / abs(plain[key])
-        ok = rel <= TRAIN_TOL_FP32 and math.isfinite(value)
-        print(f"smollm-360m fp32 train step 0 {key}: kernels {value:.6f}, plain "
-              f"{plain[key]:.6f}, relative difference {rel:.2e} tol {TRAIN_TOL_FP32} "
-              f"{'ok' if ok else 'FAIL'} (step {step_ms:.1f} ms, first call)")
-        if not ok:
-            failures.append(f"smollm-360m fp32 train step 0 {key}: {value} vs plain {plain[key]}")
+    _, fresh = fresh_states(cfg, torch.device("cuda"))
+    _, _, launches = step0(cfg, adamw.AdamWConfig(**TRAIN_OPT), fresh, batch,
+                           "smollm-360m fp32 train step 0 (the fp32 backward route's main path)",
+                           failures)
     print(f"smollm-360m fp32 train phase: {time.perf_counter() - t_phase:.1f} s "
           "(weights, the plain step and the kernels' step)")
     return launches
@@ -1888,36 +1891,44 @@ def kernel_shares(by_name):
     return shares
 
 
-def phase_train_recurrentgemma(failures):
-    """recurrentgemma-2b training at full width (26 layers: 18 rglru + 8
-    local attention, list layout, remat full, bf16, seeded weights with the
-    attention projections at their true fan-in, deterministic algorithms)
-    through ``steps.make_train_step``, which updates the state in place
-    (two fp32 optimizer states would not fit the card), on B x S =
-    TRAIN_BATCH x TRAIN_SEQ tokens of the
-    synthetic stream. The first step's loss and grad norm against the same
-    step on the plain versions; TRAIN_STEPS steps with the launch counts
-    set to 0 just before and read just after (a step: 16 flash forwards
-    and 8 backwards, 36 scan forwards and 18 backwards: each layer's
-    forward, its recompute, its backward); the same steps again from the
-    same seed must end on bit-equal state (the first run's kept in host
-    memory); one more step under the profiler. Returns (launches,
-    metrics)."""
+def host_available_gib() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def phase_train_full_width(arch, failures):
+    """One arch's training at full width (smollm-360m: 32 layers;
+    recurrentgemma-2b: 26 layers, 18 rglru + 8 local attention, list layout;
+    qwen2.5-3b: 36 layers, QKV bias; granite-moe-3b-a800m: 32 layers, the
+    MoE FFN; stacked where the config says), remat full, bf16, the weights
+    of ``fresh_states``, deterministic algorithms, through
+    ``steps.make_train_step``, which updates the state in place (two fp32
+    optimizer states would not fit the card), on B x S = TRAIN_BATCH x
+    TRAIN_SEQ tokens of the synthetic stream. Step 0 against the same step
+    on the plain versions (``step0``; an MoE arch's fp32 routing on the same
+    batch gated first, before any train state is on the card);
+    TRAIN_STEPS steps with the launch counts set to 0 just before and read
+    just after (``step_launches``); the same steps again from the same seed
+    must end on bit-equal state (the first run's kept in host memory); one
+    more step under the profiler. Returns (launches, metrics)."""
     t_phase = time.perf_counter()
     device = torch.device("cuda")
     deterministic(device)
-    cfg = get_config("recurrentgemma-2b")
-    kinds = cfg.pattern_for_layers()
+    cfg = get_config(arch)
     opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
     data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
     batches = [data.batch_at(i) for i in range(TRAIN_STEPS + 1)]
-    fresh = fresh_states(cfg, device)
+    params0, fresh = fresh_states(cfg, device)
+    print(f"{arch} train: seeded weights on the host in {time.perf_counter() - t_phase:.1f} s")
     step_fn = steps.make_train_step(cfg, opt_cfg)
-    plain_state, plain = steps.make_train_step(cfg, opt_cfg, force="ref")(
-        fresh(), batches[0])
-    plain = {k: float(v) for k, v in plain.items()}
-    del plain_state  # one train state fills half the card
-    torch.cuda.empty_cache()
+    out = {}
+    if cfg.is_moe:
+        out.update(check_train_routing(cfg, params0, batches[0], device, failures))
+    got, plain, _ = step0(cfg, opt_cfg, fresh, batches[0], f"{arch} train step 0", failures)
+    out["step0"] = {k: got[k] for k in ("loss", "grad_norm", "aux")}
 
     state = fresh()
     n_params = sum(t.numel() for _, t in tree_flatten_with_paths(state.params))
@@ -1930,30 +1941,22 @@ def phase_train_recurrentgemma(failures):
         state, m = step_fn(state, batch)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-        metrics.append({k: float(v) for k, v in m.items()})
+        metrics.append(floats(m))
     launches = ops.launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     n = TRAIN_STEPS
-    n_attn, n_rglru = kinds.count("attn"), kinds.count("rglru")
-    want = {"flash_attention": 2 * n_attn * n, "flash_attention_bwd": n_attn * n,
-            "rglru_scan": 2 * n_rglru * n, "rglru_scan_bwd": n_rglru * n}
-    expect_launches(f"recurrentgemma-2b train ({n} steps, remat full)", launches, want, failures)
-    first = metrics[0]
-    for key in ("loss", "grad_norm"):
-        rel = abs(first[key] - plain[key]) / abs(plain[key])
-        ok = rel <= TRAIN_TOL and math.isfinite(first[key])
-        print(f"recurrentgemma-2b train step 0 {key}: kernels {first[key]:.6f}, plain "
-              f"{plain[key]:.6f}, relative difference {rel:.2e} tol {TRAIN_TOL} "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(f"recurrentgemma-2b train step 0 {key}: {first[key]} vs plain "
-                            f"{plain[key]}")
-    print(f"recurrentgemma-2b train losses {[round(m['loss'], 6) for m in metrics]}, grad norms "
-          f"{[round(m['grad_norm'], 6) for m in metrics]}, lr {[m['lr'] for m in metrics]}")
+    expect_launches(f"{arch} train ({n} steps, remat full)", launches, step_launches(cfg, n),
+                    failures)
+    print(f"{arch} train losses {[round(m['loss'], 6) for m in metrics]}, grad norms "
+          f"{[round(m['grad_norm'], 6) for m in metrics]}, aux "
+          f"{[round(m['aux'], 6) for m in metrics]}, lr {[m['lr'] for m in metrics]}")
 
+    host_gib = host_available_gib()
     kept = [(p, t.to("cpu", copy=True)) for p, t in tree_flatten_with_paths(state)]
+    kept_gib = sum(t.numel() * t.element_size() for _, t in kept) / 2**30
     del state
+    gc.collect()
     torch.cuda.empty_cache()
     again = fresh()
     for batch in batches[:TRAIN_STEPS]:
@@ -1963,10 +1966,12 @@ def phase_train_recurrentgemma(failures):
     same = [p for p, _ in flat] == [p for p, _ in kept] and all(
         x.dtype == y.dtype and torch.equal(x.cpu(), y) for (_, x), (_, y) in zip(flat, kept))
     del kept, flat
-    print(f"recurrentgemma-2b train: two runs of {n} steps from the same seed "
-          f"{'equal bit for bit' if same else 'DIFFER'} (params, m, v, master, step)")
+    print(f"{arch} train: two runs of {n} steps from the same seed "
+          f"{'equal bit for bit' if same else 'DIFFER'} (params, m, v, master, step; the "
+          f"first run's {kept_gib:.2f} GiB kept on the host, which had {host_gib:.1f} GiB "
+          f"available before)")
     if not same:
-        failures.append("recurrentgemma-2b train: two runs from the same seed differ")
+        failures.append(f"{arch} train: two runs from the same seed differ")
 
     again, wall_ms, busy_ms, by_name = profile_step(step_fn, again, batches[TRAIN_STEPS])
     del again
@@ -1974,24 +1979,49 @@ def phase_train_recurrentgemma(failures):
     n_kernels = sum(c for _, c in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     step_ms = 1e3 * sum(step_s[1:]) / max(len(step_s) - 1, 1)
-    out = {"params": n_params, "step_ms": step_ms, "first_step_ms": 1e3 * step_s[0],
-           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3), "peak_mem_gib": peak_gib,
-           "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "busy_share": busy_ms / wall_ms, "kernels_per_step": n_kernels,
-           "kernel_ms": shares, "loss": [m["loss"] for m in metrics],
-           "grad_norm": [m["grad_norm"] for m in metrics],
-           "plain_step0": {k: plain[k] for k in ("loss", "grad_norm")}}
-    print(f"recurrentgemma-2b train B{TRAIN_BATCH} S{TRAIN_SEQ} remat full bf16 ({n_params:,} "
+    out.update({
+        "params": n_params, "step_ms": step_ms, "first_step_ms": 1e3 * step_s[0],
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3), "peak_mem_gib": peak_gib,
+        "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "busy_share": busy_ms / wall_ms, "kernels_per_step": n_kernels, "kernel_ms": shares,
+        "top_kernels_ms": {name[:60]: t for name, (t, _) in top},
+        "loss": [m["loss"] for m in metrics], "grad_norm": [m["grad_norm"] for m in metrics],
+        "plain_step0": {k: plain[k] for k in ("loss", "grad_norm")},
+        "host_available_gib": host_gib})
+    print(f"{arch} train B{TRAIN_BATCH} S{TRAIN_SEQ} remat full bf16 ({n_params:,} "
           f"params): step {step_ms:.2f} ms (steps 2-{n}; first {out['first_step_ms']:.2f} ms), "
           f"{out['tokens_per_s']:,.0f} tok/s, peak device memory {peak_gib:.2f} GiB; profiled "
           f"step wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
           f"({100 * out['busy_share']:.1f}%); of it "
           + ", ".join(f"{k} {t:.2f} ms ({100 * t / busy_ms:.2f}%)" for k, t in shares.items())
           + f"; {n_kernels} kernels in the step")
-    print("recurrentgemma-2b train device time by kernel (profiled step, top 8): "
+    print(f"{arch} train device time by kernel (profiled step, top 8): "
           + "; ".join(f"{name[:60]} {t:.2f} ms ({c})" for name, (t, c) in top))
-    print(f"recurrentgemma-2b train phase: {time.perf_counter() - t_phase:.1f} s")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{arch} train phase: {out['phase_s']:.1f} s")
     return launches, out
+
+
+def phase_tiny_train(failures):
+    """The decoder-only archs that train only at their tiny configs on the
+    card (their full widths' train states need 128 GB to 3.8 TB): one bf16
+    and one fp32 step each through the kernels against the same step on the
+    plain versions (``step0``: B4 x S64, remat full, true-fan-in weights; an
+    MoE arch's routing pinned to the plain step's). The fp32 steps run the
+    fp32 routes of the forward and the backward. Returns {"<arch> tiny train
+    <dtype>": launches}."""
+    device = torch.device("cuda")
+    deterministic(device)
+    opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
+    out = {}
+    for arch in TINY_TRAIN_ARCHS:
+        for dtype in ("bfloat16", "float32"):
+            cfg = get_tiny_config(arch).replace(dtype=dtype)
+            batch = SyntheticLM(DataConfig(cfg.vocab_size, 64, 4, seed=0)).batch_at(0)
+            label = f"{arch} tiny train {dtype}"
+            out[label] = step0(cfg, opt_cfg, fresh_states(cfg, device)[1], batch, label,
+                               failures)[2]
+    return out
 
 
 class MemoryStore:
@@ -2085,9 +2115,8 @@ def phase_crash_resume(failures):
           f"step {steps_done}, final state {'equal bit for bit' if same else 'DIFFERS'} "
           f"({len(straight)} leaves); launches of the uninterrupted run {launches}")
     cfg = learners[0].cfg
-    want = {"flash_attention": 2 * cfg.n_layers * 60, "flash_attention_bwd": cfg.n_layers * 60,
-            "rglru_scan": 0, "rglru_scan_bwd": 0}
-    expect_launches("smollm tiny learner (60 steps, remat full)", launches, want, failures)
+    expect_launches("smollm tiny learner (60 steps, remat full)", launches,
+                    step_launches(cfg, 60), failures)
     if not (ok_exit and same and steps_done == 60 and len(learners_b) == 2 and resumed_from):
         failures.append(f"crash-resume on the card: exits {ctx.files.get('exit')} / "
                         f"{ctx_b.files.get('exit')}, bit-equal {same}, resumed {resumed_from}")
@@ -2151,16 +2180,19 @@ def main() -> int:
                                                       phase_recurrentgemma)
     decoders = {arch: phase(f"{arch} serving", phase_decoder, arch) for arch in FULL_WIDTH_ARCHS}
     tiny_launches = phase("tiny configs on the card", phase_tiny_archs)
-    train_launches, train_metrics = phase("smollm-360m train", phase_train)
+    full_train = {arch: phase(f"{arch} train", phase_train_full_width, arch)
+                  for arch in TRAIN_FULL_WIDTH}
     fp32_train_launches = phase("smollm-360m fp32 train step", phase_train_fp32)
     learner_launches = phase("learner crash-resume", phase_crash_resume)
-    rg_train_launches, rg_train_metrics = phase("recurrentgemma-2b train",
-                                                phase_train_recurrentgemma)
+    tiny_train = phase("tiny configs train on the card", phase_tiny_train)
     tiny = {dtype: {p: n["flash_attention"] for p, n in tiny_launches.items() if p.endswith(dtype)}
             for dtype in ("float32", "bfloat16")}
-    train_paths = {"smollm-360m train": train_launches,
+    rg_train_launches = full_train["recurrentgemma-2b"][0]
+    train_paths = {**{f"{arch} train": d[0] for arch, d in full_train.items()},
                    "smollm tiny learner crash-resume": learner_launches,
-                   "recurrentgemma-2b train": rg_train_launches}
+                   **{p: n for p, n in tiny_train.items() if p.endswith("bfloat16")}}
+    fp32_train_paths = {"smollm-360m fp32 train step": fp32_train_launches,
+                        **{p: n for p, n in tiny_train.items() if p.endswith("float32")}}
 
     kernels = [
         kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention_sm90.cu",
@@ -2172,7 +2204,7 @@ def main() -> int:
                       **{p: n["flash_attention"] for p, n in train_paths.items()}},
                      flash_t[torch.bfloat16], "smollm B8 S512", flash_worst[torch.bfloat16]),
         # the fp32 route, launched by the fp32 prefills of check_logits and
-        # the fp32 train step
+        # the fp32 train steps
         kernel_entry("flash_attention_fp32", "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:36",
                      {"smollm-360m fp32 prefill": sm_fp32_launches["flash_attention"],
@@ -2180,7 +2212,7 @@ def main() -> int:
                       **{f"{arch} fp32 prefill": d[1]["flash_attention"]
                          for arch, d in decoders.items()},
                       **tiny["float32"],
-                      "smollm-360m fp32 train step": fp32_train_launches["flash_attention"]},
+                      **{p: n["flash_attention"] for p, n in fp32_train_paths.items()}},
                      flash_t[torch.float32], "smollm B8 S512", flash_worst[torch.float32]),
         kernel_entry("rglru_scan", "src/repro_torch/csrc/rglru.cu",
                      "src/repro/kernels/rglru.py:31",
@@ -2196,21 +2228,20 @@ def main() -> int:
         # the backward of the flash forward (the JAX package trains through
         # autodiff of the jnp twin of the TPU kernel it names): the bf16
         # route, launched by the train paths, and the fp32 route, launched by
-        # the fp32 train step
+        # the fp32 train steps
         kernel_entry("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
                      "src/repro/kernels/flash_attention.py:36",
                      {p: n["flash_attention_bwd"] for p, n in train_paths.items()},
                      bwd_t[torch.bfloat16], "smollm train B8 S512", bwd_worst[torch.bfloat16]),
         kernel_entry("flash_attention_bwd_fp32", "src/repro_torch/csrc/flash_attention_bwd.cu",
                      "src/repro/kernels/flash_attention.py:36",
-                     {"smollm-360m fp32 train step": fp32_train_launches["flash_attention_bwd"]},
+                     {p: n["flash_attention_bwd"] for p, n in fp32_train_paths.items()},
                      bwd_t[torch.float32], BWD_FP32, bwd_worst[torch.float32]),
     ]
     print(f"card: {card}; smollm-360m: {json.dumps(sm_metrics)}; "
           f"recurrentgemma-2b: {json.dumps(rg_metrics)}; "
           + "".join(f"{arch}: {json.dumps(d[2])}; " for arch, d in decoders.items()) +
-          f"smollm-360m train: {json.dumps(train_metrics)}; "
-          f"recurrentgemma-2b train: {json.dumps(rg_train_metrics)}; "
+          "".join(f"{arch} train: {json.dumps(d[1])}; " for arch, d in full_train.items()) +
           f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     if failures:

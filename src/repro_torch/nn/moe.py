@@ -11,13 +11,16 @@ capacity_factor), floored at 4 and capped at T·k; rows past it are dropped
 whole flattened stream, so a token's result depends on the rest of its
 batch, as in the reference.
 
-Two steps differ in form from the reference's, not in what they compute:
-the dispatch map is built by a gather from the sorted order (the reference
-scatters into it), and the combine gathers each token's k slots and sums
-them in k order in fp32 (the reference scatter-adds the slots in expert
-order). Both are free of atomics, so two calls give the same bits on the
-card too. The expert-parallel and token-parallel ``shard_map`` branches of
-the reference's ``moe_ffn`` need a mesh, which the port does not have yet
+Three steps differ in form from the reference's, not in what they
+compute: the dispatch map is built by a gather from the sorted order (the
+reference scatters into it), the combine gathers each token's k slots and
+sums them in k order in fp32 (the reference scatter-adds the slots in
+expert order), and an empty slot or a dropped choice reads a row of its
+own, weighted 0 (the reference's all read one row, which made the
+gathers' backward under deterministic algorithms one long serial add).
+All are free of atomics, so two calls give the same bits on the card too.
+The expert-parallel and token-parallel ``shard_map`` branches of the
+reference's ``moe_ffn`` need a mesh, which the port does not have yet
 (ROADMAP.md A.13).
 """
 
@@ -58,12 +61,17 @@ def router_topk(p_router, x, top_k: int):
     probs = torch.softmax(logits, dim=-1)
     w, idx = torch.topk(probs, top_k, dim=-1)
     w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
-    # aux loss: n_experts * mean(frac_tokens_e * mean_prob_e)
-    n_experts = logits.shape[-1]
+    return w, idx, load_balance_aux(probs, idx)
+
+
+def load_balance_aux(probs, idx):
+    """The Switch-style aux loss of router probabilities (T, E) and choices
+    (T, k): n_experts * mean(frac_tokens_e * mean_prob_e), the fraction
+    counting each token's top choice."""
+    n_experts = probs.shape[-1]
     experts = torch.arange(n_experts, device=idx.device)
     hard = (idx[:, :1] == experts).float()  # one-hot of the top choice, no host sync
-    aux = n_experts * torch.mean(hard.mean(dim=0) * probs.mean(dim=0))
-    return w, idx, aux
+    return n_experts * torch.mean(hard.mean(dim=0) * probs.mean(dim=0))
 
 
 def _dispatch_indices(idx, n_experts: int, cap: int):
@@ -115,18 +123,27 @@ def moe_ffn_local(p, x, *, top_k: int, capacity_factor: float = 1.25,
     w, idx, aux = router_topk(p["router"], x, top_k)
     cap = capacity(t, top_k, n_experts, capacity_factor)
     src, _ = _dispatch_indices(idx, n_experts, cap)
-    # Gather rows (empty slots read the last row, as the reference's do, and
-    # are weighted 0 on combine).
+    # Gather rows. An empty slot's output is never picked on combine, so the
+    # row it reads does not matter: the reference's read the last token,
+    # these read token (slot mod T), at most ceil(E·cap / T) of them a token.
+    # The gather's backward accumulates each token's rows, and under
+    # deterministic algorithms a token's rows are added one after another:
+    # all empty slots on one token made that one add thousands long.
     n_rows, n_slots = t * top_k, n_experts * cap
-    rows = x[torch.clamp(src, max=n_rows - 1) // top_k]  # (E*cap, d)
+    slots = torch.arange(n_slots, device=x.device)
+    rows = x[torch.where(src < n_rows, src // top_k, slots % t)]  # (E*cap, d)
     out_rows = _expert_ffn(p["up"], p["gate"], p["down"], rows, act)
     # Combine: the slot of each (token, choice), or none where it was
-    # dropped at capacity; a gather of its output, weighted.
+    # dropped at capacity; a gather of its output, weighted. A dropped
+    # choice reads slot (its row of the stream mod E·cap), weighted 0: its
+    # own, for the same reason.
     slot_of = torch.full((n_rows + 1,), n_slots, dtype=src.dtype, device=x.device)
-    slot_of[src] = torch.arange(n_slots, device=x.device)  # empty slots write n_rows
+    slot_of[src] = slots  # empty slots write n_rows
     slot_of = slot_of[:n_rows].view(t, top_k)
-    weight = torch.where(slot_of < n_slots, w, 0.0)
-    picked = out_rows[torch.clamp(slot_of, max=n_slots - 1)].float()  # (T, k, d)
+    kept = slot_of < n_slots
+    weight = torch.where(kept, w, 0.0)
+    spread = torch.arange(n_rows, device=x.device).view(t, top_k) % n_slots
+    picked = out_rows[torch.where(kept, slot_of, spread)].float()  # (T, k, d)
     y = picked[:, 0] * weight[:, 0, None]
     for j in range(1, top_k):
         y = y + picked[:, j] * weight[:, j, None]

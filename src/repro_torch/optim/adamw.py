@@ -86,6 +86,10 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+# The donated update's piece of a leaf, in elements (256 MiB of fp32)
+DONATE_PIECE = 1 << 26
+
+
 def update(cfg: AdamWConfig, grads, state: OptState, step, donate=None):
     """One AdamW step. ``grads`` in any dtype, the math in fp32 on the master
     weights; ``step`` the 0-d int step tensor before this update. With
@@ -105,7 +109,7 @@ def update(cfg: AdamWConfig, grads, state: OptState, step, donate=None):
     bc1 = 1.0 - torch.pow(_f32(cfg.beta1, device), t)
     bc2 = 1.0 - torch.pow(_f32(cfg.beta2, device), t)
 
-    def upd(g, m, v, w):
+    def upd(g, m, v, w, decay):
         g = g.float() * scale
         if donate is None:
             m = cfg.beta1 * m + (1 - cfg.beta1) * g
@@ -117,8 +121,6 @@ def update(cfg: AdamWConfig, grads, state: OptState, step, donate=None):
         vh = v / bc2
         step_ = mh / (torch.sqrt(vh) + cfg.eps)
         if cfg.weight_decay > 0:
-            # the leaf as stored: a stacked (layers, d) norm scale decays
-            decay = cfg.weight_decay if (w.dim() >= 2 or cfg.decay_vectors) else 0.0
             step_ = step_ + decay * w
         if donate is None:
             w = w - lr * step_
@@ -129,15 +131,29 @@ def update(cfg: AdamWConfig, grads, state: OptState, step, donate=None):
     flat_g = tree_flatten_with_paths(grads)
     flat_m, flat_v, flat_w = (dict(tree_flatten_with_paths(t))
                               for t in (state.m, state.v, state.master))
+
+    def decay_of(w):  # the leaf as stored: a stacked (layers, d) norm scale decays
+        return cfg.weight_decay if (w.dim() >= 2 or cfg.decay_vectors) else 0.0
+
     if donate is None:
-        out = {path: upd(g, flat_m[path], flat_v[path], flat_w[path]) for path, g in flat_g}
+        out = {path: upd(g, flat_m[path], flat_v[path], flat_w[path], decay_of(flat_w[path]))
+               for path, g in flat_g}
         m = tree_unflatten({p: o[0] for p, o in out.items()})
         v = tree_unflatten({p: o[1] for p, o in out.items()})
         master = tree_unflatten({p: o[2] for p, o in out.items()})
         new_params = tree_unflatten({p: out[p][2].to(g.dtype) for p, g in flat_g})
         return new_params, OptState(m, v, master), {"grad_norm": gnorm, "lr": lr}
     flat_p = dict(tree_flatten_with_paths(donate))
-    for path, g in flat_g:  # a leaf at a time, so only one leaf's temporaries live
-        _, _, w = upd(g, flat_m[path], flat_v[path], flat_w[path])
-        flat_p[path].copy_(w)  # the master rounded to the param's dtype, as .to rounds
+    for path, g in flat_g:
+        # A leaf at a time, in pieces of at most DONATE_PIECE elements, so
+        # only one piece's fp32 temporaries live: a stacked expert leaf of
+        # granite-moe (32 x 40 x 1536 x 512) takes 4 GiB a temporary. Each
+        # op is elementwise, so the pieces give the whole leaf's bits.
+        decay = decay_of(flat_w[path])
+        pieces = [g.reshape(-1).split(DONATE_PIECE)] + [
+            t.view(-1).split(DONATE_PIECE)  # views: written in place
+            for t in (flat_m[path], flat_v[path], flat_w[path], flat_p[path])]
+        for gp, mp, vp, wp, pp in zip(*pieces):
+            _, _, w = upd(gp, mp, vp, wp, decay)
+            pp.copy_(w)  # the master rounded to the param's dtype, as .to rounds
     return donate, state, {"grad_norm": gnorm, "lr": lr}

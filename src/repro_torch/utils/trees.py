@@ -25,19 +25,22 @@ def _children(node):
     return None
 
 
+def _walk(node, path: str, out: list):
+    kids = _children(node)
+    if kids is None:
+        out.append((path, node))
+        return
+    for key, child in kids:
+        _walk(child, _join(path, key), out)
+
+
 def tree_flatten_with_paths(tree) -> list[tuple[str, Any]]:
-    """Flatten a tree into [(path_string, leaf), ...]."""
-    out = []
-
-    def walk(node, path):
-        kids = _children(node)
-        if kids is None:
-            out.append((path, node))
-            return
-        for key, child in kids:
-            walk(child, _join(path, key))
-
-    walk(tree, "")
+    """Flatten a tree into [(path_string, leaf), ...]. A module-level walk,
+    not a closure that calls itself: that closure is a reference cycle
+    which would hold the list, and every leaf in it, until the cyclic
+    garbage collector runs (a full-width train state fills half the card)."""
+    out: list = []
+    _walk(tree, "", out)
     return out
 
 
