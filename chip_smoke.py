@@ -73,7 +73,7 @@ Phases; any failure makes the script exit non-zero:
    per-layer attention as in phase 4; one profiled ``generate`` (8 x 512
    -> 8): each phase's busy share and the prefill's device time by part
    (flash, the fp32 unembedding, the MoE's router, dispatch, experts and
-   combine, the other GEMMs, the rest); qwen2.5's QKV bias against one
+   combine, the other GEMMs, the rest) and its host time by span; qwen2.5's QKV bias against one
    rounding of the fp32 product plus the bias; granite's routing choices
    that differ between the kernel and plain paths, per layer, and two
    prefills bit-equal; then the last logits as in phase 4 (the fp32 run
@@ -87,6 +87,16 @@ Phases; any failure makes the script exit non-zero:
    the kernels against the plain path, in fp32 (last logits within 1e-3,
    tokens equal where the plain path's margin decides them) and bf16
    (within 0.1); one flash launch a layer a prefill.
+5f. xlstm-125m at full width (12 layers alternating mlstm / slstm, d_model
+   768, 4 heads, list layout, seeded random weights; ``phase_xlstm``): the
+   3 ``infer`` requests, ``generate`` 8 x 512 -> 32 and 1 x 2048 -> 8,
+   counted (no kernel of the port is on this path: every count must be
+   0); a profiled generate (busy shares; the prefill's device and host time
+   by part: the sLSTM loop, the chunkwise mLSTM, the unembedding); then in
+   fp32 on the same weights the chunkwise mLSTM against its stepwise oracle
+   through the model at 1 x 2048 (four chunks of 512) and 8 x 512, and the
+   decode hand-off (a prefill of S, then one decode step, against S + 1
+   tokens in one pass) at S = 511 and 2048, each last logits within 1e-3.
 6. The flash backward (run right after phase 3), both routes on the tensor
    cores: bf16 on wgmma (csrc/flash_attention_bwd_sm90.cu), fp32 as
    split-TF32 mma.sync (csrc/flash_attention_bwd.cu). The kernel against
@@ -124,6 +134,15 @@ Phases; any failure makes the script exit non-zero:
    an rglru layer); the same 3 steps again bit-equal (the first run's state
    kept on the host); one profiled step for the step time, tokens/s, peak
    memory, busy share and the kernels' shares of it.
+7b. xlstm-125m's training at full width through the same phase (no step 0
+   against a plain path: none of the port's kernels is on it), and the
+   sLSTM loop's and the chunkwise mLSTM's shares of the profiled step, in
+   host time and in device time (their spans, and the backward calls of
+   the autograd nodes made inside them). Then one fp32 step at B2 x S128 on
+   the card, under deterministic algorithms (``torch.cumsum`` of a float
+   CUDA tensor would raise), against the same step of the port on the CPU
+   from the same weights: loss within 1e-5 and grad norm within 1e-4
+   relative (``phase_xlstm_cpu``).
 8. The same smollm-360m step 0 in fp32 (the fp32 routes' train path: 64 +
    32 launches, within TRAIN_TOL_FP32 = 5e-5 of the plain path's). Then the
    platform's learner, ``TorchLearner``, on the card at the tiny config: a
@@ -142,6 +161,7 @@ It imports nothing of JAX or of the JAX package. With no CUDA, or outside
 a checkout of the repository, it fails before printing any result.
 """
 
+import bisect
 import contextlib
 import gc
 import json
@@ -269,6 +289,12 @@ TINY_ARCHS = ("chameleon-34b", "deepseek-coder-33b", "qwen3-moe-235b-a22b")
 # take 38-46 GB), and those trained at their tiny configs only (phase 8b:
 # llama3-8b's state needs about 128 GB, the others' more)
 TRAIN_FULL_WIDTH = ("smollm-360m", "recurrentgemma-2b", "qwen2.5-3b", "granite-moe-3b-a800m")
+# xlstm-125m: pure recurrent (mLSTM and sLSTM blocks), no kernel on its path
+XLSTM = "xlstm-125m"
+XLSTM_GENERATES = [(8, 512, 32), (1, 2048, 8)]  # 2048: four mLSTM chunks of 512
+XLSTM_TOL = 1e-3  # fp32 last logits, two correct forms (LOGITS_TOL's fp32)
+XLSTM_CPU_TOL = {"loss": 1e-5, "grad_norm": 1e-4}  # the card's fp32 step against the CPU's
+XLSTM_CPU_SHAPE = (2, 128)
 TINY_TRAIN_ARCHS = ("llama3-8b", "deepseek-coder-33b", "chameleon-34b", "qwen3-moe-235b-a22b")
 TINY_DECODE_STEPS = 6
 # Kernel names of cuBLAS's and CUTLASS's GEMMs (the profiled prefill's split)
@@ -1082,8 +1108,10 @@ def serve(arch, generates, failures):
     cfg = engine.cfg
     torch.cuda.synchronize()
     n_params = sum(t.numel() for _, t in tree_flatten_with_paths(engine.params))
-    print(f"engine: {cfg.name} {cfg.n_layers} layers {cfg.pattern_for_layers().count('rglru')} "
-          f"rglru, d_model={cfg.d_model} head_dim={cfg.hd} stacked={cfg.scan_layers} "
+    kinds = cfg.pattern_for_layers()
+    print(f"engine: {cfg.name} {cfg.n_layers} layers ("
+          + ", ".join(f"{kinds.count(k)} {k}" for k in dict.fromkeys(kinds))
+          + f"), d_model={cfg.d_model} head_dim={cfg.hd} stacked={cfg.scan_layers} "
           f"params={n_params:,} built in {time.perf_counter() - t0:.1f} s")
     prompts = [engine.synthetic_prompts(b, s) for b, s, _ in generates]
     torch.cuda.synchronize()
@@ -1494,19 +1522,85 @@ def spans(targets):
                     for label, (mod, name) in targets.items()})
 
 
+# xlstm's two sequence mixers, the parts of its prefills and train steps
+XLSTM_SPANS = {"slstm loop": (blocks, "slstm_scan"),
+               "mlstm chunkwise": (blocks, "mlstm_chunkwise")}
 # The parts of a prefill, each the device time of the kernels launched inside
 # the function that computes it (nested: the router, the dispatch and the
 # experts lie inside the MoE FFN)
 PREFILL_SPANS = {"flash": (ops, "flash_attention"), "unembed": (lm, "unembed"),
                  "moe": (moe, "moe_ffn_local"), "moe router": (moe, "router_topk"),
                  "moe dispatch": (moe, "_dispatch_indices"),
-                 "moe experts": (moe, "_expert_ffn")}
+                 "moe experts": (moe, "_expert_ffn"), **XLSTM_SPANS}
+# the parts that hold no other (the rest is what none of them holds)
+OUTER_PARTS = ("flash", "unembed", "moe", *XLSTM_SPANS)
+
+
+def merged(by_thread):
+    """{thread: [(start_ns, end_ns), ...]} with each thread's windows sorted
+    and those that overlap joined."""
+    out = {}
+    for tid, windows in by_thread.items():
+        run = []
+        for lo, hi in sorted(windows):
+            if run and lo <= run[-1][1]:
+                run[-1] = (run[-1][0], max(run[-1][1], hi))
+            else:
+                run.append((lo, hi))
+        out[tid] = run
+    return out
+
+
+def within(windows, tid, t):
+    """Whether time ``t`` on host thread ``tid`` lies in ``windows`` (``merged``)."""
+    run = windows.get(tid, ())
+    i = bisect.bisect_right(run, (t, math.inf)) - 1
+    return i >= 0 and t <= run[i][1]
+
+
+def host_ms(windows, lo, hi):
+    """The host ms of ``windows`` (``merged``) inside [lo, hi], summed over threads."""
+    return sum(max(0, min(b, hi) - max(a, lo)) for run in windows.values() for a, b in run) / 1e6
+
+
+def span_windows(cpu, labels):
+    """{label: ``merged`` windows} from a trace's host records ``cpu``: each
+    span of ``labels`` (as ``spans`` opens them), and the backward calls
+    (``autograd::engine::evaluate_function``) of the autograd nodes that ops
+    inside a span made, matched by forward thread and sequence number as
+    the profiler's own event tree matches them (on the card, autograd runs
+    the backward on a thread of its own)."""
+    raw = {label: {} for label in labels}
+    for e in cpu:
+        if e.name() in raw:
+            raw[e.name()].setdefault(e.start_thread_id(), []).append((e.start_ns(), e.end_ns()))
+    spans_only = {label: merged(by_thread) for label, by_thread in raw.items()}
+    nodes = {label: set() for label in labels}
+    for e in cpu:
+        if e.sequence_nr() >= 0 and not e.name().startswith("autograd::"):
+            for label in labels:
+                if within(spans_only[label], e.start_thread_id(), e.start_ns()):
+                    nodes[label].add((e.start_thread_id(), e.sequence_nr()))
+    for e in cpu:
+        if e.name().startswith("autograd::engine::evaluate_function"):
+            for label in labels:
+                if (e.fwd_thread_id(), e.sequence_nr()) in nodes[label]:
+                    raw[label].setdefault(e.start_thread_id(), []).append(
+                        (e.start_ns(), e.end_ns()))
+    return {label: merged(by_thread) for label, by_thread in raw.items()}
+
+
+def launches_of(cpu):
+    """{correlation id: (host thread, start_ns)} of a trace's CUDA API calls."""
+    return {e.correlation_id(): (e.start_thread_id(), e.start_ns())
+            for e in cpu if e.name().startswith("cu")}
 
 
 def profile_generate(engine, prompts, gen):
     """One ``generate`` under torch.profiler: each phase's wall time, device
-    busy time and share, and the prefill's device time by part
-    (PREFILL_SPANS, the other GEMMs by kernel name, the rest). A device
+    busy time and share, the prefill's device time by part (PREFILL_SPANS,
+    the other GEMMs by kernel name, the rest) and its host time by span
+    (PREFILL_SPANS, on the host's clock under the profiler). A device
     record belongs to a part when the host call that launched it (matched by
     correlation id) lies inside the part's span. Kineto drops the first GPU
     records of a session, so the session opens with one CUDA operation of
@@ -1520,20 +1614,21 @@ def profile_generate(engine, prompts, gen):
     events = prof.profiler.kineto_results.events()
     labels = set(PREFILL_SPANS) | set(PHASES)  # PHASES: generate's own spans
     cpu = [e for e in events if e.device_type() == DeviceType.CPU]
-    launch_at = {e.correlation_id(): e.start_ns() for e in cpu if e.name().startswith("cu")}
-    windows = {}
+    launch_at = launches_of(cpu)
+    phase_at = {}
     for e in cpu:
-        if e.name() in labels:
-            windows.setdefault(e.name(), []).append((e.start_ns(), e.end_ns()))
+        if e.name() in PHASES:
+            phase_at.setdefault(e.name(), (e.start_ns(), e.end_ns()))
+    windows = span_windows(cpu, PREFILL_SPANS)
     device = [e for e in events if e.device_type() == DeviceType.CUDA and e.name() not in labels]
 
     def inside(label, e):
-        t = launch_at.get(e.correlation_id())
-        return t is not None and any(lo <= t <= hi for lo, hi in windows.get(label, ()))
+        at = launch_at.get(e.correlation_id())
+        return at is not None and within(windows[label], *at)
 
     out = {}
     for phase in PHASES:
-        lo, hi = windows[phase][0]
+        lo, hi = phase_at[phase]
         ran = [e for e in device if lo <= e.start_ns() and e.end_ns() <= hi]
         busy = sum(e.end_ns() - e.start_ns() for e in ran) / 1e6
         wall = (hi - lo) / 1e6
@@ -1544,12 +1639,15 @@ def profile_generate(engine, prompts, gen):
             parts = {label: ms(lambda e, label=label: inside(label, e)) for label in PREFILL_SPANS}
             parts["other GEMMs (projections, MLP)"] = ms(
                 lambda e: GEMM_KERNEL.search(e.name()) is not None
-                and not any(inside(label, e) for label in ("unembed", "moe")))
+                and not any(inside(label, e) for label in OUTER_PARTS[1:]))
             parts["moe combine and gathers"] = parts["moe"] - sum(
                 parts[k] for k in ("moe router", "moe dispatch", "moe experts"))
-            parts["rest"] = busy - sum(parts[k] for k in ("flash", "unembed", "moe",
+            parts["rest"] = busy - sum(parts[k] for k in (*OUTER_PARTS,
                                                           "other GEMMs (projections, MLP)"))
             out["prefill_parts_ms"] = parts
+            host = {label: host_ms(windows[label], lo, hi) for label in PREFILL_SPANS}
+            host["rest"] = wall - sum(host[k] for k in OUTER_PARTS)
+            out["prefill_host_ms"] = {k: v for k, v in host.items() if v}
     b, s = prompts.shape
     pf, dec = out["prefill"], out["decode"]
     print(f"{engine.cfg.name} profiled generate B{b} S{s} gen {gen}: prefill wall "
@@ -1557,7 +1655,11 @@ def profile_generate(engine, prompts, gen):
           f"decode ({gen - 1} steps) wall {dec['wall_ms']:.2f} ms, busy {dec['busy_ms']:.2f} ms "
           f"({100 * dec['busy_share']:.1f}%); the prefill's device time by part: "
           + ", ".join(f"{k} {v:.2f} ms ({100 * v / pf['busy_ms']:.1f}%)"
-                      for k, v in out["prefill_parts_ms"].items() if v or "moe" not in k))
+                      for k, v in out["prefill_parts_ms"].items()
+                      if v or not k.startswith(("moe", "slstm", "mlstm")))
+          + "; its host time by span: "
+          + ", ".join(f"{k} {v:.2f} ms ({100 * v / pf['wall_ms']:.1f}%)"
+                      for k, v in out["prefill_host_ms"].items()))
     return out
 
 
@@ -1713,28 +1815,180 @@ def phase_tiny_archs(failures):
     return out
 
 
+def handoff_logits(cfg, params, tokens):
+    """Prefill ``tokens[:, :-1]``, install its states in a decode state,
+    then one decode step of ``tokens[:, -1:]``: (the prefill's last logits,
+    the decode step's)."""
+    b, s = tokens.shape[0], tokens.shape[1] - 1
+    with torch.inference_mode():
+        _, pf_states, last = steps.make_prefill_step(cfg)(params, {"tokens": tokens[:, :s]})
+        states = _install_prefill(steps.decode_state(cfg, b, s + 1, tokens.device), pf_states)
+        logits, _ = lm.lm_apply(params, tokens[:, s:], cfg, mode="decode", states=states,
+                                cache_len=s)
+    return last, logits[:, -1]
+
+
+def mlstm_stepwise(q, k, v, i_gate, f_gate, state=None, chunk=None):
+    """``mlstm_chunkwise``'s signature over the stepwise oracle: patched in
+    for it (``patched(STEPWISE)``), every mLSTM block runs the oracle."""
+    return recurrent.mlstm_ref(q, k, v, i_gate, f_gate, state)
+
+
+STEPWISE = {(blocks, "mlstm_chunkwise"): mlstm_stepwise}
+
+
+def check_within(label, got, want, tol, failures):
+    err = (got - want).abs().max().item()
+    ok = err <= tol and bool(torch.isfinite(got).all())
+    print(f"{label}: max_abs_err {err:.3e} (max |logit| {want.abs().max().item():.3f}) tol {tol} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{label}: max_abs_err {err:.3e} > {tol}")
+    return err
+
+
+def check_xlstm_forms(cfg, params, prompts, failures):
+    """fp32 through the model (``cfg`` fp32, ``params`` the seeded weights in
+    fp32), each within XLSTM_TOL: the last logits through the chunkwise
+    mLSTM against the stepwise oracle, at 1 x 2048 (four chunks of 512) and
+    8 x 512 (one); the decode hand-off (a prefill of S tokens, then one
+    decode step, against the same S + 1 tokens in one pass) at S = 511 (the
+    pass a prefill of 512) and at S = 2048 (the pass the stepwise oracle
+    over 2049 tokens, a length no chunk of 512 divides). The model is
+    causal, so the stepwise pass over 2049 tokens gives the oracle's last
+    logits of the first 2048 too."""
+    out = {}
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    extra = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen).cuda()
+    long, short = torch.cat([prompts[1], extra], dim=1), prompts[0]
+    t0 = time.perf_counter()
+    with torch.inference_mode(), patched(STEPWISE):
+        oracle_long = lm.lm_apply(params, long, cfg, mode="prefill")[0][:, -2:]
+        oracle_short = lm.lm_apply(params, short, cfg, mode="prefill")[0][:, -1]
+    t1 = time.perf_counter()
+    chunk_long, handoff_long = handoff_logits(cfg, params, long)
+    chunk_short = last_logits(cfg, params, short, None)
+    _, handoff_short = handoff_logits(cfg, params, short)
+    torch.cuda.synchronize()
+    print(f"{cfg.name} fp32 forms: stepwise passes ({long.shape[1]} and {short.shape[0]} x "
+          f"{short.shape[1]} tokens) "
+          f"{t1 - t0:.1f} s, chunkwise prefills and hand-offs {time.perf_counter() - t1:.1f} s "
+          "(host clock)")
+    (bl, sl), (bs, ss) = prompts[1].shape, short.shape
+    nc = -(-sl // cfg.attn_chunk)
+    for key, label, got, want in (
+            (f"chunkwise_vs_stepwise B{bl} S{sl}", f"B{bl} S{sl} last logits, mLSTM chunkwise "
+             f"({nc} chunks) against stepwise", chunk_long, oracle_long[:, 0]),
+            (f"chunkwise_vs_stepwise B{bs} S{ss}", f"B{bs} S{ss} last logits, mLSTM chunkwise "
+             "against stepwise", chunk_short, oracle_short),
+            (f"handoff S{ss - 1}", f"B{bs} decode hand-off at S={ss - 1} (prefill {ss - 1} + 1 "
+             f"decode step against a prefill of {ss})", handoff_short, chunk_short),
+            (f"handoff S{sl}", f"B{bl} decode hand-off at S={sl} (prefill {sl} + 1 decode step "
+             f"against the stepwise oracle over {sl + 1})", handoff_long, oracle_long[:, 1])):
+        out[key] = check_within(f"{cfg.name} fp32 {label}", got, want, XLSTM_TOL, failures)
+    return out
+
+
+def phase_xlstm(failures):
+    """xlstm-125m's serving path at full width (12 layers alternating mlstm /
+    slstm, list layout, seeded random weights): the 3 ``infer`` requests,
+    ``generate`` 8 x 512 -> 32 and 1 x 2048 -> 8, counted (no kernel of the
+    port on this path: every count 0); a profiled generate; then, in fp32
+    on the same weights, ``check_xlstm_forms``. Returns (launches, metrics)."""
+    t_phase = time.perf_counter()
+    engine, launches, prompts, metrics = serve(XLSTM, XLSTM_GENERATES, failures)
+    expect_launches(XLSTM, launches, {"flash_attention": 0, "rglru_scan": 0,
+                                      "rglru_scan_bwd": 0}, failures)
+    metrics["profile"] = profile_generate(engine, prompts[0], 8)
+    cfg = engine.cfg.replace(dtype="float32")
+    params = tree_map_with_path(lambda _, t: t.float(), engine.params)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    metrics.update(check_xlstm_forms(cfg, params, prompts, failures))
+    metrics["fp32_checks_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{XLSTM} fp32 checks: peak device memory {metrics['fp32_checks_peak_gib']:.2f} GiB; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, metrics
+
+
+def phase_xlstm_cpu(failures):
+    """One fp32 train step of xlstm-125m at full width (B x S =
+    XLSTM_CPU_SHAPE, remat full) on the card, under deterministic
+    algorithms (set by the train phases; ``torch.cumsum`` of a float CUDA
+    tensor would raise under them), and the same step of the port on the
+    CPU, from the same seeded weights and batch: loss and grad norm within
+    XLSTM_CPU_TOL relative. Catches what only the card's ops would do."""
+    cfg = get_config(XLSTM).replace(dtype="float32")
+    b, s = XLSTM_CPU_SHAPE
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, s, b, seed=0)).batch_at(0)
+    opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
+    deterministic(torch.device("cuda"))
+    got = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        state = fresh_states(cfg, torch.device(device))[1]()
+        state, met = steps.make_train_step(cfg, opt_cfg)(state, batch)
+        got[device] = floats(met)
+        del state
+        print(f"{XLSTM} fp32 train step B{b} S{s} on {device}: loss {got[device]['loss']:.7f}, "
+              f"grad norm {got[device]['grad_norm']:.7f} ({time.perf_counter() - t0:.1f} s with "
+              f"the weights)")
+    out = {"deterministic_algorithms": torch.are_deterministic_algorithms_enabled()}
+    for key, tol in XLSTM_CPU_TOL.items():
+        rel = abs(got["cuda"][key] - got["cpu"][key]) / abs(got["cpu"][key])
+        ok = rel <= tol and math.isfinite(got["cuda"][key])
+        print(f"{XLSTM} fp32 step {key}: card against CPU relative difference {rel:.2e} tol {tol} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{XLSTM} fp32 step {key}: card {got['cuda'][key]} vs CPU "
+                            f"{got['cpu'][key]}")
+        out[key] = {"cuda": got["cuda"][key], "cpu": got["cpu"][key], "rel": rel}
+    return out
+
+
 # --------------------------------------------------------------------------
 # training at full width, and crash-resume through the learner
 # --------------------------------------------------------------------------
 
 def profile_step(step_fn, state, batch):
     """One train step under torch.profiler: (new state, wall ms, device busy
-    ms, {kernel name: (device ms, launches)}). Busy is the kernels' time
-    inside the step's span (one stream, so they do not overlap)."""
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    ms, {kernel name: (device ms, launches)}, {part: {"host_ms",
+    "device_ms"}}). Busy is the kernels' time inside the step's span (one
+    stream, so they do not overlap). The parts are XLSTM_SPANS's, each its
+    ``span_windows`` (forward, recompute and backward) on the host's clock
+    and the device time of the kernels launched inside them. Read from
+    the profiler's raw records (``kineto_results``), not ``events()``, whose
+    event tree is slow to build at xlstm's 300,000 kernels a step; the
+    session opens with one CUDA operation of its own, since Kineto
+    drops a session's first GPU records (ROADMAP C.12)."""
+    with spans(XLSTM_SPANS), profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").sum().item()
         with record_function("train_step"):
             state, _ = step_fn(state, batch)
             torch.cuda.synchronize()
-    events = prof.events()
-    span = [e for e in events if e.name == "train_step" and e.device_type == DeviceType.CPU][0]
-    lo, hi = span.time_range.start, span.time_range.end
+    events = prof.profiler.kineto_results.events()
+    cpu = [e for e in events if e.device_type() == DeviceType.CPU]
+    span = [e for e in cpu if e.name() == "train_step"][0]
+    lo, hi = span.start_ns(), span.end_ns()
+    windows = span_windows(cpu, XLSTM_SPANS)
+    launch_at = launches_of(cpu)
+    labels = {"train_step", *XLSTM_SPANS}
     by_name = {}
+    parts = {label: {"host_ms": host_ms(windows[label], lo, hi), "device_ms": 0.0}
+             for label in XLSTM_SPANS}
     for e in events:
-        if e.device_type == DeviceType.CUDA and e.name != "train_step" \
-                and lo <= e.time_range.start and e.time_range.end <= hi:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    return state, (hi - lo) / 1e3, sum(ms for ms, _ in by_name.values()), by_name
+        if e.device_type() == DeviceType.CUDA and e.name() not in labels \
+                and lo <= e.start_ns() and e.end_ns() <= hi:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + (e.end_ns() - e.start_ns()) / 1e6, n + 1)
+            at = launch_at.get(e.correlation_id())
+            for label in XLSTM_SPANS:
+                if at is not None and within(windows[label], *at):
+                    parts[label]["device_ms"] += (e.end_ns() - e.start_ns()) / 1e6
+    return state, (hi - lo) / 1e6, sum(ms for ms, _ in by_name.values()), by_name, parts
 
 
 def fresh_states(cfg, device):
@@ -1927,8 +2181,10 @@ def phase_train_full_width(arch, failures):
     out = {}
     if cfg.is_moe:
         out.update(check_train_routing(cfg, params0, batches[0], device, failures))
-    got, plain, _ = step0(cfg, opt_cfg, fresh, batches[0], f"{arch} train step 0", failures)
-    out["step0"] = {k: got[k] for k in ("loss", "grad_norm", "aux")}
+    if any(step_launches(cfg, 1).values()):  # a path with no kernel has no plain twin
+        got, plain, _ = step0(cfg, opt_cfg, fresh, batches[0], f"{arch} train step 0", failures)
+        out["step0"] = {k: got[k] for k in ("loss", "grad_norm", "aux")}
+        out["plain_step0"] = {k: plain[k] for k in ("loss", "grad_norm")}
 
     state = fresh()
     n_params = sum(t.numel() for _, t in tree_flatten_with_paths(state.params))
@@ -1973,7 +2229,11 @@ def phase_train_full_width(arch, failures):
     if not same:
         failures.append(f"{arch} train: two runs from the same seed differ")
 
-    again, wall_ms, busy_ms, by_name = profile_step(step_fn, again, batches[TRAIN_STEPS])
+    t0 = time.perf_counter()
+    again, wall_ms, busy_ms, by_name, parts = profile_step(step_fn, again,
+                                                           batches[TRAIN_STEPS])
+    print(f"{arch} train: the profiled step took {time.perf_counter() - t0:.1f} s with the "
+          "trace's processing")
     del again
     shares = kernel_shares(by_name)
     n_kernels = sum(c for _, c in by_name.values())
@@ -1986,7 +2246,6 @@ def phase_train_full_width(arch, failures):
         "busy_share": busy_ms / wall_ms, "kernels_per_step": n_kernels, "kernel_ms": shares,
         "top_kernels_ms": {name[:60]: t for name, (t, _) in top},
         "loss": [m["loss"] for m in metrics], "grad_norm": [m["grad_norm"] for m in metrics],
-        "plain_step0": {k: plain[k] for k in ("loss", "grad_norm")},
         "host_available_gib": host_gib})
     print(f"{arch} train B{TRAIN_BATCH} S{TRAIN_SEQ} remat full bf16 ({n_params:,} "
           f"params): step {step_ms:.2f} ms (steps 2-{n}; first {out['first_step_ms']:.2f} ms), "
@@ -1997,6 +2256,16 @@ def phase_train_full_width(arch, failures):
           + f"; {n_kernels} kernels in the step")
     print(f"{arch} train device time by kernel (profiled step, top 8): "
           + "; ".join(f"{name[:60]} {t:.2f} ms ({c})" for name, (t, c) in top))
+    if "slstm" in cfg.pattern_for_layers():
+        out["parts"] = {label: {**t, "host_share": t["host_ms"] / wall_ms,
+                                "device_share": t["device_ms"] / busy_ms}
+                        for label, t in parts.items()}
+        print(f"{arch} train, the profiled step by part (host time on the host's clock under "
+              "the profiler, forward, recompute and backward; device time of the kernels "
+              "they launched): " + "; ".join(
+                  f"{label} host {t['host_ms']:.2f} ms ({100 * t['host_share']:.1f}% of the "
+                  f"wall), device {t['device_ms']:.2f} ms ({100 * t['device_share']:.1f}% of "
+                  "the busy time)" for label, t in out["parts"].items()))
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"{arch} train phase: {out['phase_s']:.1f} s")
     return launches, out
@@ -2179,9 +2448,12 @@ def main() -> int:
     rg_launches, rg_fp32_launches, rg_metrics = phase("recurrentgemma-2b serving",
                                                       phase_recurrentgemma)
     decoders = {arch: phase(f"{arch} serving", phase_decoder, arch) for arch in FULL_WIDTH_ARCHS}
+    xl_launches, xl_metrics = phase(f"{XLSTM} serving", phase_xlstm)
     tiny_launches = phase("tiny configs on the card", phase_tiny_archs)
     full_train = {arch: phase(f"{arch} train", phase_train_full_width, arch)
                   for arch in TRAIN_FULL_WIDTH}
+    xl_train_launches, xl_train = phase(f"{XLSTM} train", phase_train_full_width, XLSTM)
+    xl_cpu = phase(f"{XLSTM} card against the CPU", phase_xlstm_cpu)
     fp32_train_launches = phase("smollm-360m fp32 train step", phase_train_fp32)
     learner_launches = phase("learner crash-resume", phase_crash_resume)
     tiny_train = phase("tiny configs train on the card", phase_tiny_train)
@@ -2242,6 +2514,9 @@ def main() -> int:
           f"recurrentgemma-2b: {json.dumps(rg_metrics)}; "
           + "".join(f"{arch}: {json.dumps(d[2])}; " for arch, d in decoders.items()) +
           "".join(f"{arch} train: {json.dumps(d[1])}; " for arch, d in full_train.items()) +
+          f"{XLSTM}: {json.dumps({**xl_metrics, 'launches': xl_launches})}; "
+          f"{XLSTM} train: {json.dumps(xl_train)} "
+          f"(launches {xl_train_launches}); {XLSTM} card against the CPU: {json.dumps(xl_cpu)}; "
           f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     if failures:

@@ -122,6 +122,7 @@ class ModelConfig:
 ARCH_IDS = [
     "qwen3-moe-235b-a22b",
     "granite-moe-3b-a800m",
+    "xlstm-125m",
     "smollm-360m",
     "deepseek-coder-33b",
     "llama3-8b",

@@ -4,17 +4,19 @@
         --steps 100 --batch 8 --seq 128 --ckpt-dir /tmp/run1 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-3b-a800m \\
         --tiny --steps 6 --batch 2 --seq 32 --ckpt-dir /tmp/run3 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m --tiny \\
+        --device cpu --batch 2 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
         --steps 20 --batch 8 --seq 512
 
-It trains any of the eight ported archs: smollm-360m, recurrentgemma-2b,
-llama3-8b, deepseek-coder-33b, qwen2.5-3b, chameleon-34b,
+It trains any of the nine ported archs: smollm-360m, recurrentgemma-2b,
+xlstm-125m, llama3-8b, deepseek-coder-33b, qwen2.5-3b, chameleon-34b,
 granite-moe-3b-a800m and qwen3-moe-235b-a22b (``--tiny`` for their reduced
 configs, which run on the CPU). On one card (80 GB) the full widths of
-smollm-360m, recurrentgemma-2b, qwen2.5-3b and granite-moe-3b-a800m train
-at B8 S512; the others' train states (about 16 bytes a param) do not fit
-one card until the port shards them (ROADMAP A.13). An MoE arch's loss
-adds its load-balancing aux, weighted 0.01.
+smollm-360m, recurrentgemma-2b, xlstm-125m, qwen2.5-3b and
+granite-moe-3b-a800m train at B8 S512; the others' train states (about 16
+bytes a param) do not fit one card until the port shards them (ROADMAP
+A.13). An MoE arch's loss adds its load-balancing aux, weighted 0.01.
 
 The reference's ``repro/launch/train.py`` on one device: it builds the
 train state, resumes from the newest valid checkpoint in ``--ckpt-dir`` if

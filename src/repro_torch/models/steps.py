@@ -38,7 +38,7 @@ def make_prefill_step(cfg: ModelConfig, force=None):
 
     ``force`` goes to ``kernels.ops.flash_attention`` and
     ``kernels.ops.rglru_scan`` ("ref" runs both plain versions, to hold the
-    kernels' path against them)."""
+    kernels' path against them; an xlstm model reaches neither)."""
 
     def prefill(params, batch):
         logits, states = lm.lm_apply(params, batch["tokens"], cfg,
@@ -64,7 +64,9 @@ def make_decode_step(cfg: ModelConfig):
 
 def decode_state(cfg: ModelConfig, batch: int, s_max: int, device="cpu"):
     """Zeroed decode-time state at capacity ``s_max``: a KV cache per
-    attention block, a conv/h dict per recurrent block."""
+    attention block; a {"conv", "h"} dict per rglru block; a {"conv",
+    "state"} dict per mlstm block (``MLSTMState``: C, n, m) and per slstm
+    block (``SLSTMState``: c, n, m, h), the recurrent states fp32."""
     return init_stack_state(cfg, batch, s_max, prm.torch_dtype(cfg.dtype),
                             device)
 

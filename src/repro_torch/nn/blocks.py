@@ -1,9 +1,11 @@
 """Per-layer blocks and the layer stack.
 
-Block kinds ported so far (``cfg.block_pattern`` entries):
+Block kinds (``cfg.block_pattern`` entries), all four of the reference's:
   * ``attn``  — GQA attention (with QKV bias or QK-norm where the arch has
     them) + dense MLP or MoE FFN
   * ``rglru`` — Griffin recurrent block (+ dense MLP)
+  * ``mlstm`` — xLSTM matrix-LSTM block (its own up/down projections)
+  * ``slstm`` — xLSTM scalar-LSTM block (its own gated FFN)
 
 Two parameter layouts load, as in the reference: the stacked
 ``blocks/scan/...`` tree with a leading layers axis (``scan_layers`` with
@@ -43,8 +45,15 @@ from repro_torch.nn.recurrent import (
     conv_state_init,
     def_causal_conv,
     def_rglru,
+    def_slstm_core,
+    mlstm_chunkwise,
+    mlstm_state_init,
+    mlstm_step,
     rglru,
     rglru_step,
+    slstm_scan,
+    slstm_state_init,
+    slstm_step,
 )
 from repro_torch.utils.trees import (
     tree_flatten_with_paths,
@@ -52,13 +61,8 @@ from repro_torch.utils.trees import (
     tree_unflatten,
 )
 
-_PORTED_KINDS = ("attn", "rglru")
-
-
 def _check_ported(cfg: ModelConfig):
     unported = []
-    if not set(cfg.pattern_for_layers()) <= set(_PORTED_KINDS):
-        unported.append(f"block pattern {cfg.block_pattern}")
     if cfg.is_encoder_decoder:
         unported.append("encoder-decoder")
     if not cfg.rms_norm:
@@ -104,7 +108,45 @@ def def_rglru_block(cfg: ModelConfig):
     }
 
 
-_DEFS = {"attn": def_attn_block, "rglru": def_rglru_block}
+def def_mlstm_block(cfg: ModelConfig):
+    _check_ported(cfg)
+    d, nh = cfg.d_model, cfg.n_heads
+    di = 2 * d
+    return {
+        "norm": def_rmsnorm(d),
+        "wu": prm.matrix(d, di, "embed", "lru"),
+        "wg": prm.matrix(d, di, "embed", "lru"),
+        "conv": def_causal_conv(cfg.conv_width, di),
+        "wq": prm.matrix(di, di, "lru", None),
+        "wk": prm.matrix(di, di, "lru", None),
+        "wv": prm.matrix(di, di, "lru", None),
+        "wi": prm.matrix(di, nh, "lru", "heads"),
+        "bi": prm.bias(nh, "heads"),
+        "wf": prm.matrix(di, nh, "lru", "heads"),
+        "bf": prm.bias(nh, "heads"),
+        "out_norm": prm.ParamDef((di,), ("lru",), init="ones", dtype="float32"),
+        "wo": prm.matrix(di, d, "lru", "embed"),
+    }
+
+
+def def_slstm_block(cfg: ModelConfig):
+    _check_ported(cfg)
+    d, nh = cfg.d_model, cfg.n_heads
+    return {
+        "norm": def_rmsnorm(d),
+        "conv": def_causal_conv(cfg.conv_width, d),
+        "wi": prm.matrix(d, d, "embed", "lru"),
+        "wf": prm.matrix(d, d, "embed", "lru"),
+        "wz": prm.matrix(d, d, "embed", "lru"),
+        "wo_g": prm.matrix(d, d, "embed", "lru"),
+        "r": def_slstm_core(nh, d // nh),
+        "out_norm": prm.ParamDef((d,), ("lru",), init="ones", dtype="float32"),
+        "ffn": def_mlp(d, max(1, round(d * 4 / 3))),
+    }
+
+
+_DEFS = {"attn": def_attn_block, "rglru": def_rglru_block,
+         "mlstm": def_mlstm_block, "slstm": def_slstm_block}
 
 
 def def_block(cfg: ModelConfig, kind: str):
@@ -128,7 +170,44 @@ def init_block_state(cfg: ModelConfig, kind: str, batch: int, s_max: int,
         w = cfg.lru_width or cfg.d_model
         return {"conv": conv_state_init(batch, cfg.conv_width, w, dtype, device),
                 "h": torch.zeros((batch, w), dtype=torch.float32, device=device)}
+    if kind == "mlstm":
+        di = 2 * cfg.d_model
+        dh = di // cfg.n_heads
+        return {"conv": conv_state_init(batch, cfg.conv_width, di, dtype, device),
+                "state": mlstm_state_init(batch, cfg.n_heads, dh, dh, device)}
+    if kind == "slstm":
+        d = cfg.d_model
+        return {"conv": conv_state_init(batch, cfg.conv_width, d, dtype, device),
+                "state": slstm_state_init(batch, cfg.n_heads, d // cfg.n_heads, device)}
     raise ValueError(kind)
+
+
+# --------------------------------------------------------------------------
+# helpers of the recurrent blocks
+# --------------------------------------------------------------------------
+
+def _conv_history(u, width):
+    """Prefill's conv state: the last width-1 *pre-conv* inputs (B, width-1,
+    C), zeros before the prompt's start where it is shorter (ROADMAP C.7:
+    the reference cannot slice them there)."""
+    return F.pad(u[:, -(width - 1):], (0, 0, max(0, width - 1 - u.shape[1]), 0))
+
+
+def _split_heads(t, n_heads):
+    """(B, S, n_heads * dh) → (B, n_heads, S, dh)."""
+    b, s, _ = t.shape
+    return t.reshape(b, s, n_heads, -1).transpose(1, 2)
+
+
+def _group_rms(scale, x, n_heads, eps=1e-6):
+    """x: (B, S, D) RMS-normalized in fp32 over each head's D/n_heads
+    channels, times the fp32 ``scale``, back in x's dtype (xLSTM's output
+    norm)."""
+    b, s, dd = x.shape
+    xh = x.reshape(b, s, n_heads, dd // n_heads).float()
+    var = torch.mean(xh * xh, dim=-1, keepdim=True)
+    y = (xh * torch.rsqrt(var + eps)).reshape(b, s, dd) * scale
+    return y.to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -156,6 +235,11 @@ def apply_attn_block(p, x, cfg: ModelConfig, *, positions, mode="prefill",
     return x + ffn_out, new_cache, aux
 
 
+def _check_mode(mode):
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
+
+
 def apply_rglru_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None,
                       force=None):
     """Returns (x, {"conv": (B, width-1, W), "h": (B, W) fp32}), or (x,
@@ -164,6 +248,7 @@ def apply_rglru_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None,
     prefill computes from no state and returns no state (the reference's
     ``apply_rglru_block``); under grad on the card its scan is
     ``RGLRUScanFn``."""
+    _check_mode(mode)
     h = rmsnorm(p["norm1"], x)
     gate = activation("gelu")(
         interior_einsum("bsd,dw->bsw", h, p["w_gate"]).float()).to(x.dtype)
@@ -173,33 +258,109 @@ def apply_rglru_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None,
         r, h_new = rglru_step(p["lru"], u1, state["h"], cfg.n_heads)
         r = r[:, None]
         new_state = {"conv": conv_state, "h": h_new}
-    elif mode in ("prefill", "train"):
+    else:
         r, h_last = rglru(p["lru"], causal_conv(p["conv"], u), cfg.n_heads,
                           h0=state["h"] if state is not None else None,
                           force=force)
         new_state = None
         if mode == "prefill":
-            # the last width-1 inputs, zeros before the prompt's start
-            width = p["conv"]["w"].shape[0]
-            conv_state = F.pad(u[:, -(width - 1):],
-                               (0, 0, max(0, width - 1 - u.shape[1]), 0))
-            new_state = {"conv": conv_state, "h": h_last}
-    else:
-        raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
+            new_state = {"conv": _conv_history(u, p["conv"]["w"].shape[0]), "h": h_last}
     x = x + interior_einsum("bsw,wd->bsd", (r * gate).to(x.dtype), p["w_out"])
     x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x), cfg.act)
     return x, new_state
 
 
+def apply_mlstm_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None):
+    """Returns (x, {"conv": (B, width-1, 2D), "state": MLSTMState}), or (x,
+    None) in train mode. q, k and the i/f gates come from the conv+SiLU
+    output, v from the pre-conv ``u``; the forget gate's +3.0 is added in
+    the model dtype, after the bias, as the reference adds it. Prefill runs
+    ``mlstm_chunkwise`` at chunk ``min(attn_chunk, S)`` (which must divide
+    S), decode ``mlstm_step``."""
+    _check_mode(mode)
+    nh = cfg.n_heads
+    di = 2 * cfg.d_model
+    dh = di // nh
+    h = rmsnorm(p["norm"], x)
+    u = interior_einsum("bsd,de->bse", h, p["wu"])
+    g = interior_einsum("bsd,de->bse", h, p["wg"])
+    new_state = None
+    if mode == "decode":
+        c, conv_state = causal_conv_step(p["conv"], u[:, 0], state["conv"])
+        c = F.silu(c.float()).to(x.dtype)
+        q = (c @ p["wq"]).reshape(-1, nh, dh)
+        k = (c @ p["wk"]).reshape(-1, nh, dh)
+        v = (u[:, 0] @ p["wv"]).reshape(-1, nh, dh)
+        ig = (c @ p["wi"] + p["bi"]).float()
+        fg = (c @ p["wf"] + p["bf"] + 3.0).float()
+        hout, mstate = mlstm_step(q, k, v, ig, fg, state["state"])
+        hout = hout.reshape(-1, 1, di)
+        new_state = {"conv": conv_state, "state": mstate}
+    else:
+        c = F.silu(causal_conv(p["conv"], u).float()).to(x.dtype)
+        b, s, _ = c.shape
+        q, k, v = (_split_heads(t, nh) for t in (c @ p["wq"], c @ p["wk"], u @ p["wv"]))
+        ig = (c @ p["wi"] + p["bi"]).float().transpose(1, 2)
+        fg = (c @ p["wf"] + p["bf"] + 3.0).float().transpose(1, 2)
+        hout, mstate = mlstm_chunkwise(q, k, v, ig, fg,
+                                       state["state"] if state is not None else None,
+                                       chunk=min(cfg.attn_chunk, s))
+        hout = hout.transpose(1, 2).reshape(b, s, di)
+        if mode == "prefill":
+            new_state = {"conv": _conv_history(u, p["conv"]["w"].shape[0]), "state": mstate}
+    hout = _group_rms(p["out_norm"], hout, nh)
+    y = (hout * F.silu(g.float()).to(x.dtype)) @ p["wo"]
+    return x + y.to(x.dtype), new_state
+
+
+def apply_slstm_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None):
+    """Returns (x, {"conv": (B, width-1, D), "state": SLSTMState}), or (x,
+    None) in train mode. The i and f gates come from the conv+SiLU output,
+    z and o from the normed input; the recurrence runs ``slstm_scan`` (one
+    step a token) or, in decode, ``slstm_step``. Its FFN has no pre-norm."""
+    _check_mode(mode)
+    d, nh = cfg.d_model, cfg.n_heads
+    dh = d // nh
+    h = rmsnorm(p["norm"], x)
+    new_state = None
+    if mode == "decode":
+        c, conv_state = causal_conv_step(p["conv"], h[:, 0], state["conv"])
+        c = F.silu(c.float()).to(x.dtype)
+        gates = {"i": (c @ p["wi"]).reshape(-1, nh, dh),
+                 "f": (c @ p["wf"]).reshape(-1, nh, dh),
+                 "z": (h[:, 0] @ p["wz"]).reshape(-1, nh, dh),
+                 "o": (h[:, 0] @ p["wo_g"]).reshape(-1, nh, dh)}
+        hout, sstate = slstm_step(p["r"], gates, state["state"])
+        hout = hout.reshape(-1, 1, d).to(x.dtype)
+        new_state = {"conv": conv_state, "state": sstate}
+    else:
+        b, s, _ = h.shape
+        c = F.silu(causal_conv(p["conv"], h).float()).to(x.dtype)
+        gates = {"i": _split_heads(c @ p["wi"], nh), "f": _split_heads(c @ p["wf"], nh),
+                 "z": _split_heads(h @ p["wz"], nh), "o": _split_heads(h @ p["wo_g"], nh)}
+        hout, sstate = slstm_scan(p["r"], gates,
+                                  state["state"] if state is not None else None)
+        hout = hout.transpose(1, 2).reshape(b, s, d).to(x.dtype)
+        if mode == "prefill":
+            new_state = {"conv": _conv_history(h, p["conv"]["w"].shape[0]), "state": sstate}
+    x = x + _group_rms(p["out_norm"], hout, nh)
+    return x + mlp(p["ffn"], x, "silu"), new_state
+
+
 def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions=None,
                 mode="prefill", state=None, cache_len=None, force=None):
-    """Returns (x, state, aux): aux as ``apply_attn_block``'s, None for an
-    rglru block."""
+    """Returns (x, state, aux): aux as ``apply_attn_block``'s, None for a
+    recurrent block (rglru, mlstm, slstm). ``force`` goes to the kernels,
+    which only attn and rglru blocks reach."""
     if kind == "attn":
         return apply_attn_block(p, x, cfg, positions=positions, mode=mode,
                                 state=state, cache_len=cache_len, force=force)
     if kind == "rglru":
         return (*apply_rglru_block(p, x, cfg, mode=mode, state=state, force=force), None)
+    if kind == "mlstm":
+        return (*apply_mlstm_block(p, x, cfg, mode=mode, state=state), None)
+    if kind == "slstm":
+        return (*apply_slstm_block(p, x, cfg, mode=mode, state=state), None)
     raise ValueError(kind)
 
 

@@ -1,5 +1,6 @@
 """Recurrent sequence mixers: the RG-LRU of RecurrentGemma/Griffin, with
-its causal depthwise conv and block-diagonal gate projections.
+its causal depthwise conv and block-diagonal gate projections, and xLSTM's
+mLSTM and sLSTM.
 
 The parallel RG-LRU calls ``kernels.ops.rglru_scan``: the Hopper scan
 kernel for a CUDA tensor, its plain version for a CPU one. This is where
@@ -7,11 +8,20 @@ the reference runs ``jax.lax.associative_scan`` (its Pallas scan is reached
 only from its kernel tests). In training (grad on) the kernel's outputs
 carry ``RGLRUScanFn``, whose backward is the port's reverse-scan kernel;
 the reference differentiates its associative scan. Decode takes one O(1)
-step and stays plain PyTorch. mLSTM and sLSTM (xLSTM) are not ported yet
-(ROADMAP.md).
+step and stays plain PyTorch.
+
+The mLSTM (a stabilized gated linear attention with a matrix memory) runs
+chunkwise: quadratic inside a chunk, a carried (C, n, m) state across
+chunks, one O(1) step in decode, and ``mlstm_ref`` as the stepwise oracle.
+The sLSTM is a nonlinear recurrence through block-diagonal recurrent
+weights, one step a token. The reference writes both as ``lax.scan``s over
+jnp code and reaches no Pallas kernel from them, so here they are plain
+PyTorch: Python loops over chunks and over time.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -55,7 +65,7 @@ def conv_state_init(batch, width, channels, dtype, device="cpu"):
 
 
 # --------------------------------------------------------------------------
-# Block-diagonal linear (Griffin's gate projections)
+# Block-diagonal linear (Griffin's gate projections; xLSTM's recurrent R)
 # --------------------------------------------------------------------------
 
 def def_blockdiag(n_blocks, block_w, n_out_per_block=None):
@@ -132,3 +142,213 @@ def rglru_ref(p, x, n_heads, h0=None):
         h = torch.exp(log_a[:, t]) * h + b[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# mLSTM (xLSTM matrix memory), chunkwise parallel
+# --------------------------------------------------------------------------
+
+class MLSTMState(NamedTuple):
+    c: torch.Tensor  # (B, H, dk, dv) stabilized matrix memory C_hat, fp32
+    n: torch.Tensor  # (B, H, dk)    stabilized normalizer n_hat, fp32
+    m: torch.Tensor  # (B, H)        log stabilizer, fp32
+
+
+def mlstm_state_init(batch, n_heads, dk, dv, device="cpu"):
+    return MLSTMState(
+        c=torch.zeros((batch, n_heads, dk, dv), dtype=torch.float32, device=device),
+        n=torch.zeros((batch, n_heads, dk), dtype=torch.float32, device=device),
+        m=torch.full((batch, n_heads), -1e30, dtype=torch.float32, device=device),
+    )
+
+
+def _prefix_sum(x):
+    """Inclusive prefix sum over the last axis (fp32), as a masked sum of a
+    (..., L, L) product. ``torch.cumsum`` of a float CUDA tensor has no
+    deterministic kernel (``torch.use_deterministic_algorithms`` raises on
+    it, and training on the card runs under it); a reduction over a fixed
+    axis is deterministic, and exact products with 0 and 1 keep it an fp32
+    sum with no TF32 setting involved."""
+    n = x.shape[-1]
+    idx = torch.arange(n, device=x.device)
+    upto = (idx[:, None] >= idx[None, :]).to(x.dtype)  # [j, t]: t <= j
+    return (x[..., None, :] * upto).sum(-1)
+
+
+def mlstm_chunkwise(q, k, v, i_gate, f_gate, state=None, chunk=256):
+    """Chunkwise-parallel stabilized mLSTM.
+
+    q, k: (B, H, S, dk); v: (B, H, S, dv); i_gate/f_gate: (B, H, S) raw
+    (pre-activation) gates; f goes through log-sigmoid, i through exp with
+    the shared stabilizer m. The chunk is L = min(chunk, S) and must divide
+    S, as the reference asserts. q is scaled by dk^-0.5 in its own dtype
+    (in bf16 both the scale and the product round, as the reference's do),
+    then every product runs in fp32. Returns (h (B, H, S, dv) in q's dtype,
+    final MLSTMState)."""
+    b, hn, s, dk = q.shape
+    dv = v.shape[-1]
+    if state is None:
+        state = mlstm_state_init(b, hn, dk, dv, q.device)
+    L = min(chunk, s)
+    if s % L:
+        raise ValueError(f"mlstm_chunkwise: sequence length {s} is not a multiple of the "
+                         f"chunk {L} (the reference asserts s % chunk == 0)")
+    scale = dk ** -0.5
+    logf = F.logsigmoid(f_gate.float())  # (B, H, S)
+    logi = i_gate.float()
+    # q * scale in q's dtype, the scale rounded to it first: the reference
+    # multiplies by a weak-typed Python float, which JAX casts to q's dtype
+    # (a CPU scalar tensor: no host-to-device copy)
+    qs = q * torch.tensor(scale, dtype=q.dtype)
+    # split once, so that under grad each input's gradient is one cat
+    chunks = zip(*(x.split(L, dim=2) for x in (qs, k, v, logf, logi)))
+    idx = torch.arange(L, device=q.device)
+    tri = idx[:, None] >= idx[None, :]  # (L, L) causal within a chunk
+    c0, n0, m0 = state
+    hs = []
+    for qi, ki, vi, lfi, lii in chunks:
+        qi, ki, vi = qi.float(), ki.float(), vi.float()
+        bcum = _prefix_sum(lfi)  # (B, H, L) inclusive log product of f
+        btot = bcum[..., -1]
+        # log weight of intra source t for target l: bcum_l - bcum_t + li_t
+        g_src = lii - bcum
+        intra_log = bcum[..., :, None] + g_src[..., None, :]  # (B, H, L, L)
+        intra_log = torch.where(tri, intra_log, -torch.inf)
+        m_intra = torch.amax(intra_log, dim=-1)  # ties split the gradient, as jnp.max
+        m_inter = bcum + m0[..., None]
+        m_j = torch.maximum(m_inter, m_intra)
+        d_mat = torch.exp(intra_log - m_j[..., None])
+        s_qk = torch.einsum("bhld,bhtd->bhlt", qi, ki) * d_mat
+        num_intra = torch.einsum("bhlt,bhtv->bhlv", s_qk, vi)
+        den_intra = torch.sum(s_qk, dim=-1)
+        w_inter = torch.exp(m_inter - m_j)
+        num_inter = torch.einsum("bhld,bhdv->bhlv", qi, c0)
+        den_inter = torch.einsum("bhld,bhd->bhl", qi, n0)
+        num = num_inter * w_inter[..., None] + num_intra
+        den = den_inter * w_inter + den_intra
+        hs.append(num / torch.maximum(torch.abs(den), torch.exp(-m_j))[..., None])
+        # the state at the chunk's end
+        m_new = torch.maximum(btot + m0, torch.amax(lii + (btot[..., None] - bcum), dim=-1))
+        w_old = torch.exp(btot + m0 - m_new)
+        w_src = torch.exp(lii + btot[..., None] - bcum - m_new[..., None])
+        kw = ki * w_src[..., None]
+        c0 = c0 * w_old[..., None, None] + torch.einsum("bhld,bhlv->bhdv", kw, vi)
+        n0 = n0 * w_old[..., None] + torch.sum(kw, dim=2)
+        m0 = m_new
+    return torch.cat(hs, dim=2).to(q.dtype), MLSTMState(c0, n0, m0)
+
+
+def mlstm_step(q, k, v, i_gate, f_gate, state: MLSTMState):
+    """One decode step. q, k: (B, H, dk); v: (B, H, dv); gates (B, H). q is
+    scaled in fp32 (the reference's step, unlike its chunkwise form)."""
+    scale = q.shape[-1] ** -0.5
+    logf = F.logsigmoid(f_gate.float())
+    logi = i_gate.float()
+    m_new = torch.maximum(logf + state.m, logi)
+    w_old = torch.exp(logf + state.m - m_new)
+    w_in = torch.exp(logi - m_new)
+    kf = k.float() * w_in[..., None]
+    c = state.c * w_old[..., None, None] + kf[..., :, None] * v.float()[..., None, :]
+    n = state.n * w_old[..., None] + kf
+    qf = q.float() * scale
+    num = torch.einsum("bhd,bhdv->bhv", qf, c)
+    den = torch.einsum("bhd,bhd->bh", qf, n)
+    h = num / torch.maximum(torch.abs(den), torch.exp(-m_new))[..., None]
+    return h.to(q.dtype), MLSTMState(c, n, m_new)
+
+
+def mlstm_ref(q, k, v, i_gate, f_gate, state=None):
+    """Step-by-step oracle of ``mlstm_chunkwise`` (``mlstm_step`` over time):
+    (h (B, H, S, dv) in q's dtype, final MLSTMState)."""
+    b, hn, _, dk = q.shape
+    st = state if state is not None else mlstm_state_init(b, hn, dk, v.shape[-1], q.device)
+    hs = []
+    for xs in zip(*(x.unbind(2) for x in (q, k, v, i_gate, f_gate))):
+        h, st = mlstm_step(*xs, st)
+        hs.append(h)
+    return torch.stack(hs, dim=2), st
+
+
+# --------------------------------------------------------------------------
+# sLSTM (xLSTM scalar memory with recurrence), sequential
+# --------------------------------------------------------------------------
+
+class SLSTMState(NamedTuple):
+    c: torch.Tensor  # (B, H, dh) fp32
+    n: torch.Tensor  # (B, H, dh) fp32
+    m: torch.Tensor  # (B, H, dh) fp32
+    h: torch.Tensor  # (B, H, dh) fp32, fed back through R
+
+
+def slstm_state_init(batch, n_heads, dh, device="cpu"):
+    def z():
+        return torch.zeros((batch, n_heads, dh), dtype=torch.float32, device=device)
+
+    return SLSTMState(z(), z(), torch.full((batch, n_heads, dh), -1e30, device=device), z())
+
+
+_GATES = ("i", "f", "z", "o")
+
+
+def def_slstm_core(n_heads, dh):
+    # Recurrent block-diagonal weights of the four gates (i, f, z, o).
+    return {f"r{g}": prm.ParamDef((n_heads, dh, dh), ("heads", None, None),
+                                  init="scaled_fan_in", scale=0.3)
+            for g in _GATES}
+
+
+_N_FLOOR = torch.tensor(1e-6)  # a CPU scalar: no host-to-device copy a step
+
+
+def _slstm_cell(x_t, r, state: SLSTMState):
+    """One step from the four gates' input pre-activations side by side,
+    x_t (B, H, 4·dh) fp32, and their recurrent weights side by side, r (H,
+    dh, 4·dh): one product for the four gates (each output element the same
+    dot product the reference's per-gate einsum takes). r is cast to fp32
+    here, in each step, as the reference casts it (so a bf16 weight's
+    gradient is summed over the steps in bf16, as the reference's is)."""
+    hf = state.h
+    g = x_t + torch.einsum("bhd,hde->bhe", hf, r.float())
+    gi, gf, gz, go = g.chunk(4, dim=-1)
+    logf = F.logsigmoid(gf)
+    logf_m = logf + state.m
+    m_new = torch.maximum(logf_m, gi)
+    i_p = torch.exp(gi - m_new)
+    f_p = torch.exp(logf_m - m_new)
+    c = f_p * state.c + i_p * torch.tanh(gz)
+    n = f_p * state.n + i_p
+    # torch.maximum, not clamp: a tie splits the gradient, as jnp.maximum
+    h = torch.sigmoid(go) * c / torch.maximum(n, _N_FLOOR)
+    return h, SLSTMState(c, n, m_new, h)
+
+
+def _side_by_side(p, x_gates):
+    """(the recurrent weights (H, dh, 4·dh), the inputs (..., 4·dh) fp32),
+    each in the gate order i, f, z, o."""
+    r = torch.cat([p[f"r{g}"] for g in _GATES], dim=-1)
+    return r, torch.cat([x_gates[g].float() for g in _GATES], dim=-1)
+
+
+def slstm_step(p, x_gates, state: SLSTMState):
+    """One step. x_gates: {"i", "f", "z", "o"} of (B, H, dh) pre-activations
+    from the input; p: {"ri", "rf", "rz", "ro"} of (H, dh, dh). Returns (h
+    fp32, new state)."""
+    r, x_t = _side_by_side(p, x_gates)
+    return _slstm_cell(x_t, r, state)
+
+
+def slstm_scan(p, x_gates, state=None):
+    """x_gates: {"i", "f", "z", "o"} of (B, H, S, dh). ``slstm_step`` over
+    time; returns (h (B, H, S, dh) in the gates' dtype, final state). The
+    gates' inputs are cast and put side by side once, then unbound along
+    time once (so that under grad their gradient is one ``stack``, not a
+    zero-filled tensor a step); each step is one product and the cell's
+    elementwise ops."""
+    b, hn, s, dh = x_gates["i"].shape
+    st = state if state is not None else slstm_state_init(b, hn, dh, x_gates["i"].device)
+    r, xs = _side_by_side(p, x_gates)
+    hs = []
+    for x_t in xs.unbind(2):
+        h, st = _slstm_cell(x_t, r, st)
+        hs.append(h)
+    return torch.stack(hs, dim=2).to(x_gates["i"].dtype), st

@@ -120,8 +120,11 @@ def _caches(states):
 # --------------------------------------------------------------------------
 
 def test_arch_ids_hold_the_eight_ported_archs():
-    assert len(ARCH_IDS) == 8 and set(ARCHS) <= set(ARCH_IDS)
-    assert {"smollm-360m", "recurrentgemma-2b"} <= set(ARCH_IDS)
+    """The eight archs of the serving and training slices, and xlstm-125m
+    since: nine of the reference's ten (whisper-tiny is still queued)."""
+    assert len(ARCH_IDS) == 9 and set(ARCHS) <= set(ARCH_IDS)
+    assert {"smollm-360m", "recurrentgemma-2b", "xlstm-125m"} <= set(ARCH_IDS)
+    assert "whisper-tiny" not in ARCH_IDS
 
 
 @pytest.mark.parametrize("tiny", [False, True])

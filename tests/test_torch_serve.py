@@ -74,11 +74,11 @@ def test_configs_equal_field_by_field(tiny):
 
 def test_unported_arch_raises_naming_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("xlstm-125m")
+        get_config("whisper-tiny")
 
 
 @pytest.mark.parametrize("change", [{"rms_norm": False}, {"act": "gelu"},
-                                    {"block_pattern": ("attn", "mlstm")}])
+                                    {"is_encoder_decoder": True}])
 def test_unported_model_features_raise(change):
     _, cfg = _cfgs(**change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
