@@ -32,10 +32,11 @@ Phases; any failure makes the script exit non-zero:
    a replayed CUDA graph, and the eager time of a call, host included),
    beside the card's least time for the work,
    at the shapes the main paths give each kernel (flash: the bf16 wgmma
-   route at its seven shapes, and the fp32 split-TF32 route at the five
-   shapes the fp32 logits checks of phases 4-5d give it, B8 S512 of each
-   arch, beside both its split-TF32 bound and the
-   fp32 CUDA-core bound), with the scan's GB/s, its share of the bound
+   route at its nine shapes, and the fp32 split-TF32 route at the seven
+   shapes the fp32 logits checks of phases 4-5d and 5g give it, B8 S512 of
+   each decoder-only arch and whisper's B8 H6 S1500 D64 bidirectional
+   encoder and S448 causal decoder, beside both its split-TF32 bound and the
+   fp32 CUDA-core bound; SDPA with the same mask), with the scan's GB/s, its share of the bound
    and, as a yardstick of the rate the card reaches for the same bytes, an
    elementwise ``torch.add`` of a and b into h. Then the scan's backward
    (csrc/rglru_bwd.cu, run right after the scan): equal to its plain
@@ -87,6 +88,22 @@ Phases; any failure makes the script exit non-zero:
    the kernels against the plain path, in fp32 (last logits within 1e-3,
    tokens equal where the plain path's margin decides them) and bf16
    (within 0.1); one flash launch a layer a prefill.
+5g. whisper-tiny at full width (4 encoder and 4 decoder layers, d_model
+   384, 6 heads of 64, tied vocab 51,865, 1500 frames, seeded random
+   weights; ``phase_whisper``): 3 ``infer`` requests and one ``generate``
+   of 8 x 1500 bf16 stub frames -> 32 tokens, counted (4 flash launches,
+   bidirectional, a request; none in decode); the encode's time; a profiled
+   generate (busy shares of encode and decode, the encode's device time by
+   part: flash, GEMMs, the rest); the prefill step (encode plus the
+   teacher-forced decoder) on 8 x 448 tokens, counted (8 flash launches);
+   each layer's attention, encoder and decoder, through the kernel against
+   the plain version on its own inputs (as in phase 4); its last logits
+   against the plain path as in phase 4 (bf16 within 0.1 or the spread of
+   correct bf16 paths; fp32, with fp32 frames and params on the fp32
+   route, within 1e-3 with its 8 launches counted); the fp32 decode
+   hand-off: S decode steps against the teacher-forced decoder over the
+   same S tokens, at S = 1 and 64, last logits within 1e-3 and every
+   position's argmax equal where the plain margin decides it.
 5f. xlstm-125m at full width (12 layers alternating mlstm / slstm, d_model
    768, 4 heads, list layout, seeded random weights; ``phase_xlstm``): the
    3 ``infer`` requests, ``generate`` 8 x 512 -> 32 and 1 x 2048 -> 8,
@@ -111,8 +128,9 @@ Phases; any failure makes the script exit non-zero:
    bit-equal; fp32 at head_dim 256 raises, and so does (ValueError, no
    launch) a bf16 do that starts off 16 bytes. Times at the train paths'
    shapes (B8 H15 KV5 S512 and S2048, D64, B8 H10 KV1 S512 D256, B8 H16
-   KV2 S512 D128 and B8 H24 KV8 S512 D64, bf16, causal) and of the fp32
-   route at
+   KV2 S512 D128, B8 H24 KV8 S512 D64 and whisper's B8 H6 S448 D64, bf16,
+   causal, and whisper's encoder, B8 H6 S1500 D64 bidirectional) and of
+   the fp32 route at
    S512 beside SDPA's backward (fwd+bwd minus fwd, both over replayed
    graphs; fp32 with TF32 off), each split into its three kernels by the
    profiler over the replayed graph. Then, with grad on, a flash output's
@@ -142,7 +160,16 @@ Phases; any failure makes the script exit non-zero:
    the card, under deterministic algorithms (``torch.cumsum`` of a float
    CUDA tensor would raise), against the same step of the port on the CPU
    from the same weights: loss within 1e-5 and grad norm within 1e-4
-   relative (``phase_xlstm_cpu``).
+   relative (``phase_cpu_step``).
+7c. whisper-tiny's training at full width through the same phase: B8 x
+   S448 tokens of the synthetic stream and bf16 frames (8, 1500, 384), no
+   remat (the reference's encoder-decoder has none), bf16, true-fan-in
+   self- and cross-attention, deterministic algorithms; step 0 against the
+   plain step within 2e-2; 3 steps counted (8 flash forwards and 8
+   backwards a step, 4 of each bidirectional at S1500); the same 3 steps
+   again bit-equal; one profiled step. Then one fp32 step at B2 x S64 (all
+   1500 frames) on the card against the CPU's: loss within 1e-6 and grad
+   norm within 1e-5 relative (``phase_cpu_step``).
 8. The same smollm-360m step 0 in fp32 (the fp32 routes' train path: 64 +
    32 launches, within TRAIN_TOL_FP32 = 5e-5 of the plain path's). Then the
    platform's learner, ``TorchLearner``, on the card at the tiny config: a
@@ -210,7 +237,7 @@ from repro_torch.kernels.rglru import (  # noqa: E402
 from repro_torch.kernels.rglru import smem_bytes as scan_smem_bytes  # noqa: E402
 from repro_torch.launch.serve import PHASES, ServeEngine, _install_prefill  # noqa: E402
 from repro_torch.launch.train import deterministic  # noqa: E402
-from repro_torch.models import lm, steps  # noqa: E402
+from repro_torch.models import encdec, lm, steps  # noqa: E402
 from repro_torch.nn import attention, blocks, layers, moe, recurrent  # noqa: E402
 from repro_torch.nn.policy import interior_einsum  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -276,10 +303,16 @@ FLASH_MAIN = {
     "llama3 B8 S512": (8, 32, 8, 512, 128, True, 0),
     "qwen2.5 B8 S512": (8, 16, 2, 512, 128, True, 0),
     "granite B8 S512": (8, 24, 8, 512, 64, True, 0),
+    # whisper-tiny: the encoder's bidirectional self-attention over 1500
+    # frames (no 64- or 128-row tile divides it), the decoder's causal
+    # self-attention in the prefill step and in training
+    "whisper enc B8 S1500": (8, 6, 6, 1500, 64, False, 0),
+    "whisper dec B8 S448": (8, 6, 6, 448, 64, True, 0),
 }
 # The fp32 route's shapes: those the fp32 logits checks give it
 FLASH_FP32 = ("smollm B8 S512", "recurrentgemma B8 S512", "llama3 B8 S512",
-              "qwen2.5 B8 S512", "granite B8 S512")
+              "qwen2.5 B8 S512", "granite B8 S512", "whisper enc B8 S1500",
+              "whisper dec B8 S448")
 # The decoder-only attention archs served at full width (phases 5b-5d), and
 # those whose tiny configs are served on the card (phase 5e; the full widths
 # of 33-235 B params do not fit one card beside an fp32 check)
@@ -293,8 +326,18 @@ TRAIN_FULL_WIDTH = ("smollm-360m", "recurrentgemma-2b", "qwen2.5-3b", "granite-m
 XLSTM = "xlstm-125m"
 XLSTM_GENERATES = [(8, 512, 32), (1, 2048, 8)]  # 2048: four mLSTM chunks of 512
 XLSTM_TOL = 1e-3  # fp32 last logits, two correct forms (LOGITS_TOL's fp32)
-XLSTM_CPU_TOL = {"loss": 1e-5, "grad_norm": 1e-4}  # the card's fp32 step against the CPU's
-XLSTM_CPU_SHAPE = (2, 128)
+# whisper-tiny: the encoder-decoder, its encoder bidirectional over 1500
+# frames; 3 infer requests and one generate of 8 x 1500 frames -> 32 tokens
+# (the prompt sets only the batch and the cache's capacity, as in the
+# reference); the prefill step and training on the decoder's 448 trained
+# positions; the fp32 decode hand-off at S = 1 and 64
+WHISPER = "whisper-tiny"
+WHISPER_GENERATES = [(8, 16, 32)]
+WHISPER_SEQ = 448
+WHISPER_HANDOFF = (1, 64)
+# The card's fp32 train step against the CPU's: (B, S), relative tolerances
+CPU_STEP = {XLSTM: ((2, 128), {"loss": 1e-5, "grad_norm": 1e-4}),
+            WHISPER: ((2, 64), {"loss": 1e-6, "grad_norm": 1e-5})}
 TINY_TRAIN_ARCHS = ("llama3-8b", "deepseek-coder-33b", "chameleon-34b", "qwen3-moe-235b-a22b")
 TINY_DECODE_STEPS = 6
 # Kernel names of cuBLAS's and CUTLASS's GEMMs (the profiled prefill's split)
@@ -350,13 +393,15 @@ BWD_CASES_D256 = [
     (1, 2, 1, 300, 300, 256, False, 0, 0),
     (1, 10, 1, 3072, 3072, 256, True, 2048, 0),
 ]
-# The train paths' attention backward shapes (bf16, causal), and the one the
-# fp32 route is timed at
-BWD_MAIN = {"smollm train B8 S512": (8, 15, 5, 512, 64),
-            "smollm B8 S2048": (8, 15, 5, 2048, 64),
-            "recurrentgemma train B8 S512": (8, 10, 1, 512, 256),
-            "qwen2.5 train B8 S512": (8, 16, 2, 512, 128),
-            "granite train B8 S512": (8, 24, 8, 512, 64)}
+# The train paths' attention backward shapes (B, H, KV, S, D, causal), bf16,
+# and the one the fp32 route is timed at
+BWD_MAIN = {"smollm train B8 S512": (8, 15, 5, 512, 64, True),
+            "smollm B8 S2048": (8, 15, 5, 2048, 64, True),
+            "recurrentgemma train B8 S512": (8, 10, 1, 512, 256, True),
+            "qwen2.5 train B8 S512": (8, 16, 2, 512, 128, True),
+            "granite train B8 S512": (8, 24, 8, 512, 64, True),
+            "whisper enc train B8 S1500": (8, 6, 6, 1500, 64, False),
+            "whisper dec train B8 S448": (8, 6, 6, 448, 64, True)}
 BWD_FP32 = "smollm train B8 S512"
 # The backward's kernels by their names in the sources (the profiler's names
 # carry template arguments): flash_bwd_{delta,dkdv,dq}, with _sm90 on the
@@ -695,11 +740,11 @@ def phase_flash(failures):
                     q, k, v, attn_mask=mask, enable_gqa=True)
             else:
                 library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                    q, k, v, is_causal=True, enable_gqa=True)
+                    q, k, v, is_causal=causal, enable_gqa=True)
             timings[dtype][label] = flash_row(
                 q, k, v, kw, err, library, ROUTES[dtype][1],
-                f"B{b} H{h} KV{kv} S{s} D{d} {'bf16' if dt == 'bfloat16' else 'fp32'} causal "
-                f"window={window}")
+                f"B{b} H{h} KV{kv} S{s} D{d} {'bf16' if dt == 'bfloat16' else 'fp32'} "
+                f"{'causal' if causal else 'bidirectional'} window={window}")
     for dtype, err in worst.items():
         print(f"flash_attention {str(dtype).split('.')[-1]}: worst max_abs_err over all cases "
               f"{err:.3e} (tol {TOL[dtype]:g})")
@@ -832,25 +877,27 @@ def phase_flash_bwd(failures):
     timings = {torch.bfloat16: {}, torch.float32: {}}
     mains = [(label, shape, torch.bfloat16) for label, shape in BWD_MAIN.items()]
     mains.append((BWD_FP32, BWD_MAIN[BWD_FP32], torch.float32))  # SDPA in fp32, TF32 off
-    for label, (b, h, kv, s, d), dtype in mains:
+    for label, (b, h, kv, s, d, causal), dtype in mains:
         dt = "bf16" if dtype == torch.bfloat16 else "fp32"
         q, k, v, do = grad_inputs(gen, b, h, kv, s, s, d, dtype)
-        err = check(f"main path {label} H{h} KV{kv} D{d} {dt}", q, k, v, do, causal=True)
-        o, lse = flash_attention_cuda(q, k, v, return_lse=True, causal=True)
-        kernel = lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse)  # noqa: E731
+        err = check(f"main path {label} H{h} KV{kv} D{d} {dt}", q, k, v, do, causal=causal)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, causal=causal)
+        kernel = lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal)  # noqa: E731
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-            *leaves, is_causal=True, enable_gqa=True)
+            *leaves, is_causal=causal, enable_gqa=True)
         sdpa_fwd_bwd = lambda: torch.autograd.grad(sdpa(), leaves, do)  # noqa: E731
         iters = 10 if s > 1024 or dtype == torch.float32 else 50
-        row = {"shape": f"B{b} H{h} KV{kv} S{s} D{d} {dt} causal", "route": "cuda",
+        row = {"shape": f"B{b} H{h} KV{kv} S{s} D{d} {dt} "
+                        f"{'causal' if causal else 'bidirectional'}", "route": "cuda",
                "max_abs_err": err, "ms": device_ms(kernel, iters=iters),
                "eager_ms": time_ms(kernel, iters=iters),
-               "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse),
+               "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                                                       causal=causal),
                                    iters=3, warmup=1),
                "sdpa_fwd_ms": device_ms(sdpa, iters=iters),
                "sdpa_fwd_bwd_ms": device_ms(sdpa_fwd_bwd, iters=iters),
-               **attention_bwd_bound(b, h, kv, s, d, True, 0, dtype)}
+               **attention_bwd_bound(b, h, kv, s, d, causal, 0, dtype)}
         row["library_ms"] = row["sdpa_fwd_bwd_ms"] - row["sdpa_fwd_ms"]
         row["kernel_split_ms"], runs = device_split(kernel)
         if len(runs) != 3 or set(runs.values()) != {1}:
@@ -1132,14 +1179,15 @@ def serve(arch, generates, failures):
         if tuple(toks.shape) != (b, gen) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
             failures.append(f"{arch} generate: tokens of shape {tuple(toks.shape)} out of range")
         key = f"B{b} S{s}"
-        metrics[key] = {"prefill_tok_s": b * s / out["prefill_s"],
-                        "prefill_ms": out["prefill_s"] * 1e3,
-                        "decode_ms_per_token": out["decode_s"] / (gen - 1) * 1e3,
-                        "decode_tok_s": b * (gen - 1) / out["decode_s"]}
-        m = metrics[key]
-        print(f"{arch} generate B={b} prompt={s} gen={gen}: prefill {m['prefill_tok_s']:,.0f} "
-              f"tok/s ({m['prefill_ms']:.2f} ms), decode {m['decode_ms_per_token']:.3f} "
-              f"ms/token ({m['decode_tok_s']:,.0f} tok/s); sample {toks[0, :8].tolist()}")
+        m = metrics[key] = {"decode_ms_per_token": out["decode_s"] / (gen - 1) * 1e3,
+                            "decode_tok_s": b * (gen - 1) / out["decode_s"]}
+        prefill = ""
+        if out["prefill_s"]:  # an encoder-decoder's generate encodes instead
+            m.update(prefill_tok_s=b * s / out["prefill_s"], prefill_ms=out["prefill_s"] * 1e3)
+            prefill = f"prefill {m['prefill_tok_s']:,.0f} tok/s ({m['prefill_ms']:.2f} ms), "
+        print(f"{arch} generate B={b} prompt={s} gen={gen}: {prefill}decode "
+              f"{m['decode_ms_per_token']:.3f} ms/token ({m['decode_tok_s']:,.0f} tok/s); "
+              f"sample {toks[0, :8].tolist()}")
     print(f"{arch} peak device memory over the main path {metrics['peak_mem_gib']:.2f} GiB")
     return engine, launches, [p.cuda() for p in prompts], metrics
 
@@ -1263,7 +1311,10 @@ def true_fan_in(params, cfg):
     rescale = {"attn/wq": math.sqrt(cfg.n_heads / d),
                "attn/wk": math.sqrt(cfg.n_kv_heads / d),
                "attn/wv": math.sqrt(cfg.n_kv_heads / d),
-               "attn/wo": math.sqrt(hd / (cfg.n_heads * hd))}
+               "attn/wo": math.sqrt(hd / (cfg.n_heads * hd)),
+               # whisper's cross-attention: every projection has n_heads heads
+               **{f"cross/w{n}": math.sqrt(cfg.n_heads / d) for n in "qkv"},
+               "cross/wo": math.sqrt(hd / (cfg.n_heads * hd))}
 
     def scale(path, t):
         key = "/".join(path.split("/")[-2:])
@@ -1272,9 +1323,14 @@ def true_fan_in(params, cfg):
     return tree_map_with_path(scale, params)
 
 
-def last_logits(cfg, params, tokens, force):
+def last_logits(cfg, params, tokens, force, frames=None):
+    """The prefill step's last logits; an encoder-decoder's encodes
+    ``frames``, cast to the config's dtype."""
+    batch = {"tokens": tokens}
+    if frames is not None:
+        batch["frames"] = frames.to(getattr(torch, cfg.dtype))
     with torch.inference_mode():
-        _, _, last = steps.make_prefill_step(cfg, force=force)(params, {"tokens": tokens})
+        _, _, last = steps.make_prefill_step(cfg, force=force)(params, batch)
     return last
 
 
@@ -1385,7 +1441,7 @@ def check_routing(cfg, label, run, own, chosen, gated, failures):
             f"routing_flipped_gap_max ({cfg.name}, {label}, {run})": worst}
 
 
-def check_logits(cfg, params, tokens, failures):
+def check_logits(cfg, params, tokens, failures, frames=None):
     """Prefill's last logits through the kernels against the plain
     versions, at full width. Asserted on the true-fan-in weights: in fp32
     within 1e-3, in bf16 within the larger of 0.1 and the spread of correct
@@ -1412,7 +1468,11 @@ def check_logits(cfg, params, tokens, failures):
     the pinned run each layer's router sees the plain path's upstream
     choices, so the choices it would have made itself may leave the plain
     path's only at near-ties (gap at most ROUTE_GAP_TOL); in both runs at
-    most ROUTE_FLIP_LIMIT of the choices may move."""
+    most ROUTE_FLIP_LIMIT of the choices may move.
+
+    An encoder-decoder's prefill step encodes ``frames`` too (cast to each
+    run's dtype: fp32 frames in the fp32 run), and its fp32 run launches
+    flash once an encoder and once a decoder layer."""
     fan_in = true_fan_in(params, cfg)
     scan_plain = {"rglru_scan": plain("rglru_scan")}
     flash_dtypes, flash_attention = [], ops.flash_attention
@@ -1449,12 +1509,13 @@ def check_logits(cfg, params, tokens, failures):
             ops.reset_launch_counts()
         with swapped(fns), routing(pinned=[c for c, _ in chosen] if cfg.is_moe else None,
                                    own=held):
-            last = last_logits(run_cfg, run_params, tokens, None)
+            last = last_logits(run_cfg, run_params, tokens, None, frames)
         if fp32:
             fp32_launches = ops.launch_counts()
             kinds = cfg.pattern_for_layers()
             expect_launches(f"{cfg.name} fp32 prefill (the fp32 flash route's main path)",
-                            fp32_launches, {"flash_attention": kinds.count("attn"),
+                            fp32_launches, {"flash_attention": kinds.count("attn")
+                                            + cfg.n_enc_layers,
                                             "rglru_scan": kinds.count("rglru"),
                                             "rglru_scan_bwd": 0}, failures)
             if set(flash_dtypes) != {torch.float32}:
@@ -1474,7 +1535,7 @@ def check_logits(cfg, params, tokens, failures):
                                      gated, failures))
             del free
         else:
-            want = last_logits(run_cfg, run_params, tokens, "ref")
+            want = last_logits(run_cfg, run_params, tokens, "ref", frames)
         torch.cuda.synchronize()
         err = (last - want).abs().max().item()
         if label in spread_runs:
@@ -1598,9 +1659,10 @@ def launches_of(cpu):
 
 def profile_generate(engine, prompts, gen):
     """One ``generate`` under torch.profiler: each phase's wall time, device
-    busy time and share, the prefill's device time by part (PREFILL_SPANS,
-    the other GEMMs by kernel name, the rest) and its host time by span
-    (PREFILL_SPANS, on the host's clock under the profiler). A device
+    busy time and share, the prefill's (an encoder-decoder's: the encode's)
+    device time by part (PREFILL_SPANS, the other GEMMs by kernel name, the
+    rest) and its host time by span (PREFILL_SPANS, on the host's clock
+    under the profiler). A device
     record belongs to a part when the host call that launched it (matched by
     correlation id) lies inside the part's span. Kineto drops the first GPU
     records of a session, so the session opens with one CUDA operation of
@@ -1626,15 +1688,18 @@ def profile_generate(engine, prompts, gen):
         at = launch_at.get(e.correlation_id())
         return at is not None and within(windows[label], *at)
 
+    main = "encode" if "encode" in phase_at else "prefill"
     out = {}
     for phase in PHASES:
+        if phase not in phase_at:
+            continue
         lo, hi = phase_at[phase]
         ran = [e for e in device if lo <= e.start_ns() and e.end_ns() <= hi]
         busy = sum(e.end_ns() - e.start_ns() for e in ran) / 1e6
         wall = (hi - lo) / 1e6
         out[phase] = {"wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall,
                       "device_records": len(ran)}
-        if phase == "prefill":
+        if phase == main:
             ms = lambda keep: sum(e.end_ns() - e.start_ns() for e in ran if keep(e)) / 1e6  # noqa: E731
             parts = {label: ms(lambda e, label=label: inside(label, e)) for label in PREFILL_SPANS}
             parts["other GEMMs (projections, MLP)"] = ms(
@@ -1644,22 +1709,22 @@ def profile_generate(engine, prompts, gen):
                 parts[k] for k in ("moe router", "moe dispatch", "moe experts"))
             parts["rest"] = busy - sum(parts[k] for k in (*OUTER_PARTS,
                                                           "other GEMMs (projections, MLP)"))
-            out["prefill_parts_ms"] = parts
+            out[f"{main}_parts_ms"] = parts
             host = {label: host_ms(windows[label], lo, hi) for label in PREFILL_SPANS}
             host["rest"] = wall - sum(host[k] for k in OUTER_PARTS)
-            out["prefill_host_ms"] = {k: v for k, v in host.items() if v}
+            out[f"{main}_host_ms"] = {k: v for k, v in host.items() if v}
     b, s = prompts.shape
-    pf, dec = out["prefill"], out["decode"]
-    print(f"{engine.cfg.name} profiled generate B{b} S{s} gen {gen}: prefill wall "
+    pf, dec = out[main], out["decode"]
+    print(f"{engine.cfg.name} profiled generate B{b} S{s} gen {gen}: {main} wall "
           f"{pf['wall_ms']:.2f} ms, busy {pf['busy_ms']:.2f} ms ({100 * pf['busy_share']:.1f}%); "
           f"decode ({gen - 1} steps) wall {dec['wall_ms']:.2f} ms, busy {dec['busy_ms']:.2f} ms "
-          f"({100 * dec['busy_share']:.1f}%); the prefill's device time by part: "
+          f"({100 * dec['busy_share']:.1f}%); the {main}'s device time by part: "
           + ", ".join(f"{k} {v:.2f} ms ({100 * v / pf['busy_ms']:.1f}%)"
-                      for k, v in out["prefill_parts_ms"].items()
+                      for k, v in out[f"{main}_parts_ms"].items()
                       if v or not k.startswith(("moe", "slstm", "mlstm")))
           + "; its host time by span: "
           + ", ".join(f"{k} {v:.2f} ms ({100 * v / pf['wall_ms']:.1f}%)"
-                      for k, v in out["prefill_host_ms"].items()))
+                      for k, v in out[f"{main}_host_ms"].items()))
     return out
 
 
@@ -1913,39 +1978,192 @@ def phase_xlstm(failures):
     return launches, metrics
 
 
-def phase_xlstm_cpu(failures):
-    """One fp32 train step of xlstm-125m at full width (B x S =
-    XLSTM_CPU_SHAPE, remat full) on the card, under deterministic
-    algorithms (set by the train phases; ``torch.cumsum`` of a float CUDA
-    tensor would raise under them), and the same step of the port on the
-    CPU, from the same seeded weights and batch: loss and grad norm within
-    XLSTM_CPU_TOL relative. Catches what only the card's ops would do."""
-    cfg = get_config(XLSTM).replace(dtype="float32")
-    b, s = XLSTM_CPU_SHAPE
-    batch = SyntheticLM(DataConfig(cfg.vocab_size, s, b, seed=0)).batch_at(0)
+def phase_cpu_step(arch, failures):
+    """One fp32 train step of ``arch`` at full width (B x S of
+    CPU_STEP[arch]; xlstm-125m under remat full, whisper-tiny with its full
+    1500 frames, fp32) on the card, under deterministic algorithms (set by
+    the train phases; ``torch.cumsum`` of a float CUDA tensor would raise
+    under them), and the same step of the port on the CPU, from the same
+    seeded weights and batch: loss and grad norm within CPU_STEP[arch]'s
+    tolerances, relative. Catches what only the card's ops would do."""
+    cfg = get_config(arch).replace(dtype="float32")
+    (b, s), tols = CPU_STEP[arch]
+    batch = train_batches(cfg, s, b, 1)[0]
+    if cfg.is_encoder_decoder:
+        batch["frames"] = batch["frames"].float()
     opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
     deterministic(torch.device("cuda"))
     got = {}
     for device in ("cuda", "cpu"):
         t0 = time.perf_counter()
         state = fresh_states(cfg, torch.device(device))[1]()
+        ops.reset_launch_counts()
         state, met = steps.make_train_step(cfg, opt_cfg)(state, batch)
         got[device] = floats(met)
+        if device == "cuda":
+            launches = ops.launch_counts()
         del state
-        print(f"{XLSTM} fp32 train step B{b} S{s} on {device}: loss {got[device]['loss']:.7f}, "
+        print(f"{arch} fp32 train step B{b} S{s} on {device}: loss {got[device]['loss']:.7f}, "
               f"grad norm {got[device]['grad_norm']:.7f} ({time.perf_counter() - t0:.1f} s with "
               f"the weights)")
-    out = {"deterministic_algorithms": torch.are_deterministic_algorithms_enabled()}
-    for key, tol in XLSTM_CPU_TOL.items():
+    expect_launches(f"{arch} fp32 train step on the card", launches, step_launches(cfg, 1),
+                    failures)
+    out = {"deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
+           "launches": launches}
+    for key, tol in tols.items():
         rel = abs(got["cuda"][key] - got["cpu"][key]) / abs(got["cpu"][key])
         ok = rel <= tol and math.isfinite(got["cuda"][key])
-        print(f"{XLSTM} fp32 step {key}: card against CPU relative difference {rel:.2e} tol {tol} "
+        print(f"{arch} fp32 step {key}: card against CPU relative difference {rel:.2e} tol {tol} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            failures.append(f"{XLSTM} fp32 step {key}: card {got['cuda'][key]} vs CPU "
+            failures.append(f"{arch} fp32 step {key}: card {got['cuda'][key]} vs CPU "
                             f"{got['cpu'][key]}")
         out[key] = {"cuda": got["cuda"][key], "cpu": got["cpu"][key], "rel": rel}
     return out
+
+
+def whisper_frames(cfg, b, seed):
+    """(b, enc_seq, d_model) bf16 frames on the card from a seeded generator:
+    the reference's stub frontend (no audio)."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((b, cfg.enc_seq, cfg.d_model), generator=gen).to("cuda", torch.bfloat16)
+
+
+def check_whisper_per_layer(cfg, params, tokens, frames, failures):
+    """Each layer's flash attention through the kernel against its plain
+    version on that layer's own inputs, in the engine's bf16 model: the
+    prefill step runs on the plain path, and each of its flash calls (the
+    encoder's bidirectional, the decoder's causal) is also sent to the
+    kernel, within TOL plus the bound of its bf16 probabilities
+    (``attention_within``)."""
+    flash, seen = ops.flash_attention, []
+
+    def held(q, k, v, force=None, **kw):
+        got = flash(q, k, v, force="kernel", **kw)
+        err, n_out = attention_within(got, q, k, v, **kw)
+        seen.append(("decoder" if kw["causal"] else "encoder", tuple(q.shape), err, n_out))
+        return flash(q, k, v, force="ref", **kw)
+
+    with torch.inference_mode(), swapped({"flash_attention": held}):
+        steps.make_prefill_step(cfg, force="ref")(params, {"tokens": tokens, "frames": frames})
+    torch.cuda.synchronize()
+    out = {}
+    for part, n in (("encoder", cfg.n_enc_layers), ("decoder", cfg.n_layers)):
+        rows = [r for r in seen if r[0] == part]
+        worst = max(r[2] for r in rows)
+        bad = [i for i, r in enumerate(rows) if r[3]]
+        print(f"{cfg.name} per layer, {part} attention {rows[0][1]} "
+              f"{'bidirectional' if part == 'encoder' else 'causal'}, kernel vs plain on each "
+              f"layer's own inputs ({len(rows)} layers; bf16 tol {TOL[torch.bfloat16]} + "
+              f"{P_ROUNDING:g} softmax.|V|): worst max_abs_err {worst:.3e}; layers out of "
+              f"tolerance {bad}")
+        if len(rows) != n or bad:
+            failures.append(f"{cfg.name} {part}: {len(rows)} flash calls (want {n}), "
+                            f"layers out of tolerance {bad}")
+        out[f"per_layer_max_abs_err ({cfg.name}, {part})"] = worst
+    return out
+
+
+def check_whisper_handoff(cfg, params, tokens, frames, failures):
+    """In fp32 (true-fan-in weights, fp32 frames, the memory through the
+    fp32 flash route): S greedy-free decode steps of ``tokens[:, :S]``
+    (``decode_step`` from position 0) against the teacher-forced decoder
+    over the same S tokens on the plain path, at each S of WHISPER_HANDOFF:
+    the last logits within LOGITS_TOL's fp32 1e-3, and each position's
+    argmax equal wherever the plain top-1 margin exceeds twice that."""
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = tree_map_with_path(lambda _, t: t.float(), true_fan_in(params, cfg))
+    tol, out = LOGITS_TOL[torch.float32], {}
+    b = tokens.shape[0]
+    with torch.inference_mode():
+        memory = encdec.encode(p32, frames.float(), cfg32)
+        for s in WHISPER_HANDOFF:
+            toks = tokens[:, :s]
+            want = encdec.decode_train(p32, toks, memory, cfg32, force="ref")
+            states = encdec.init_decode_state(p32, memory, cfg32, b, s, dtype=torch.float32)
+            got = []
+            for i in range(s):
+                logits, states = encdec.decode_step(p32, toks[:, i:i + 1], states, i, cfg32)
+                got.append(logits[:, -1])
+            got = torch.stack(got, dim=1)
+            top2 = want.topk(2, dim=-1).values
+            decided = (top2[..., 0] - top2[..., 1]) > 2 * tol
+            same = got.argmax(-1) == want.argmax(-1)
+            label = (f"{cfg.name} fp32 decode hand-off at S={s} (B{b}: {s} decode steps against "
+                     f"the teacher-forced decoder over {s} tokens), last logits")
+            out[f"handoff S{s}"] = check_within(label, got[:, -1], want[:, -1], tol, failures)
+            print(f"{cfg.name} fp32 decode hand-off at S={s}: argmax equal at "
+                  f"{int(same.sum())}/{same.numel()} positions, {int(decided.sum())} decided by "
+                  f"the plain margin, {int((~same & decided).sum())} of those differ")
+            if not bool(same[decided].all()):
+                failures.append(f"{cfg.name} fp32 hand-off S={s}: decided tokens differ")
+    return out
+
+
+def phase_whisper(failures):
+    """whisper-tiny's serving path at full width (4 encoder and 4 decoder
+    layers, d_model 384, 6 heads of 64, 1500 frames, seeded random weights):
+    the 3 ``infer`` requests and ``generate`` 8 x 1500 frames -> 32 tokens,
+    counted (each request encodes once: one flash launch an encoder layer;
+    decode launches none); the encode's time; a profiled generate (busy
+    shares, the encode's device time by part); the prefill step on 8 x 448
+    tokens (encode plus the teacher-forced decoder), counted (a flash launch
+    a layer); per-layer attention (``check_whisper_per_layer``); its last
+    logits against the plain path (``check_logits``: bf16 within 0.1 or the
+    spread, fp32 within 1e-3 with its fp32 flash launches counted); the fp32
+    decode hand-off (``check_whisper_handoff``). Returns (serving launches,
+    prefill-step launches, fp32 launches, metrics)."""
+    t_phase = time.perf_counter()
+    engine, launches, prompts, metrics = serve(WHISPER, WHISPER_GENERATES, failures)
+    cfg, params = engine.cfg, engine.params
+    n_requests = len(INFER_PAYLOADS) + len(WHISPER_GENERATES)
+    expect_launches(WHISPER, launches, {"flash_attention": cfg.n_enc_layers * n_requests,
+                                        "flash_attention_bwd": 0, "rglru_scan": 0,
+                                        "rglru_scan_bwd": 0}, failures)
+    frames = whisper_frames(cfg, TRAIN_BATCH, 1)
+    with torch.inference_mode():
+        encdec.encode(params, frames, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            encdec.encode(params, frames, cfg)
+        torch.cuda.synchronize()
+    metrics["encode_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"{WHISPER} encode B{TRAIN_BATCH} x {cfg.enc_seq} frames: {metrics['encode_ms']:.2f} ms "
+          "(host clock, mean of 5 after one warm-up)")
+    metrics["profile"] = profile_generate(engine, prompts[0], 8)
+
+    gen = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, WHISPER_SEQ), generator=gen).cuda()
+    prefill = steps.make_prefill_step(cfg)
+    batch = {"tokens": tokens, "frames": frames}
+    with torch.inference_mode():
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        nxt, memory, last = prefill(params, batch)
+        torch.cuda.synchronize()
+    metrics["prefill_step_ms"] = (time.perf_counter() - t0) * 1e3
+    pf_launches = ops.launch_counts()
+    expect_launches(f"{WHISPER} prefill step B{TRAIN_BATCH} S{WHISPER_SEQ}", pf_launches,
+                    {"flash_attention": cfg.n_enc_layers + cfg.n_layers,
+                     "flash_attention_bwd": 0, "rglru_scan": 0, "rglru_scan_bwd": 0}, failures)
+    ok = (tuple(nxt.shape) == (TRAIN_BATCH, 1) and memory.dtype == torch.bfloat16
+          and tuple(memory.shape) == (TRAIN_BATCH, cfg.enc_seq, cfg.d_model)
+          and bool(torch.isfinite(memory.float()).all()) and bool(torch.isfinite(last).all()))
+    print(f"{WHISPER} prefill step B{TRAIN_BATCH} S{WHISPER_SEQ}: {metrics['prefill_step_ms']:.2f} "
+          f"ms (host clock), memory {tuple(memory.shape)} {memory.dtype}, last logits "
+          f"{tuple(last.shape)} finite {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{WHISPER} prefill step: bad outputs")
+    del nxt, memory, last
+    metrics.update(check_whisper_per_layer(cfg, params, tokens, frames, failures))
+    logits, fp32_launches = check_logits(cfg, params, tokens, failures, frames)
+    metrics.update(logits)
+    metrics.update(check_whisper_handoff(cfg, params, tokens, frames, failures))
+    print(f"{WHISPER} serving phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, pf_launches, fp32_launches, metrics
 
 
 # --------------------------------------------------------------------------
@@ -2014,9 +2232,29 @@ def fresh_states(cfg, device):
     return params0, fresh
 
 
+def train_batches(cfg, seq, b, n):
+    """n batches of b x seq tokens of the synthetic stream; an
+    encoder-decoder's with bf16 frames (b, enc_seq, d_model) drawn from a
+    seeded generator (the reference's stub frontend: no audio)."""
+    data = SyntheticLM(DataConfig(cfg.vocab_size, seq, b, seed=0))
+    gen = torch.Generator().manual_seed(7)
+    batches = [data.batch_at(i) for i in range(n)]
+    if cfg.is_encoder_decoder:
+        for batch in batches:
+            batch["frames"] = torch.randn((b, cfg.enc_seq, cfg.d_model),
+                                          generator=gen).to(torch.bfloat16)
+    return batches
+
+
 def step_launches(cfg, n_steps):
     """The kernel launches of ``n_steps`` train steps under remat full: each
-    layer's forward, its recompute and its backward."""
+    layer's forward, its recompute and its backward. An encoder-decoder has
+    no remat (nor has the reference's): a forward and a backward a layer,
+    encoder and decoder."""
+    if cfg.is_encoder_decoder:
+        n = (cfg.n_layers + cfg.n_enc_layers) * n_steps
+        return {"flash_attention": n, "flash_attention_bwd": n, "rglru_scan": 0,
+                "rglru_scan_bwd": 0}
     kinds = cfg.pattern_for_layers()
     n_attn, n_rglru = kinds.count("attn"), kinds.count("rglru")
     return {"flash_attention": 2 * n_attn * n_steps, "flash_attention_bwd": n_attn * n_steps,
@@ -2167,14 +2405,17 @@ def phase_train_full_width(arch, failures):
     TRAIN_STEPS steps with the launch counts set to 0 just before and read
     just after (``step_launches``); the same steps again from the same seed
     must end on bit-equal state (the first run's kept in host memory); one
-    more step under the profiler. Returns (launches, metrics)."""
+    more step under the profiler. whisper-tiny trains on B x WHISPER_SEQ
+    tokens and bf16 frames (``train_batches``), with no remat (the
+    reference's encoder-decoder has none). Returns (launches, metrics)."""
     t_phase = time.perf_counter()
     device = torch.device("cuda")
     deterministic(device)
     cfg = get_config(arch)
     opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
-    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
-    batches = [data.batch_at(i) for i in range(TRAIN_STEPS + 1)]
+    seq = WHISPER_SEQ if cfg.is_encoder_decoder else TRAIN_SEQ
+    remat = "no remat" if cfg.is_encoder_decoder else "remat full"
+    batches = train_batches(cfg, seq, TRAIN_BATCH, TRAIN_STEPS + 1)
     params0, fresh = fresh_states(cfg, device)
     print(f"{arch} train: seeded weights on the host in {time.perf_counter() - t_phase:.1f} s")
     step_fn = steps.make_train_step(cfg, opt_cfg)
@@ -2202,7 +2443,7 @@ def phase_train_full_width(arch, failures):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     n = TRAIN_STEPS
-    expect_launches(f"{arch} train ({n} steps, remat full)", launches, step_launches(cfg, n),
+    expect_launches(f"{arch} train ({n} steps, {remat})", launches, step_launches(cfg, n),
                     failures)
     print(f"{arch} train losses {[round(m['loss'], 6) for m in metrics]}, grad norms "
           f"{[round(m['grad_norm'], 6) for m in metrics]}, aux "
@@ -2241,13 +2482,13 @@ def phase_train_full_width(arch, failures):
     step_ms = 1e3 * sum(step_s[1:]) / max(len(step_s) - 1, 1)
     out.update({
         "params": n_params, "step_ms": step_ms, "first_step_ms": 1e3 * step_s[0],
-        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3), "peak_mem_gib": peak_gib,
+        "tokens_per_s": TRAIN_BATCH * seq / (step_ms / 1e3), "peak_mem_gib": peak_gib,
         "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "busy_share": busy_ms / wall_ms, "kernels_per_step": n_kernels, "kernel_ms": shares,
         "top_kernels_ms": {name[:60]: t for name, (t, _) in top},
         "loss": [m["loss"] for m in metrics], "grad_norm": [m["grad_norm"] for m in metrics],
         "host_available_gib": host_gib})
-    print(f"{arch} train B{TRAIN_BATCH} S{TRAIN_SEQ} remat full bf16 ({n_params:,} "
+    print(f"{arch} train B{TRAIN_BATCH} S{seq} {remat} bf16 ({n_params:,} "
           f"params): step {step_ms:.2f} ms (steps 2-{n}; first {out['first_step_ms']:.2f} ms), "
           f"{out['tokens_per_s']:,.0f} tok/s, peak device memory {peak_gib:.2f} GiB; profiled "
           f"step wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
@@ -2449,11 +2690,15 @@ def main() -> int:
                                                       phase_recurrentgemma)
     decoders = {arch: phase(f"{arch} serving", phase_decoder, arch) for arch in FULL_WIDTH_ARCHS}
     xl_launches, xl_metrics = phase(f"{XLSTM} serving", phase_xlstm)
+    wh_launches, wh_pf_launches, wh_fp32_launches, wh_metrics = phase(f"{WHISPER} serving",
+                                                                      phase_whisper)
     tiny_launches = phase("tiny configs on the card", phase_tiny_archs)
     full_train = {arch: phase(f"{arch} train", phase_train_full_width, arch)
                   for arch in TRAIN_FULL_WIDTH}
     xl_train_launches, xl_train = phase(f"{XLSTM} train", phase_train_full_width, XLSTM)
-    xl_cpu = phase(f"{XLSTM} card against the CPU", phase_xlstm_cpu)
+    xl_cpu = phase(f"{XLSTM} card against the CPU", phase_cpu_step, XLSTM)
+    wh_train_launches, wh_train = phase(f"{WHISPER} train", phase_train_full_width, WHISPER)
+    wh_cpu = phase(f"{WHISPER} card against the CPU", phase_cpu_step, WHISPER)
     fp32_train_launches = phase("smollm-360m fp32 train step", phase_train_fp32)
     learner_launches = phase("learner crash-resume", phase_crash_resume)
     tiny_train = phase("tiny configs train on the card", phase_tiny_train)
@@ -2461,9 +2706,11 @@ def main() -> int:
             for dtype in ("float32", "bfloat16")}
     rg_train_launches = full_train["recurrentgemma-2b"][0]
     train_paths = {**{f"{arch} train": d[0] for arch, d in full_train.items()},
+                   f"{WHISPER} train": wh_train_launches,
                    "smollm tiny learner crash-resume": learner_launches,
                    **{p: n for p, n in tiny_train.items() if p.endswith("bfloat16")}}
     fp32_train_paths = {"smollm-360m fp32 train step": fp32_train_launches,
+                        f"{WHISPER} fp32 train step": wh_cpu["launches"],
                         **{p: n for p, n in tiny_train.items() if p.endswith("float32")}}
 
     kernels = [
@@ -2472,6 +2719,8 @@ def main() -> int:
                      {"smollm-360m": sm_launches["flash_attention"],
                       "recurrentgemma-2b": rg_launches["flash_attention"],
                       **{arch: d[0]["flash_attention"] for arch, d in decoders.items()},
+                      WHISPER: wh_launches["flash_attention"],
+                      f"{WHISPER} prefill step": wh_pf_launches["flash_attention"],
                       **tiny["bfloat16"],
                       **{p: n["flash_attention"] for p, n in train_paths.items()}},
                      flash_t[torch.bfloat16], "smollm B8 S512", flash_worst[torch.bfloat16]),
@@ -2483,6 +2732,7 @@ def main() -> int:
                       "recurrentgemma-2b fp32 prefill": rg_fp32_launches["flash_attention"],
                       **{f"{arch} fp32 prefill": d[1]["flash_attention"]
                          for arch, d in decoders.items()},
+                      f"{WHISPER} fp32 prefill step": wh_fp32_launches["flash_attention"],
                       **tiny["float32"],
                       **{p: n["flash_attention"] for p, n in fp32_train_paths.items()}},
                      flash_t[torch.float32], "smollm B8 S512", flash_worst[torch.float32]),
@@ -2517,6 +2767,8 @@ def main() -> int:
           f"{XLSTM}: {json.dumps({**xl_metrics, 'launches': xl_launches})}; "
           f"{XLSTM} train: {json.dumps(xl_train)} "
           f"(launches {xl_train_launches}); {XLSTM} card against the CPU: {json.dumps(xl_cpu)}; "
+          f"{WHISPER}: {json.dumps(wh_metrics)}; {WHISPER} train: {json.dumps(wh_train)}; "
+          f"{WHISPER} card against the CPU: {json.dumps(wh_cpu)}; "
           f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     if failures:

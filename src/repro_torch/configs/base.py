@@ -1,8 +1,8 @@
 """Model configuration: a copy of the reference ``ModelConfig``.
 
 The dataclass is kept field for field, so a config of either package
-compares equal through ``dataclasses.asdict``. Only ported archs resolve;
-the others are queued in ROADMAP.md.
+compares equal through ``dataclasses.asdict``. An arch id outside
+``ARCH_IDS`` raises, naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -118,11 +118,12 @@ class ModelConfig:
         return full - moe_total + moe_active
 
 
-# Archs the port runs so far; ROADMAP.md queues the rest.
+# The archs the port runs: all ten of the reference's, in its order.
 ARCH_IDS = [
     "qwen3-moe-235b-a22b",
     "granite-moe-3b-a800m",
     "xlstm-125m",
+    "whisper-tiny",
     "smollm-360m",
     "deepseek-coder-33b",
     "llama3-8b",
@@ -135,8 +136,8 @@ ARCH_IDS = [
 def _module_for(arch_id: str):
     if arch_id not in ARCH_IDS:
         raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to repro_torch yet; "
-            f"ported: {ARCH_IDS}. See ROADMAP.md for the queue.")
+            f"arch {arch_id!r} is not an arch of repro_torch; its archs "
+            f"are {ARCH_IDS} (the reference's ten). See ROADMAP.md.")
     mod = arch_id.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 

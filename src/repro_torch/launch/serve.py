@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --requests 8 --prompt-len 512 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
+        --requests 8 --prompt-len 448 --gen 32
 
 :class:`ServeEngine` is the importable core: one constructed engine is a
 serving session (config resolved, params initialized on the device) that
@@ -23,10 +25,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch.configs import get_config, get_tiny_config
-from repro_torch.models import steps
+from repro_torch.models import encdec, steps
+from repro_torch.nn import params as prm
 from repro_torch.nn.attention import KVCache
 
-PHASES = ("prefill", "decode")  # profiler ranges of ``generate``
+PHASES = ("encode", "prefill", "decode")  # profiler ranges of ``generate``
 
 
 def resolve_device(device) -> torch.device:
@@ -47,7 +50,8 @@ class ServeEngine:
 
     Construction is the expensive part (params on the device); ``generate``
     is the per-batch hot path: prefill → fixed-capacity KV cache (and
-    recurrent states) → greedy decode.
+    recurrent states) → greedy decode, or for an encoder-decoder, encode →
+    decode state → greedy decode.
     """
 
     def __init__(self, arch: str, tiny: bool = True, seed: int = 0,
@@ -74,22 +78,42 @@ class ServeEngine:
     def generate(self, prompts, gen: int) -> dict:
         """Prefill ``prompts`` (B, S) and decode ``gen`` tokens. Returns
         ``{"tokens": (B, gen) CPU tensor, "prefill_s": float, "decode_s":
-        float}``; throughput is the caller's division to do."""
+        float}``; throughput is the caller's division to do.
+
+        An encoder-decoder (whisper) uses only the prompts' shape, as the
+        reference does: it encodes (B, enc_seq, d_model) bf16 frames drawn
+        from the engine's generator (the stub frontend), then decodes
+        greedily from token 0 at position 0 against a decode state at
+        capacity S + gen in the config's dtype (ROADMAP C.15);
+        ``prefill_s`` is 0."""
         prompts = torch.as_tensor(prompts, dtype=torch.long).to(self.device)
         B, S = prompts.shape
-        t0 = time.perf_counter()
-        with record_function("prefill"):
-            tok, pf_states, _ = self._prefill(self.params, {"tokens": prompts})
-            _sync(self.device)
-        t_pf = time.perf_counter() - t0
-        # move prefill KV into the fixed-capacity decode cache
-        states = steps.decode_state(self.cfg, B, S + gen, self.device)
-        states = _install_prefill(states, pf_states)
+        cfg = self.cfg
+        if cfg.is_encoder_decoder:
+            frames = torch.randn((B, cfg.enc_seq, cfg.d_model), generator=self._gen)
+            frames = frames.to(self.device, torch.bfloat16)
+            with record_function("encode"):
+                memory = encdec.encode(self.params, frames, cfg)
+                _sync(self.device)
+            states = encdec.init_decode_state(self.params, memory, cfg, B, S + gen,
+                                              prm.torch_dtype(cfg.dtype))
+            tok = torch.zeros((B, 1), dtype=torch.long, device=self.device)
+            cache_len, t_pf = 0, 0.0
+        else:
+            t0 = time.perf_counter()
+            with record_function("prefill"):
+                tok, pf_states, _ = self._prefill(self.params, {"tokens": prompts})
+                _sync(self.device)
+            t_pf = time.perf_counter() - t0
+            # move prefill KV into the fixed-capacity decode cache
+            states = steps.decode_state(cfg, B, S + gen, self.device)
+            states = _install_prefill(states, pf_states)
+            cache_len = S
         generated = [tok]
         t0 = time.perf_counter()
         with record_function("decode"):
             for i in range(gen - 1):
-                tok, states = self._decode(self.params, tok, states, S + i)
+                tok, states = self._decode(self.params, tok, states, cache_len + i)
                 generated.append(tok)
             _sync(self.device)
         t_dec = time.perf_counter() - t0
@@ -157,7 +181,8 @@ def main(argv=None):
              if engine.device.type == "cuda" else str(engine.device))
     print(f"arch={engine.cfg.name} device={where} requests={B} prompt={S} "
           f"generated={toks.shape[1]}")
-    print(f"prefill: {B * S / t_pf:,.0f} tok/s ({t_pf*1e3:.1f} ms)")
+    if t_pf:
+        print(f"prefill: {B * S / t_pf:,.0f} tok/s ({t_pf*1e3:.1f} ms)")
     print(f"decode:  {B * (args.gen - 1) / max(t_dec, 1e-9):,.0f} tok/s "
           f"({t_dec / max(args.gen - 1, 1) * 1e3:.2f} ms/token)")
     print(f"sample continuation (req 0): {toks[0, :12].tolist()}")

@@ -7,14 +7,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import params as prm
 from repro_torch.nn.blocks import def_stack, stack_apply
-from repro_torch.nn.layers import def_rmsnorm, embed_lookup, rmsnorm, unembed
+from repro_torch.nn.layers import def_norm, embed_lookup, norm, unembed
 
 
 def def_lm(cfg: ModelConfig):
     d = {
         "embed": prm.embedding(cfg.vocab_size, cfg.d_model),
         "blocks": def_stack(cfg),
-        "final_norm": def_rmsnorm(cfg.d_model),
+        "final_norm": def_norm(cfg.d_model, cfg.rms_norm),
     }
     if not cfg.tie_embeddings:
         d["unembed"] = prm.ParamDef((cfg.vocab_size, cfg.d_model),
@@ -38,7 +38,7 @@ def lm_apply(p, tokens, cfg: ModelConfig, *, mode="prefill", states=None,
     x, new_states = stack_apply(p["blocks"], x, cfg, positions=positions,
                                 mode=mode, states=states, cache_len=cache_len,
                                 force=force)
-    x = rmsnorm(p["final_norm"], x)
+    x = norm(p["final_norm"], x, cfg.rms_norm)
     table = p["embed"] if cfg.tie_embeddings else p["unembed"]
     return unembed(table, x), new_states
 

@@ -1,5 +1,5 @@
-"""Step factories for the decoder-only LM: train and eval, prefill and
-decode."""
+"""Step factories of the decoder-only LM and the encoder-decoder (whisper):
+train and eval, prefill and decode."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.nn import params as prm
 from repro_torch.nn.blocks import init_stack_state
 from repro_torch.optim import adamw
@@ -25,6 +25,8 @@ AUX_WEIGHT = 0.01  # MoE load-balance loss weight
 
 
 def model_defs(cfg: ModelConfig):
+    if cfg.is_encoder_decoder:
+        return encdec.def_encdec(cfg)
     return lm.def_lm(cfg)
 
 
@@ -38,7 +40,17 @@ def make_prefill_step(cfg: ModelConfig, force=None):
 
     ``force`` goes to ``kernels.ops.flash_attention`` and
     ``kernels.ops.rglru_scan`` ("ref" runs both plain versions, to hold the
-    kernels' path against them; an xlstm model reaches neither)."""
+    kernels' path against them; an xlstm model reaches neither). An
+    encoder-decoder's batch holds ``frames`` too: it encodes them, runs the
+    teacher-forced decoder over the tokens and returns (next token, the
+    memory, last logits), as the reference does."""
+
+    if cfg.is_encoder_decoder:
+        def prefill(params, batch):
+            memory = encdec.encode(params, batch["frames"], cfg, force=force)
+            logits = encdec.decode_train(params, batch["tokens"], memory, cfg, force=force)
+            return torch.argmax(logits[:, -1:], dim=-1), memory, logits[:, -1]
+        return prefill
 
     def prefill(params, batch):
         logits, states = lm.lm_apply(params, batch["tokens"], cfg,
@@ -51,7 +63,14 @@ def make_prefill_step(cfg: ModelConfig, force=None):
 
 def make_decode_step(cfg: ModelConfig):
     """Returns fn(params, token (B,1), states, cache_len int) →
-    (next_token (B,1), states); ``states`` is updated in place."""
+    (next_token (B,1), states); ``states`` is updated in place (an
+    encoder-decoder's from ``encdec.init_decode_state``)."""
+
+    if cfg.is_encoder_decoder:
+        def decode(params, token, states, cache_len):
+            logits, new_states = encdec.decode_step(params, token, states, cache_len, cfg)
+            return torch.argmax(logits[:, -1:], dim=-1), new_states
+        return decode
 
     def decode(params, token, states, cache_len):
         logits, new_states = lm.lm_apply(params, token, cfg, mode="decode",
@@ -66,7 +85,12 @@ def decode_state(cfg: ModelConfig, batch: int, s_max: int, device="cpu"):
     """Zeroed decode-time state at capacity ``s_max``: a KV cache per
     attention block; a {"conv", "h"} dict per rglru block; a {"conv",
     "state"} dict per mlstm block (``MLSTMState``: C, n, m) and per slstm
-    block (``SLSTMState``: c, n, m, h), the recurrent states fp32."""
+    block (``SLSTMState``: c, n, m, h), the recurrent states fp32. An
+    encoder-decoder's needs the params and the memory: it raises, as the
+    reference's does."""
+    if cfg.is_encoder_decoder:
+        raise ValueError("enc-dec decode state needs params+memory; "
+                         "use encdec.init_decode_state")
     return init_stack_state(cfg, batch, s_max, prm.torch_dtype(cfg.dtype),
                             device)
 
@@ -78,15 +102,25 @@ def init_train_state(cfg: ModelConfig, seed: int, device="cpu") -> TrainState:
 
 
 def _batch_on(batch, device):
-    """The batch's token and label arrays (numpy or tensors) as int64 tensors
-    on ``device``."""
-    return {k: torch.as_tensor(v).to(device=device, dtype=torch.long)
-            for k, v in batch.items()}
+    """The batch's arrays (numpy or tensors) as tensors on ``device``: the
+    integer ``tokens`` and ``labels`` as int64, floating ``frames`` in their
+    own dtype."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        out[k] = t.to(device) if t.is_floating_point() else t.to(device, torch.long)
+    return out
 
 
 def loss_fn(params, batch, cfg: ModelConfig, force=None):
-    """(ce + AUX_WEIGHT·aux, {"ce", "aux"}) of one batch of tokens/labels."""
-    logits, aux = lm.lm_apply(params, batch["tokens"], cfg, mode="train", force=force)
+    """(ce + AUX_WEIGHT·aux, {"ce", "aux"}) of one batch of tokens/labels
+    (and, for an encoder-decoder, ``frames``, whose aux is 0)."""
+    if cfg.is_encoder_decoder:
+        memory = encdec.encode(params, batch["frames"], cfg, force=force)
+        logits = encdec.decode_train(params, batch["tokens"], memory, cfg, force=force)
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    else:
+        logits, aux = lm.lm_apply(params, batch["tokens"], cfg, mode="train", force=force)
     ce = lm.cross_entropy(logits, batch["labels"])
     return ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux}
 

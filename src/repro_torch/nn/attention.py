@@ -1,11 +1,12 @@
 """GQA attention: train and prefill through the flash kernel, decode
-against a KV cache.
+against a KV cache; whisper's cross-attention over the encoder memory.
 
 Train and prefill call ``kernels.ops.flash_attention``: the Hopper kernel
 for a CUDA tensor (with grad on, its forward and backward kernels through
 ``FlashAttentionFn``), its plain version for a CPU one. This is where the
 reference calls its chunked jnp twin of the Pallas kernel. Decode attention
-has no kernel in the reference either and stays plain PyTorch.
+and cross-attention have no kernel in the reference either and stay plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -102,6 +103,15 @@ def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     return o.reshape(b, h, sq, d).to(q.dtype)
 
 
+def _pick_chunk(s: int, want: int) -> int:
+    """Largest divisor of s that is <= want (the reference twin's chunk: 500
+    at whisper's 1500 frames)."""
+    c = min(want, s)
+    while s % c:
+        c -= 1
+    return c
+
+
 def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0, chunk=512):
     """The reference model's attention (``repro/nn/attention.py:
     flash_attention``, the chunked twin of the Pallas kernel) with its
@@ -111,14 +121,7 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0, chunk=512):
     ``chip_smoke.py``'s bounds; the model's prefill calls the kernel)."""
     b, h, sq, d = q.shape
     n_kv, skv = k.shape[1], k.shape[2]
-
-    def pick(n):  # largest divisor of n that is <= chunk
-        c = min(chunk, n)
-        while n % c:
-            c -= 1
-        return c
-
-    cq, ck = pick(sq), pick(skv)
+    cq, ck = _pick_chunk(sq, chunk), _pick_chunk(skv, chunk)
     qg = _group_q((q * (d ** -0.5)).to(q.dtype), n_kv)
     outs = []
     for i in range(sq // cq):
@@ -209,3 +212,37 @@ def gqa_attention(
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
     y = interior_einsum("bhsk,hkd->bsd", o, p["wo"])
     return y, new_cache
+
+
+# --------------------------------------------------------------------------
+# Cross attention (whisper decoder → encoder memory)
+# --------------------------------------------------------------------------
+
+def def_cross_attention(d_model, n_heads, head_dim):
+    return {
+        "wq": prm.ParamDef((d_model, n_heads, head_dim), ("embed", "heads", "head_dim"),
+                           init="scaled_fan_in"),
+        "wk": prm.ParamDef((d_model, n_heads, head_dim), ("embed", "kv_heads", "head_dim"),
+                           init="scaled_fan_in"),
+        "wv": prm.ParamDef((d_model, n_heads, head_dim), ("embed", "kv_heads", "head_dim"),
+                           init="scaled_fan_in"),
+        "wo": prm.ParamDef((n_heads, head_dim, d_model), ("heads", "head_dim", "embed"),
+                           init="scaled_fan_in"),
+    }
+
+
+def cross_attention(p, x, memory=None, mem_kv=None):
+    """x: (B, S, d) queries against the encoder ``memory`` (B, S_enc, d) or
+    its precomputed ``mem_kv`` = (k, v), each (B, H, S_enc, hd). Returns (y
+    in x's dtype, (k, v)). Naive attention with the reference's rounding
+    points: the projections accumulated in fp32 and rounded to x's dtype
+    (a bf16 memory under fp32 weights is multiplied in fp32), fp32 scores
+    and softmax, the probabilities in v's dtype for P.V."""
+    q = interior_einsum("bsd,dhk->bhsk", x, p["wq"])
+    if mem_kv is None:
+        k = interior_einsum("bsd,dhk->bhsk", memory, p["wk"], x.dtype)
+        v = interior_einsum("bsd,dhk->bhsk", memory, p["wv"], x.dtype)
+    else:
+        k, v = mem_kv
+    o = naive_attention(q, k, v, causal=False)
+    return interior_einsum("bhsk,hkd->bsd", o, p["wo"]), (k, v)

@@ -1,6 +1,8 @@
 """Per-layer blocks and the layer stack.
 
-Block kinds (``cfg.block_pattern`` entries), all four of the reference's:
+Block kinds (``cfg.block_pattern`` entries), all four of the reference's,
+each with the config's norm (RMSNorm, or LayerNorm where ``rms_norm`` is
+off) and MLP activation (SwiGLU for silu, an ungated MLP otherwise):
   * ``attn``  — GQA attention (with QKV bias or QK-norm where the arch has
     them) + dense MLP or MoE FFN
   * ``rglru`` — Griffin recurrent block (+ dense MLP)
@@ -35,7 +37,7 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import params as prm
 from repro_torch.nn.attention import KVCache, def_gqa, gqa_attention
-from repro_torch.nn.layers import activation, def_rmsnorm, rmsnorm
+from repro_torch.nn.layers import activation, def_norm, norm
 from repro_torch.nn.mlp import def_mlp, mlp
 from repro_torch.nn.moe import def_moe, moe_ffn
 from repro_torch.nn.policy import interior_einsum
@@ -61,59 +63,44 @@ from repro_torch.utils.trees import (
     tree_unflatten,
 )
 
-def _check_ported(cfg: ModelConfig):
-    unported = []
-    if cfg.is_encoder_decoder:
-        unported.append("encoder-decoder")
-    if not cfg.rms_norm:
-        unported.append("layernorm")
-    if cfg.act != "silu":
-        unported.append(f"{cfg.act} MLP")
-    if unported:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unported)} not ported yet (see ROADMAP.md)")
-
 
 # --------------------------------------------------------------------------
 # defs
 # --------------------------------------------------------------------------
 
 def def_attn_block(cfg: ModelConfig):
-    _check_ported(cfg)
     d = {
-        "norm1": def_rmsnorm(cfg.d_model),
+        "norm1": def_norm(cfg.d_model, cfg.rms_norm),
         "attn": def_gqa(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                         cfg.qkv_bias, cfg.qk_norm),
-        "norm2": def_rmsnorm(cfg.d_model),
+        "norm2": def_norm(cfg.d_model, cfg.rms_norm),
     }
     if cfg.is_moe:
         d["moe"] = def_moe(cfg.d_model, cfg.n_experts, cfg.moe_d_ff, cfg.top_k)
     else:
-        d["mlp"] = def_mlp(cfg.d_model, cfg.d_ff)
+        d["mlp"] = def_mlp(cfg.d_model, cfg.d_ff, cfg.act)
     return d
 
 
 def def_rglru_block(cfg: ModelConfig):
-    _check_ported(cfg)
     w = cfg.lru_width or cfg.d_model
     return {
-        "norm1": def_rmsnorm(cfg.d_model),
+        "norm1": def_norm(cfg.d_model, cfg.rms_norm),
         "w_gate": prm.matrix(cfg.d_model, w, "embed", "lru"),
         "w_x": prm.matrix(cfg.d_model, w, "embed", "lru"),
         "conv": def_causal_conv(cfg.conv_width, w),
         "lru": def_rglru(w, cfg.n_heads),
         "w_out": prm.matrix(w, cfg.d_model, "lru", "embed"),
-        "norm2": def_rmsnorm(cfg.d_model),
-        "mlp": def_mlp(cfg.d_model, cfg.d_ff),
+        "norm2": def_norm(cfg.d_model, cfg.rms_norm),
+        "mlp": def_mlp(cfg.d_model, cfg.d_ff, cfg.act),
     }
 
 
 def def_mlstm_block(cfg: ModelConfig):
-    _check_ported(cfg)
     d, nh = cfg.d_model, cfg.n_heads
     di = 2 * d
     return {
-        "norm": def_rmsnorm(d),
+        "norm": def_norm(d, cfg.rms_norm),
         "wu": prm.matrix(d, di, "embed", "lru"),
         "wg": prm.matrix(d, di, "embed", "lru"),
         "conv": def_causal_conv(cfg.conv_width, di),
@@ -130,10 +117,9 @@ def def_mlstm_block(cfg: ModelConfig):
 
 
 def def_slstm_block(cfg: ModelConfig):
-    _check_ported(cfg)
     d, nh = cfg.d_model, cfg.n_heads
     return {
-        "norm": def_rmsnorm(d),
+        "norm": def_norm(d, cfg.rms_norm),
         "conv": def_causal_conv(cfg.conv_width, d),
         "wi": prm.matrix(d, d, "embed", "lru"),
         "wf": prm.matrix(d, d, "embed", "lru"),
@@ -141,7 +127,7 @@ def def_slstm_block(cfg: ModelConfig):
         "wo_g": prm.matrix(d, d, "embed", "lru"),
         "r": def_slstm_core(nh, d // nh),
         "out_norm": prm.ParamDef((d,), ("lru",), init="ones", dtype="float32"),
-        "ffn": def_mlp(d, max(1, round(d * 4 / 3))),
+        "ffn": def_mlp(d, max(1, round(d * 4 / 3)), "silu"),
     }
 
 
@@ -220,13 +206,13 @@ def apply_attn_block(p, x, cfg: ModelConfig, *, positions, mode="prefill",
     """Returns (x, cache, aux); train returns no cache. aux is the MoE FFN's
     load-balancing loss, or None for a dense MLP. ``force`` goes to the
     flash kernel."""
-    h = rmsnorm(p["norm1"], x)
+    h = norm(p["norm1"], x, cfg.rms_norm)
     attn_out, new_cache = gqa_attention(
         p["attn"], h, positions=positions, rope_theta=cfg.rope_theta,
         use_rope=cfg.use_rope, causal=True, window=cfg.local_window,
         cache=state, cache_len=cache_len, mode=mode, force=force)
     x = x + attn_out
-    h = rmsnorm(p["norm2"], x)
+    h = norm(p["norm2"], x, cfg.rms_norm)
     if cfg.is_moe:
         ffn_out, aux = moe_ffn(p["moe"], h, top_k=cfg.top_k,
                                capacity_factor=cfg.capacity_factor, act=cfg.act)
@@ -249,7 +235,7 @@ def apply_rglru_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None,
     ``apply_rglru_block``); under grad on the card its scan is
     ``RGLRUScanFn``."""
     _check_mode(mode)
-    h = rmsnorm(p["norm1"], x)
+    h = norm(p["norm1"], x, cfg.rms_norm)
     gate = activation("gelu")(
         interior_einsum("bsd,dw->bsw", h, p["w_gate"]).float()).to(x.dtype)
     u = interior_einsum("bsd,dw->bsw", h, p["w_x"])
@@ -266,7 +252,7 @@ def apply_rglru_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None,
         if mode == "prefill":
             new_state = {"conv": _conv_history(u, p["conv"]["w"].shape[0]), "h": h_last}
     x = x + interior_einsum("bsw,wd->bsd", (r * gate).to(x.dtype), p["w_out"])
-    x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x), cfg.act)
+    x = x + mlp(p["mlp"], norm(p["norm2"], x, cfg.rms_norm), cfg.act)
     return x, new_state
 
 
@@ -281,7 +267,7 @@ def apply_mlstm_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None):
     nh = cfg.n_heads
     di = 2 * cfg.d_model
     dh = di // nh
-    h = rmsnorm(p["norm"], x)
+    h = norm(p["norm"], x, cfg.rms_norm)
     u = interior_einsum("bsd,de->bse", h, p["wu"])
     g = interior_einsum("bsd,de->bse", h, p["wg"])
     new_state = None
@@ -321,7 +307,7 @@ def apply_slstm_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None):
     _check_mode(mode)
     d, nh = cfg.d_model, cfg.n_heads
     dh = d // nh
-    h = rmsnorm(p["norm"], x)
+    h = norm(p["norm"], x, cfg.rms_norm)
     new_state = None
     if mode == "decode":
         c, conv_state = causal_conv_step(p["conv"], h[:, 0], state["conv"])

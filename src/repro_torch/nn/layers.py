@@ -1,4 +1,5 @@
-"""Basic layers: embedding, norms, rotary embeddings, activations.
+"""Basic layers: embedding, norms, rotary and sinusoidal positions,
+activations.
 
 Functional like the reference: ``def_*`` builds ParamDef trees, the apply
 functions take (params, inputs).
@@ -41,6 +42,30 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def def_layernorm(d):
+    return {"scale": prm.norm_scale(d),
+            "bias": prm.ParamDef((d,), ("embed",), init="zeros", dtype="float32")}
+
+
+def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) * scale + bias in fp32, then x's dtype
+    (the reference's formula, not ``F.layer_norm``: the same rounding
+    points on every device)."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return y.to(x.dtype)
+
+
+def def_norm(d, rms=True):
+    return def_rmsnorm(d) if rms else def_layernorm(d)
+
+
+def norm(p, x: torch.Tensor, rms=True) -> torch.Tensor:
+    return rmsnorm(p, x) if rms else layernorm(p, x)
+
+
 # Per-head norm of the qk-norm archs (qwen3, chameleon): normalizes head_dim.
 def def_headnorm(head_dim):
     return {"scale": prm.ParamDef((head_dim,), ("head_dim",), init="ones",
@@ -67,6 +92,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d_model: int, offset: int = 0,
+                         device=None) -> torch.Tensor:
+    """The classic transformer table (whisper's absolute positions), (seq,
+    d_model) fp32: sin in the even columns, cos in the odd ones, of
+    position / 10000^(2i / d_model) for positions offset .. offset+seq-1,
+    each step in fp32 as the reference takes it. The power is taken in fp64
+    and rounded once to fp32: correctly rounded, as XLA's fp32 power gives
+    it, where torch's fp32 ``pow`` is an ulp off on some exponents."""
+    pos = torch.arange(offset, offset + seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, (dim / d_model).double()).float()
+    emb = torch.zeros((seq, d_model), dtype=torch.float32, device=device)
+    emb[:, 0::2] = torch.sin(angle)
+    emb[:, 1::2] = torch.cos(angle)
+    return emb
 
 
 # --------------------------------------------------------------------------

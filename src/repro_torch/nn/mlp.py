@@ -1,4 +1,4 @@
-"""Dense gated MLP (SwiGLU, llama family)."""
+"""Dense MLP blocks: SwiGLU (llama family) and GELU (whisper)."""
 
 from __future__ import annotations
 
@@ -9,19 +9,28 @@ from repro_torch.nn.layers import activation
 from repro_torch.nn.policy import interior_einsum
 
 
-def def_mlp(d_model: int, d_ff: int):
-    return {
+def def_mlp(d_model: int, d_ff: int, act: str = "silu"):
+    """SwiGLU (``gate`` leaf) for silu, ungated otherwise. The reference's
+    ``use_bias`` (``up_b``/``down_b``) is set by no config, so it is not
+    ported."""
+    d = {
         "up": prm.matrix(d_model, d_ff, "embed", "mlp"),
         "down": prm.matrix(d_ff, d_model, "mlp", "embed"),
-        "gate": prm.matrix(d_model, d_ff, "embed", "mlp"),
     }
+    if act == "silu":
+        d["gate"] = prm.matrix(d_model, d_ff, "embed", "mlp")
+    return d
 
 
 def mlp(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """SwiGLU; the activation and the gating product run in fp32. The
-    reference keeps the up/gate products in fp32 until then; here they come
-    back in x's dtype first, which adds one bf16 rounding (fp32 is exact)."""
+    """SwiGLU where the tree has a gate, else act(up); the activation (and
+    the gating product) run in fp32. The reference keeps the up/gate
+    products in fp32 until then; here they come back in x's dtype first,
+    which adds one bf16 rounding (fp32 is exact; ROADMAP C.8)."""
     up = interior_einsum("...d,df->...f", x, p["up"])
-    gate = interior_einsum("...d,df->...f", x, p["gate"])
-    h = activation(act)(gate.float()) * up.float()
+    if "gate" in p:
+        gate = interior_einsum("...d,df->...f", x, p["gate"])
+        h = activation(act)(gate.float()) * up.float()
+    else:
+        h = activation(act)(up.float())
     return interior_einsum("...f,fd->...d", h.to(x.dtype), p["down"])

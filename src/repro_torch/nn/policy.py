@@ -24,6 +24,15 @@ def interior_pref() -> torch.dtype:
     return torch.float32
 
 
-def interior_einsum(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum`` accumulated in ``interior_pref()``, result in x's dtype."""
-    return torch.einsum(eq, x, w)
+def interior_einsum(eq: str, x: torch.Tensor, w: torch.Tensor,
+                    dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``einsum`` accumulated in ``interior_pref()``, result in ``dtype``
+    (x's by default). Operands of two dtypes (whisper's bf16 frames through
+    fp32 weights) are multiplied in the wider one, as JAX promotes them, and
+    so is a result wider than both; one dtype throughout is one product in
+    it, with no copy and no cast."""
+    out = x.dtype if dtype is None else dtype
+    if x.dtype == w.dtype == out:
+        return torch.einsum(eq, x, w)
+    wide = torch.promote_types(torch.promote_types(x.dtype, w.dtype), out)
+    return torch.einsum(eq, x.to(wide), w.to(wide)).to(out)

@@ -120,11 +120,12 @@ def _caches(states):
 # --------------------------------------------------------------------------
 
 def test_arch_ids_hold_the_eight_ported_archs():
-    """The eight archs of the serving and training slices, and xlstm-125m
-    since: nine of the reference's ten (whisper-tiny is still queued)."""
-    assert len(ARCH_IDS) == 9 and set(ARCHS) <= set(ARCH_IDS)
-    assert {"smollm-360m", "recurrentgemma-2b", "xlstm-125m"} <= set(ARCH_IDS)
-    assert "whisper-tiny" not in ARCH_IDS
+    """The eight archs of the serving and training slices, xlstm-125m and
+    whisper-tiny since: all ten of the reference's, in its order."""
+    from repro.configs import ARCH_IDS as JARCH_IDS
+
+    assert ARCH_IDS == JARCH_IDS and len(ARCH_IDS) == 10 and set(ARCHS) <= set(ARCH_IDS)
+    assert {"smollm-360m", "recurrentgemma-2b", "xlstm-125m", "whisper-tiny"} <= set(ARCH_IDS)
 
 
 @pytest.mark.parametrize("tiny", [False, True])

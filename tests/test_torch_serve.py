@@ -73,16 +73,46 @@ def test_configs_equal_field_by_field(tiny):
 
 
 def test_unported_arch_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("whisper-tiny")
+    """An arch id the port does not know raises, naming ROADMAP.md; all ten
+    of the reference's resolve."""
+    for lookup in (get_config, get_tiny_config):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            lookup("whisper-large")
+    assert get_config("whisper-tiny").is_encoder_decoder
 
 
 @pytest.mark.parametrize("change", [{"rms_norm": False}, {"act": "gelu"},
                                     {"is_encoder_decoder": True}])
 def test_unported_model_features_raise(change):
-    _, cfg = _cfgs(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        steps.model_defs(cfg)
+    """The three model features the port once refused (LayerNorm, the
+    ungated GELU MLP, the encoder-decoder) no longer raise: each builds the
+    reference's def-tree (paths, shapes, inits, scales, dtypes: LayerNorm's
+    fp32 bias, no gate leaf for gelu, the encoder-decoder's tree). The LM
+    path runs the first two: the tiny smollm's fp32 prefill logits within
+    1e-4 of the reference's, with the norms' scales and biases redrawn
+    nonzero."""
+    jcfg, cfg = _cfgs(dtype="float32", **change)
+    is_def = lambda x: isinstance(x, jprm.ParamDef)  # noqa: E731
+    want = {path_str(p): (tuple(d.shape), d.init, d.scale, d.dtype) for p, d in
+            jax.tree_util.tree_flatten_with_path(jsteps.model_defs(jcfg), is_leaf=is_def)[0]}
+    got = {p: (tuple(d.shape), d.init, d.scale, d.dtype)
+           for p, d in tree_flatten_with_paths(steps.model_defs(cfg))}
+    assert got == want
+    if cfg.is_encoder_decoder:
+        assert "enc_norm/bias" not in got and "dec/0/cross/wq" in got  # rms_norm stays on
+        return
+    assert ("blocks/layers/0/norm1/bias" in got) == (not cfg.rms_norm)
+    assert ("blocks/layers/0/mlp/gate" in got) == (cfg.act == "silu")
+    rng = _rng(3)
+    flat = {p: (a if p.rsplit("/", 1)[-1] not in ("scale", "bias") else
+                (a + 0.2 * rng.standard_normal(a.shape)).astype(np.float32))
+            for p, a in _np_tree(jsteps.init_params(jcfg, jax.random.key(0))).items()}
+    jparams = tree_unflatten({p: jnp.asarray(a) for p, a in flat.items()})
+    prompts = _rng(9).integers(0, cfg.vocab_size, (2, 12))
+    jlogits, _, _ = jlm.lm_apply(jparams, jnp.asarray(prompts, jnp.int32), jcfg, mode="prefill")
+    logits, _ = lm.lm_apply(params_from_numpy(flat, cfg, "cpu"), torch.from_numpy(prompts),
+                            cfg, mode="prefill")
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=1e-4, rtol=1e-4)
 
 
 def test_tree_paths_match_reference_and_round_trip():
