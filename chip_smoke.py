@@ -181,6 +181,27 @@ Phases; any failure makes the script exit non-zero:
    at their tiny configs: one bf16 and one fp32 step each through the
    kernels (both routes of the forward and the backward) against the plain
    path, within 2e-2 and TRAIN_TOL_FP32 (qwen3-moe's routing pinned).
+8c. The mesh (``phase_mesh``): an NCCL process group of world size 1
+   (probed by an all-reduce and a barrier) and a 1x1 (data, model)
+   ``DeviceMesh`` on the card. qwen2.5-3b trains on it at full width (bf16,
+   remat full, B8 x S512, params and the ZeRO-1 optimizer state as
+   DTensors, the kernels on each rank's local shards): step 0 within 2e-2
+   of phase 7's unsharded step 0 (whether bit-equal is printed), 3 steps
+   counted from 0 (the unsharded step's 72 flash forwards and 36 backwards
+   a step), the same 3 steps again bit-equal, step time and peak memory
+   beside phase 7's. recurrentgemma-2b, granite-moe-3b-a800m and
+   qwen3-moe-235b-a22b at their tiny configs: one bf16 and one fp32 step
+   each on the mesh against the unsharded step (2e-2, TRAIN_TOL_FP32), the
+   scan's launches counted; at model 1 the reference's pick is the
+   token-parallel MoE branch for both MoE archs (the expert-parallel
+   branch needs a model axis of 2 or more: the gloo tests hold it).
+   smollm-360m serves at full width through
+   ``ServeEngine(mesh="1x1")``, without and with ``ctx_parallel``:
+   ``generate`` 8 x 512 -> 32 counted (one flash launch a layer), the
+   greedy tokens equal to an unsharded engine's wherever its top-1 margin
+   decides them, and the fp32 prefill's last logits within 1e-3 (32 fp32
+   flash launches). A train state saved from the mesh restores unsharded,
+   and one saved unsharded restores onto the mesh, bit for bit.
 9. One JSON line ``{"kernels": [...]}``, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -204,6 +225,8 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -215,7 +238,7 @@ from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
 from repro_torch.configs import get_config, get_tiny_config  # noqa: E402
 from repro_torch.core.executor import TorchLearner  # noqa: E402
 from repro_torch.data.objectstore import MountedBucket  # noqa: E402
-from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     BWD_HEAD_DIMS,
@@ -235,12 +258,14 @@ from repro_torch.kernels.rglru import (  # noqa: E402
     uses_tma,
 )
 from repro_torch.kernels.rglru import smem_bytes as scan_smem_bytes  # noqa: E402
+from repro_torch.launch.mesh import init_process_group, make_env, make_mesh  # noqa: E402
 from repro_torch.launch.serve import PHASES, ServeEngine, _install_prefill  # noqa: E402
 from repro_torch.launch.train import deterministic  # noqa: E402
 from repro_torch.models import encdec, lm, steps  # noqa: E402
 from repro_torch.nn import attention, blocks, layers, moe, recurrent  # noqa: E402
 from repro_torch.nn.policy import interior_einsum  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.parallel import param_shardings, use_env  # noqa: E402
 from repro_torch.utils.trees import tree_flatten_with_paths, tree_map_with_path  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -340,6 +365,13 @@ CPU_STEP = {XLSTM: ((2, 128), {"loss": 1e-5, "grad_norm": 1e-4}),
             WHISPER: ((2, 64), {"loss": 1e-6, "grad_norm": 1e-5})}
 TINY_TRAIN_ARCHS = ("llama3-8b", "deepseek-coder-33b", "chameleon-34b", "qwen3-moe-235b-a22b")
 TINY_DECODE_STEPS = 6
+# The mesh phase (8c): one process, a 1x1 (data, model) mesh over an NCCL
+# group of world size 1. qwen2.5-3b trains on it at full width, these tiny
+# configs take a step each (the scan's path, token-parallel MoE at model 1),
+# and smollm-360m serves on it.
+MESH_ARCH = "qwen2.5-3b"
+MESH_TINY = ("recurrentgemma-2b", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
+MESH_SERVE = "smollm-360m"
 # Kernel names of cuBLAS's and CUTLASS's GEMMs (the profiled prefill's split)
 GEMM_KERNEL = re.compile(r"gemm|nvjet|xmma|cutlass|cublas", re.IGNORECASE)
 # (B, S, W): tests/test_kernels.py's cases, ragged ones, the edges of the
@@ -2633,6 +2665,264 @@ def phase_crash_resume(failures):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 8c: the mesh
+# --------------------------------------------------------------------------
+
+def whole(t):
+    """A DTensor gathered (a plain tensor as it is)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def all_dtensors(tree) -> bool:
+    return all(isinstance(t, DTensor) for _, t in tree_flatten_with_paths(tree))
+
+
+def mesh_train_run(cfg, env, fresh, batches, count):
+    """The train steps of ``batches`` on ``env``'s mesh from a fresh state
+    placed by ``steps.train_state_shardings`` (the params by their logical
+    axes, the optimizer state by ZeRO-1): (state, metrics, step seconds,
+    launches or None, whether every leaf was a DTensor, peak GiB)."""
+    step_fn = steps.make_train_step(cfg, adamw.AdamWConfig(**TRAIN_OPT))
+    with use_env(env):
+        state = steps.place_tree(fresh(), steps.train_state_shardings(cfg, env))
+        sharded = all_dtensors(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if count:
+            ops.reset_launch_counts()
+        metrics, step_s = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            metrics.append(floats(m))
+        launches = ops.launch_counts() if count else None
+    return state, metrics, step_s, launches, sharded, torch.cuda.max_memory_allocated() / 2**30
+
+
+def mesh_train_full_width(env, unsharded, failures):
+    """qwen2.5-3b at full width on the 1x1 mesh: the weights, batches and
+    optimizer of its train phase (``phase_train_full_width``), bf16, remat
+    full, B8 x S512, params and ZeRO-1 state as DTensors. Step 0 against
+    the unsharded kernels' step 0 of that phase (``unsharded["step0"]``),
+    loss and grad norm within TRAIN_TOL; TRAIN_STEPS steps counted from 0
+    (the unsharded step's launches: two flash forwards and one backward an
+    attention layer); the same steps again bit-equal; the step time and
+    peak memory beside the unsharded phase's. Returns (launches, metrics)."""
+    t_phase = time.perf_counter()
+    cfg = get_config(MESH_ARCH)
+    device = torch.device("cuda")
+    batches = train_batches(cfg, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS)
+    _, fresh = fresh_states(cfg, device)
+    state, metrics, step_s, launches, sharded, peak = mesh_train_run(cfg, env, fresh,
+                                                                     batches, True)
+    label = f"{MESH_ARCH} train on the 1x1 mesh"
+    if not sharded:
+        failures.append(f"{label}: a train state leaf is not a DTensor")
+    expect_launches(f"{label} ({TRAIN_STEPS} steps, remat full)", launches,
+                    step_launches(cfg, TRAIN_STEPS), failures)
+    want = unsharded.get("step0")
+    if want is None:
+        failures.append(f"{label}: no unsharded step 0 to hold step 0 to")
+    else:
+        check_step(f"{label} step 0 against the unsharded kernels' step 0", metrics[0], want,
+                   TRAIN_TOL, failures)
+        bits = all(metrics[0][k] == want[k] for k in ("loss", "grad_norm"))
+        print(f"{label} step 0: loss and grad norm {'bit-equal to' if bits else 'differ from'} "
+              "the unsharded step's")
+    kept = [(p, whole(t).to("cpu", copy=True)) for p, t in tree_flatten_with_paths(state)]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    again, _, _, _, _, _ = mesh_train_run(cfg, env, fresh, batches, False)
+    flat = [(p, whole(t)) for p, t in tree_flatten_with_paths(again)]
+    same = [p for p, _ in flat] == [p for p, _ in kept] and all(
+        x.dtype == y.dtype and torch.equal(x.cpu(), y) for (_, x), (_, y) in zip(flat, kept))
+    del again, flat, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not same:
+        failures.append(f"{label}: two runs of {TRAIN_STEPS} steps differ")
+    step_ms = 1e3 * sum(step_s[1:]) / max(len(step_s) - 1, 1)
+    out = {"step0": {k: metrics[0][k] for k in ("loss", "grad_norm")},
+           "loss": [m["loss"] for m in metrics], "step_ms": step_ms,
+           "first_step_ms": 1e3 * step_s[0], "peak_mem_gib": peak,
+           "unsharded_step_ms": unsharded.get("step_ms"),
+           "unsharded_peak_mem_gib": unsharded.get("peak_mem_gib"), "bit_equal_runs": same}
+    print(f"{label}: two runs of {TRAIN_STEPS} steps {'equal bit for bit' if same else 'DIFFER'};"
+          f" step {step_ms:.2f} ms (steps 2-{TRAIN_STEPS}; first {out['first_step_ms']:.2f} ms)"
+          f", peak {peak:.2f} GiB; unsharded: step {out['unsharded_step_ms']} ms, peak "
+          f"{out['unsharded_peak_mem_gib']} GiB; {time.perf_counter() - t_phase:.1f} s")
+    return launches, out
+
+
+def mesh_tiny_train(env, failures):
+    """One bf16 and one fp32 step of each of MESH_TINY's tiny configs on the
+    1x1 mesh against the same step unsharded, both through the kernels, the
+    mesh step's launches counted from 0 (the scan's too): loss and grad
+    norm within TRAIN_TOL and TRAIN_TOL_FP32. Returns {label: launches}."""
+    device = torch.device("cuda")
+    out = {}
+    for arch in MESH_TINY:
+        for dtype in ("bfloat16", "float32"):
+            cfg = get_tiny_config(arch).replace(dtype=dtype)
+            batch = SyntheticLM(DataConfig(cfg.vocab_size, 64, 4, seed=0)).batch_at(0)
+            _, fresh = fresh_states(cfg, device)
+            _, plain = steps.make_train_step(cfg, adamw.AdamWConfig(**TRAIN_OPT))(fresh(), batch)
+            _, got, _, launches, sharded, _ = mesh_train_run(cfg, env, fresh, [batch], True)
+            label = f"{arch} tiny train {dtype} on the 1x1 mesh"
+            if cfg.is_moe:
+                ep, tp = moe.moe_branch(cfg.n_experts, 64, 1)
+                label += f" ({'token' if tp else 'expert'}-parallel MoE, ep {ep})"
+            if not sharded:
+                failures.append(f"{label}: a train state leaf is not a DTensor")
+            expect_launches(label, launches, step_launches(cfg, 1), failures)
+            check_step(label + ", against the unsharded step", got[0], floats(plain),
+                       TRAIN_TOL_FP32 if dtype == "float32" else TRAIN_TOL, failures)
+            out[label] = launches
+    return out
+
+
+def mesh_serve(env, failures):
+    """smollm-360m at full width: an unsharded engine, then
+    ``ServeEngine(mesh="1x1")`` on its params without and with
+    ``ctx_parallel``, each ``generate`` 8 x 512 -> 32 counted from 0 (one
+    flash launch a layer); the greedy tokens equal the unsharded engine's
+    wherever its top-1 margin (teacher-forced to the first parting step)
+    decides them; then the fp32 prefill's last logits on the mesh (32 fp32
+    flash launches) within 1e-3 of the unsharded ones. Returns ({label:
+    launches}, {label: fp32 launches}, metrics)."""
+    base = ServeEngine(MESH_SERVE, tiny=False, seed=0, device="cuda")
+    cfg = base.cfg
+    b, s, gen = 8, 512, 32
+    prompts = base.synthetic_prompts(b, s)
+    want = base.generate(prompts, gen)["tokens"]
+    launches, metrics = {}, {}
+    for ctx in (False, True):
+        label = f"{MESH_SERVE} serving on the 1x1 mesh" + (", ctx_parallel" if ctx else "")
+        engine = ServeEngine(MESH_SERVE, tiny=False, seed=0, device="cuda", mesh="1x1",
+                             ctx_parallel=ctx, params=base.params)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got = engine.generate(prompts, gen)
+        launches[label] = ops.launch_counts()
+        expect_launches(label, launches[label], {"flash_attention": cfg.n_layers,
+                                                 "rglru_scan": 0}, failures)
+        toks = got["tokens"]
+        parted = [t for t in range(gen) if not torch.equal(toks[:, t], want[:, t])]
+        note = "equal to the unsharded engine's"
+        if parted:
+            t = parted[0]
+            rows = (toks[:, t] != want[:, t]).nonzero().flatten()
+            ctx_toks = torch.cat([prompts, want[:, :t]], dim=1).cuda()
+            top2 = last_logits(cfg, base.params, ctx_toks, None).float().topk(2, dim=-1).values
+            margin = (top2[:, 0] - top2[:, 1])[rows.cuda()]
+            decided = bool((margin > 2 * LOGITS_TOL[torch.bfloat16]).any())
+            note = (f"parting at step {t} in rows {rows.tolist()}, unsharded top-1 margins "
+                    f"there {[round(float(m), 4) for m in margin]}")
+            if decided:
+                failures.append(f"{label}: tokens part from the unsharded engine's where its "
+                                f"margin decides them ({note})")
+        metrics[label] = {"decode_ms_per_token": got["decode_s"] / (gen - 1) * 1e3,
+                          "prefill_ms": got["prefill_s"] * 1e3, "tokens_parted_at": parted[:1]}
+        print(f"{label}: generate B{b} S{s} -> {gen}: prefill {got['prefill_s'] * 1e3:.2f} ms, "
+              f"decode {metrics[label]['decode_ms_per_token']:.3f} ms/token; tokens {note}")
+        del engine
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = tree_map_with_path(lambda _, t: t.float(), base.params)
+    tokens = prompts.cuda()
+    plain = last_logits(cfg32, p32, tokens, None)
+    with torch.no_grad(), use_env(env):
+        pp = steps.place_tree(p32, param_shardings(steps.param_axes(cfg32), p32, env))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        _, _, last = steps.make_prefill_step(cfg32)(pp, shard_batch({"tokens": tokens}, env,
+                                                                    tokens.device))
+        fp32_launches = {f"{MESH_SERVE} fp32 prefill on the 1x1 mesh": ops.launch_counts()}
+        last = whole(last)
+    err = float((last - plain).abs().max())
+    tol = LOGITS_TOL[torch.float32]
+    print(f"{MESH_SERVE} fp32 prefill last logits on the 1x1 mesh against unsharded: max abs "
+          f"err {err:.3e} tol {tol} {'ok' if err <= tol else 'FAIL'}")
+    if not err <= tol:
+        failures.append(f"{MESH_SERVE} fp32 last logits on the mesh: {err}")
+    expect_launches(f"{MESH_SERVE} fp32 prefill on the 1x1 mesh",
+                    next(iter(fp32_launches.values())), {"flash_attention": cfg.n_layers},
+                    failures)
+    metrics["fp32_last_logits_max_abs_err"] = err
+    return launches, fp32_launches, metrics
+
+
+def mesh_checkpoints(env, failures):
+    """A train state saved from the 1x1 mesh (DTensors: gathered, written,
+    a barrier) restores unsharded, and one saved unsharded restores onto
+    the mesh (``restore(like=, shardings=)``), each bit for bit:
+    smollm-tiny after one step, on the card, in an in-memory store."""
+    cfg = get_tiny_config("smollm-360m")
+    device = torch.device("cuda")
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, 64, 4, seed=0)).batch_at(0)
+    state, _ = steps.make_train_step(cfg, adamw.AdamWConfig(**TRAIN_OPT))(
+        steps.init_train_state(cfg, 0, device), batch)
+    store = MemoryStore()
+    store.create_bucket("ckpt")
+    bucket = MountedBucket(store, "ckpt")
+    like = steps.abstract_train_state(cfg)
+    sh = steps.train_state_shardings(cfg, env)
+    flat = dict(tree_flatten_with_paths(state))
+    with use_env(env):
+        ckpt.save(bucket, "mesh", 1, steps.place_tree(state, sh))
+        back, _ = ckpt.restore(bucket, "mesh", 1, like=like)
+        ckpt.save(bucket, "plain", 1, state)
+        onto, _ = ckpt.restore(bucket, "plain", 1, like=like, shardings=sh)
+    ok_back = all(not isinstance(t, DTensor) and torch.equal(t, flat[p].cpu())
+                  for p, t in tree_flatten_with_paths(back))
+    ok_onto = all_dtensors(onto) and all(torch.equal(whole(t).cpu(), flat[p].cpu())
+                                         for p, t in tree_flatten_with_paths(onto))
+    print(f"checkpoints, smollm tiny after a step: saved on the 1x1 mesh and restored unsharded "
+          f"{'bit-equal' if ok_back else 'DIFFERENT'}; saved unsharded and restored onto the "
+          f"mesh {'bit-equal' if ok_onto else 'DIFFERENT'} ({len(flat)} leaves)")
+    if not (ok_back and ok_onto):
+        failures.append(f"checkpoint round trip on the mesh: {ok_back}, {ok_onto}")
+
+
+def phase_mesh(unsharded_qwen, failures):
+    """The mesh: an NCCL process group of world size 1 (probed with an
+    all-reduce and a barrier) and a 1x1 (data, model) mesh on the card;
+    qwen2.5-3b's training at full width on it, MESH_TINY's tiny steps,
+    smollm-360m's serving with and without ctx_parallel,
+    and the checkpoint round trip. Returns {"train": {label: launches},
+    "train_fp32": {...}, "serve": {...}, "serve_fp32": {...}, "metrics":
+    {...}}."""
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    deterministic(device)
+    world = init_process_group(device)
+    probe = torch.ones(1, device=device)
+    dist.all_reduce(probe)
+    dist.barrier()
+    backend = dist.get_backend()
+    print(f"mesh: process group backend {backend}, world size {world}, all-reduce of 1 gave "
+          f"{float(probe)}")
+    if backend != "nccl" or world != 1 or float(probe) != 1.0:
+        failures.append(f"mesh: backend {backend}, world {world}, all-reduce {float(probe)}")
+    out = {"train": {}, "train_fp32": {}, "serve": {}, "serve_fp32": {}, "metrics": {}}
+    try:
+        env = make_env(make_mesh((1, 1), ("data", "model"), "cuda"))
+        launches, out["metrics"][f"{MESH_ARCH} train"] = mesh_train_full_width(
+            env, unsharded_qwen, failures)
+        out["train"][f"{MESH_ARCH} train on the 1x1 mesh"] = launches
+        for label, n in mesh_tiny_train(env, failures).items():
+            out["train_fp32" if "float32" in label else "train"][label] = n
+        out["serve"], out["serve_fp32"], out["metrics"]["serve"] = mesh_serve(env, failures)
+        mesh_checkpoints(env, failures)
+    finally:
+        dist.destroy_process_group()
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, timings, primary, worst):
     """One entry of the {"kernels": [...]} line: the primary main-path
     shape's numbers, and every main-path shape under "shapes"."""
@@ -2702,16 +2992,21 @@ def main() -> int:
     fp32_train_launches = phase("smollm-360m fp32 train step", phase_train_fp32)
     learner_launches = phase("learner crash-resume", phase_crash_resume)
     tiny_train = phase("tiny configs train on the card", phase_tiny_train)
+    mesh = phase("the mesh", phase_mesh, full_train[MESH_ARCH][1])
     tiny = {dtype: {p: n["flash_attention"] for p, n in tiny_launches.items() if p.endswith(dtype)}
             for dtype in ("float32", "bfloat16")}
     rg_train_launches = full_train["recurrentgemma-2b"][0]
     train_paths = {**{f"{arch} train": d[0] for arch, d in full_train.items()},
                    f"{WHISPER} train": wh_train_launches,
                    "smollm tiny learner crash-resume": learner_launches,
-                   **{p: n for p, n in tiny_train.items() if p.endswith("bfloat16")}}
+                   **{p: n for p, n in tiny_train.items() if p.endswith("bfloat16")},
+                   **mesh["train"]}
     fp32_train_paths = {"smollm-360m fp32 train step": fp32_train_launches,
                         f"{WHISPER} fp32 train step": wh_cpu["launches"],
-                        **{p: n for p, n in tiny_train.items() if p.endswith("float32")}}
+                        **{p: n for p, n in tiny_train.items() if p.endswith("float32")},
+                        **mesh["train_fp32"]}
+    mesh_scan = {p: n for p, n in {**mesh["train"], **mesh["train_fp32"]}.items()
+                 if n["rglru_scan"]}
 
     kernels = [
         kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention_sm90.cu",
@@ -2722,6 +3017,7 @@ def main() -> int:
                       WHISPER: wh_launches["flash_attention"],
                       f"{WHISPER} prefill step": wh_pf_launches["flash_attention"],
                       **tiny["bfloat16"],
+                      **{p: n["flash_attention"] for p, n in mesh["serve"].items()},
                       **{p: n["flash_attention"] for p, n in train_paths.items()}},
                      flash_t[torch.bfloat16], "smollm B8 S512", flash_worst[torch.bfloat16]),
         # the fp32 route, launched by the fp32 prefills of check_logits and
@@ -2734,18 +3030,21 @@ def main() -> int:
                          for arch, d in decoders.items()},
                       f"{WHISPER} fp32 prefill step": wh_fp32_launches["flash_attention"],
                       **tiny["float32"],
+                      **{p: n["flash_attention"] for p, n in mesh["serve_fp32"].items()},
                       **{p: n["flash_attention"] for p, n in fp32_train_paths.items()}},
                      flash_t[torch.float32], "smollm B8 S512", flash_worst[torch.float32]),
         kernel_entry("rglru_scan", "src/repro_torch/csrc/rglru.cu",
                      "src/repro/kernels/rglru.py:31",
                      {"recurrentgemma-2b": rg_launches["rglru_scan"],
-                      "recurrentgemma-2b train": rg_train_launches["rglru_scan"]},
+                      "recurrentgemma-2b train": rg_train_launches["rglru_scan"],
+                      **{p: n["rglru_scan"] for p, n in mesh_scan.items()}},
                      scan_t, "recurrentgemma B8 S512", scan_worst),
         # the scan's backward (the JAX package trains through autodiff of its
         # associative scan), launched by the recurrentgemma train path
         kernel_entry("rglru_scan_bwd", "src/repro_torch/csrc/rglru_bwd.cu",
                      "src/repro/kernels/rglru.py:31",
-                     {"recurrentgemma-2b train": rg_train_launches["rglru_scan_bwd"]},
+                     {"recurrentgemma-2b train": rg_train_launches["rglru_scan_bwd"],
+                      **{p: n["rglru_scan_bwd"] for p, n in mesh_scan.items()}},
                      scan_bwd_t, "recurrentgemma train B8 S512", scan_bwd_worst),
         # the backward of the flash forward (the JAX package trains through
         # autodiff of the jnp twin of the TPU kernel it names): the bf16
@@ -2769,6 +3068,7 @@ def main() -> int:
           f"(launches {xl_train_launches}); {XLSTM} card against the CPU: {json.dumps(xl_cpu)}; "
           f"{WHISPER}: {json.dumps(wh_metrics)}; {WHISPER} train: {json.dumps(wh_train)}; "
           f"{WHISPER} card against the CPU: {json.dumps(wh_cpu)}; "
+          f"the mesh: {json.dumps(mesh['metrics'])}; "
           f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     if failures:

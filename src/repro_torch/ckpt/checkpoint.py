@@ -19,6 +19,12 @@ both packages. It reads zstd blobs where ``zstandard`` imports and raises
 small codec of the port's own (the port needs nothing beyond torch, numpy
 and the standard library): the subset that map needs, with the
 reference's key order.
+
+A tree of DTensors (a train state on a mesh) is saved whole: every rank
+gathers each leaf (``full_tensor()``, a collective, on the calling
+thread), rank 0 writes, and the others wait at a barrier. So a checkpoint
+written from any mesh has the paths, dtypes and shapes of an unsharded
+one, and ``restore(like=, shardings=)`` places it on any mesh, or none.
 """
 
 from __future__ import annotations
@@ -32,7 +38,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.launch.mesh import local_device
+from repro_torch.parallel.sharding import place
 from repro_torch.utils.trees import tree_flatten_with_paths, tree_map_with_path
 
 try:
@@ -211,9 +221,45 @@ def _sha(b: bytes) -> str:
 # checkpoints
 # --------------------------------------------------------------------------
 
+def _sharded(tree) -> bool:
+    return any(isinstance(t, DTensor) for _, t in tree_flatten_with_paths(tree))
+
+
+def _host(tree):
+    """The writer's copy of ``tree``, each leaf whole on the host; None on
+    the other ranks. DTensor leaves are gathered one at a time (every rank
+    of their mesh must call this, on its main thread): a rank that does not
+    write drops each gathered leaf at once. So a save holds one whole leaf
+    at a time on each card, and the whole tree in host memory on rank 0
+    alone."""
+    keep = _writer()
+
+    def one(_, t):
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        if not keep:
+            return None
+        return t.detach().to("cpu", copy=True) if isinstance(t, torch.Tensor) else t
+    host = tree_map_with_path(one, tree)
+    return host if keep else None
+
+
+def _writer() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(bucket, prefix: str, step: int, tree, metadata: Optional[dict] = None):
-    """Synchronous checkpoint save. ``bucket`` is a MountedBucket-like."""
+    """Synchronous checkpoint save. ``bucket`` is a MountedBucket-like. A
+    tree of DTensors is gathered leaf by leaf on every rank and written by
+    rank 0, whose host memory alone holds the whole tree (``_host``); every
+    rank returns after the write (a barrier)."""
     base = f"{prefix}/step_{step:08d}"
+    if _sharded(tree):
+        host = _host(tree)
+        if host is not None:
+            save(bucket, prefix, step, host, metadata)
+        dist.barrier()
+        return base
     manifest = {"step": step, "leaves": {}, "metadata": metadata or {}}
     for path, leaf in tree_flatten_with_paths(tree):
         blob = _encode_leaf(leaf)
@@ -262,10 +308,17 @@ def latest_step(bucket, prefix: str, verify_data: bool = True) -> Optional[int]:
     return None
 
 
-def restore(bucket, prefix: str, step: int):
+def restore(bucket, prefix: str, step: int, like=None, shardings=None):
     """Load a checkpoint: ({path: CPU tensor}, metadata). A train state is
     rebuilt from it, its paths, shapes and dtypes checked, by
-    ``repro_torch.convert.train_state_from_numpy``."""
+    ``repro_torch.convert.train_state_from_numpy``.
+
+    With ``like`` (a tree of tensors or ``params.ShapeDtype``; e.g.
+    ``steps.abstract_train_state``) the tree comes back in its structure,
+    each leaf checked against its shape and dtype; with ``shardings`` (a
+    same-structured tree of ``NamedSharding``, or None for a leaf to keep
+    whole) each leaf is placed on its mesh, on this rank's device, which
+    may be another mesh than the one that saved."""
     base = f"{prefix}/step_{step:08d}"
     if not bucket.exists(f"{base}/MANIFEST.json"):
         raise CheckpointError(f"no manifest for {base}")
@@ -276,7 +329,24 @@ def restore(bucket, prefix: str, step: int):
         if _sha(blob) != info["sha256"]:
             raise CheckpointError(f"checksum mismatch for {path}")
         by_path[path] = _decode_leaf(blob)
-    return by_path, manifest["metadata"]
+    if like is None:
+        return by_path, manifest["metadata"]
+    missing = [p for p, _ in tree_flatten_with_paths(like) if p not in by_path]
+    if missing:
+        raise CheckpointError(f"checkpoint missing leaves: {missing[:5]}")
+    by_sharding = dict(tree_flatten_with_paths(shardings)) if shardings is not None else {}
+
+    def one(path, want):
+        t = by_path[path]
+        if tuple(t.shape) != tuple(want.shape) or t.dtype != want.dtype:
+            raise CheckpointError(f"{path}: checkpoint has {tuple(t.shape)} {t.dtype}, "
+                                  f"want {tuple(want.shape)} {want.dtype}")
+        sh = by_sharding.get(path)
+        if sh is None:
+            return t
+        return place(t.to(local_device(sh.mesh.device_type)), sh)
+
+    return tree_map_with_path(one, like), manifest["metadata"]
 
 
 class AsyncCheckpointer:
@@ -288,14 +358,21 @@ class AsyncCheckpointer:
         self.bucket = bucket
         self.prefix = prefix
         self._thread: Optional[threading.Thread] = None
+        self._barrier = False  # a sharded save in flight: wait() ends at a barrier
         self.error: Optional[Exception] = None
         self.saved_steps: list[int] = []
 
     def save(self, step: int, tree, metadata: Optional[dict] = None):
+        """A tree of DTensors is gathered here, on the calling thread (a
+        collective on every rank); only rank 0 keeps a host copy, and its
+        thread writes it, issuing no collective."""
         self.wait()
         # Snapshot to host memory now, so training may go on updating the
         # device tensors while the writes run.
-        host_tree = tree_map_with_path(lambda _, t: t.detach().to("cpu", copy=True), tree)
+        self._barrier = _sharded(tree)
+        host_tree = _host(tree)
+        if host_tree is None:
+            return
 
         def run():
             try:
@@ -311,6 +388,9 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:  # every rank returns once rank 0's write is done
+            self._barrier = False
+            dist.barrier()
         if self.error is not None:
             err, self.error = self.error, None
             raise err

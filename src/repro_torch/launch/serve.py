@@ -12,6 +12,18 @@ reference drives it in-process like its own engine: attach it to a
 ``Service`` through ``WorkloadPlane.attach_engine`` and each invoke lands
 in :meth:`infer`. It runs on the card (``device="cuda"``) unless the
 caller asks for another device; with no CUDA it raises.
+
+With ``mesh="DxM"`` the engine serves on a (data, model) mesh of D*M
+processes (``launch.mesh``; ``"1x1"`` in one process), each of which
+constructs it and calls ``generate`` with the same prompts: the params
+placed by their logical axes, the prompts split over ``data``, prefill on
+DTensors (the flash kernel on each rank's local shards), and the decode
+state placed by its logical axes; ``ctx_parallel`` shards the KV cache's
+``kv_seq`` over ``model`` (the reference's ``--ctx-parallel``). Decode
+attention stays plain PyTorch, on DTensors; each decode step writes the
+new k/v in place into each rank's local cache shard (only the rank that
+holds the position, under ``ctx_parallel``). The tokens come back whole
+on every rank.
 """
 
 from __future__ import annotations
@@ -24,10 +36,15 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.configs import get_config, get_tiny_config
+from repro_torch.data.pipeline import shard_batch
+from repro_torch.launch.mesh import mesh_env
 from repro_torch.models import encdec, steps
 from repro_torch.nn import params as prm
 from repro_torch.nn.attention import KVCache
+from repro_torch.parallel import param_shardings, use_env
 
 PHASES = ("encode", "prefill", "decode")  # profiler ranges of ``generate``
 
@@ -55,16 +72,25 @@ class ServeEngine:
     """
 
     def __init__(self, arch: str, tiny: bool = True, seed: int = 0,
-                 device=None, params: Optional[dict] = None):
+                 device=None, params: Optional[dict] = None,
+                 mesh: Optional[str] = None, ctx_parallel: bool = False):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # nn/policy.py: interior products accumulate in fp32.
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.arch = arch
         self.cfg = get_tiny_config(arch) if tiny else get_config(arch)
+        self.env, self.device = mesh_env(mesh or "1", self.device,
+                                         {"kv_seq": "model"} if ctx_parallel else None)
+        if self.env.active and self.cfg.is_encoder_decoder:
+            raise ValueError("ServeEngine: an encoder-decoder serves on one device only "
+                             "(ROADMAP A.14)")
         self._gen = torch.Generator(device="cpu").manual_seed(seed)
         self.params = (params if params is not None
                        else steps.init_params(self.cfg, seed, self.device))
+        if self.env.active:
+            self.params = steps.place_tree(self.params, param_shardings(
+                steps.param_axes(self.cfg), self.params, self.env))
         self._prefill = steps.make_prefill_step(self.cfg)
         self._decode = steps.make_decode_step(self.cfg)
 
@@ -74,7 +100,6 @@ class ServeEngine:
                              generator=self._gen)
 
     # -- the per-batch hot path -------------------------------------------
-    @torch.inference_mode()
     def generate(self, prompts, gen: int) -> dict:
         """Prefill ``prompts`` (B, S) and decode ``gen`` tokens. Returns
         ``{"tokens": (B, gen) CPU tensor, "prefill_s": float, "decode_s":
@@ -86,7 +111,13 @@ class ServeEngine:
         greedily from token 0 at position 0 against a decode state at
         capacity S + gen in the config's dtype (ROADMAP C.15);
         ``prefill_s`` is 0."""
-        prompts = torch.as_tensor(prompts, dtype=torch.long).to(self.device)
+        # DTensor's views cannot run in inference mode (a version counter)
+        grad_off = torch.no_grad() if self.env.active else torch.inference_mode()
+        with grad_off, use_env(self.env):
+            return self._generate(prompts, gen)
+
+    def _generate(self, prompts, gen: int) -> dict:
+        prompts = shard_batch({"tokens": prompts}, self.env, self.device)["tokens"]
         B, S = prompts.shape
         cfg = self.cfg
         if cfg.is_encoder_decoder:
@@ -107,6 +138,9 @@ class ServeEngine:
             t_pf = time.perf_counter() - t0
             # move prefill KV into the fixed-capacity decode cache
             states = steps.decode_state(cfg, B, S + gen, self.device)
+            if self.env.active:
+                states = steps.place_tree(states, steps.decode_state_shardings(
+                    cfg, states, self.env))
             states = _install_prefill(states, pf_states)
             cache_len = S
         generated = [tok]
@@ -117,8 +151,10 @@ class ServeEngine:
                 generated.append(tok)
             _sync(self.device)
         t_dec = time.perf_counter() - t0
-        return {"tokens": torch.cat(generated, dim=1).cpu(),
-                "prefill_s": t_pf, "decode_s": t_dec}
+        tokens = torch.cat(generated, dim=1)
+        if isinstance(tokens, DTensor):
+            tokens = tokens.full_tensor()
+        return {"tokens": tokens.cpu(), "prefill_s": t_pf, "decode_s": t_dec}
 
     # -- serving-tier adapter ---------------------------------------------
     def infer(self, payload=None) -> dict:
@@ -141,11 +177,15 @@ def _install_prefill(states, pf_states):
     pass recurrent state dicts through from prefill.
 
     In place for the KV caches: each is allocated once per batch at
-    capacity S+gen, and the prompt's K/V are copied into its first S slots."""
+    capacity S+gen, and the prompt's K/V are copied into its first S slots.
+    A DTensor cache is made anew instead: the prompt's K/V and zeros up to
+    capacity, in the cache's placements."""
 
     def install(slot, new):
         if not isinstance(slot, KVCache):
             return new
+        if isinstance(slot.k, DTensor):
+            return KVCache(*(_padded(c, n) for c, n in zip(slot, new)))
         s = new.k.shape[-2]
         slot.k[..., :s, :].copy_(new.k)
         slot.v[..., :s, :].copy_(new.v)
@@ -154,6 +194,15 @@ def _install_prefill(states, pf_states):
     if isinstance(states, list):
         return [install(slot, new) for slot, new in zip(states, pf_states)]
     return install(states, pf_states)
+
+
+def _padded(slot: DTensor, new: DTensor) -> DTensor:
+    """``new`` (…, S, D) zero-padded along S to ``slot``'s capacity, in
+    ``slot``'s placements."""
+    pad = list(slot.shape)
+    pad[-2] -= new.shape[-2]
+    full = torch.cat([new, torch.zeros(pad, dtype=new.dtype, device=new.device)], dim=-2)
+    return full.redistribute(slot.device_mesh, slot.placements)
 
 
 def main(argv=None):
@@ -165,17 +214,25 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="1", help="e.g. 2x2 = data x model")
+    ap.add_argument("--ctx-parallel", action="store_true",
+                    help="shard the KV cache's sequence over the model axis")
     ap.add_argument("--profile", action="store_true",
                     help="after one warm-up batch, trace one more with "
                          "torch.profiler and print where the time goes")
     args = ap.parse_args(argv)
+    if args.profile and args.mesh != "1":
+        raise SystemExit("--profile traces one device's generate: run it without --mesh")
 
     engine = ServeEngine(args.arch, tiny=args.tiny, seed=args.seed,
-                         device=args.device)
+                         device=args.device, mesh=args.mesh,
+                         ctx_parallel=args.ctx_parallel)
     B, S = args.requests, args.prompt_len
     prompts = engine.synthetic_prompts(B, S)
     out = engine.generate(prompts, args.gen)
     toks, t_pf, t_dec = out["tokens"], out["prefill_s"], out["decode_s"]
+    if engine.env.active and torch.distributed.get_rank() != 0:
+        return  # rank 0 prints
 
     where = (torch.cuda.get_device_name(engine.device)
              if engine.device.type == "cuda" else str(engine.device))

@@ -33,6 +33,7 @@ from repro_torch.nn.layers import (
 )
 from repro_torch.nn.mlp import def_mlp, mlp
 from repro_torch.nn.policy import interior_einsum
+from repro_torch.parallel import shard
 
 
 def _def_enc_block(cfg: ModelConfig):
@@ -69,6 +70,7 @@ def encode(p, frames, cfg: ModelConfig, force=None):
     reference)."""
     b, s, _ = frames.shape
     x = frames + sinusoidal_positions(s, cfg.d_model, device=frames.device).to(frames.dtype)
+    x = shard(x, "batch", "enc_seq", "embed")
     positions = torch.arange(s, device=frames.device).expand(b, s)
     for blk in p["enc"]:
         h = norm(blk["norm1"], x, cfg.rms_norm)
@@ -76,6 +78,7 @@ def encode(p, frames, cfg: ModelConfig, force=None):
                              causal=False, mode="train", force=force)
         x = x + o
         x = x + mlp(blk["mlp"], norm(blk["norm2"], x, cfg.rms_norm), cfg.act)
+        x = shard(x, "batch", "enc_seq", "embed")
     return norm(p["enc_norm"], x, cfg.rms_norm)
 
 
@@ -85,6 +88,7 @@ def decode_train(p, tokens, memory, cfg: ModelConfig, force=None):
     b, s = tokens.shape
     x = embed_lookup(p["embed"], tokens).to(prm.torch_dtype(cfg.dtype))
     x = x + sinusoidal_positions(s, cfg.d_model, device=x.device).to(x.dtype)
+    x = shard(x, "batch", "seq", "embed")
     positions = torch.arange(s, device=x.device).expand(b, s)
     for blk in p["dec"]:
         h = norm(blk["norm1"], x, cfg.rms_norm)
@@ -95,6 +99,7 @@ def decode_train(p, tokens, memory, cfg: ModelConfig, force=None):
         o, _ = cross_attention(blk["cross"], h, memory=memory)
         x = x + o
         x = x + mlp(blk["mlp"], norm(blk["norm2"], x, cfg.rms_norm), cfg.act)
+        x = shard(x, "batch", "seq", "embed")
     x = norm(p["dec_norm"], x, cfg.rms_norm)
     return unembed(p["embed"], x)
 

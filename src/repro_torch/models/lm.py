@@ -3,11 +3,13 @@
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import params as prm
 from repro_torch.nn.blocks import def_stack, stack_apply
 from repro_torch.nn.layers import def_norm, embed_lookup, norm, unembed
+from repro_torch.parallel import shard
 
 
 def def_lm(cfg: ModelConfig):
@@ -35,12 +37,14 @@ def lm_apply(p, tokens, cfg: ModelConfig, *, mode="prefill", states=None,
     else:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = embed_lookup(p["embed"], tokens).to(prm.torch_dtype(cfg.dtype))
+    x = shard(x, "batch", "seq", "embed")
     x, new_states = stack_apply(p["blocks"], x, cfg, positions=positions,
                                 mode=mode, states=states, cache_len=cache_len,
                                 force=force)
     x = norm(p["final_norm"], x, cfg.rms_norm)
     table = p["embed"] if cfg.tie_embeddings else p["unembed"]
-    return unembed(table, x), new_states
+    logits = shard(unembed(table, x), "batch", "seq", "vocab")
+    return logits, new_states
 
 
 # --------------------------------------------------------------------------
@@ -55,6 +59,12 @@ def cross_entropy(logits, labels, z_loss: float = 1e-4):
     least 1)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
+    if isinstance(logits, DTensor):
+        # the gather along a vocab-sharded dim takes DTensor's masked partial
+        # path, which fails on these shapes: gather the vocab first
+        whole = tuple(Replicate() if p == Shard(logits.dim() - 1) else p
+                      for p in logits.placements)
+        logits = logits.redistribute(logits.device_mesh, whole)
     gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
     nll = lse - gold
     if z_loss:

@@ -1,18 +1,28 @@
 """Step factories of the decoder-only LM and the encoder-decoder (whisper):
-train and eval, prefill and decode."""
+train and eval, prefill and decode; the train state's abstract form and its
+shardings on a mesh.
+
+Under an active mesh env (``parallel.use_env``) the same steps run on
+DTensors: the params and the ZeRO-1 optimizer state placed by
+``train_state_shardings``, the batch by ``data.pipeline.shard_batch``."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.data.pipeline import shard_batch
 from repro_torch.models import encdec, lm
 from repro_torch.nn import params as prm
-from repro_torch.nn.blocks import init_stack_state
+from repro_torch.nn.blocks import init_stack_state, stack_state_axes
 from repro_torch.optim import adamw
-from repro_torch.utils.trees import tree_flatten_with_paths, tree_unflatten
+from repro_torch.parallel import current_env
+from repro_torch.parallel.sharding import NamedSharding, P, param_shardings, place
+from repro_torch.parallel.zero import opt_state_shardings
+from repro_torch.utils.trees import tree_flatten_with_paths, tree_map_with_path, tree_unflatten
 
 
 class TrainState(NamedTuple):
@@ -33,6 +43,46 @@ def model_defs(cfg: ModelConfig):
 def init_params(cfg: ModelConfig, seed: int, device="cpu"):
     return prm.materialize(seed, model_defs(cfg), prm.torch_dtype(cfg.dtype),
                            device)
+
+
+def param_axes(cfg: ModelConfig):
+    """The params' logical axes: a tuple of names at each leaf."""
+    return prm.axes_of(model_defs(cfg))
+
+
+def abstract_params(cfg: ModelConfig):
+    return prm.abstract(model_defs(cfg), prm.torch_dtype(cfg.dtype))
+
+
+def abstract_train_state(cfg: ModelConfig) -> TrainState:
+    """The train state's leaves as ``ShapeDtype`` (restore's ``like``)."""
+    params = abstract_params(cfg)
+    f32 = lambda _, a: prm.ShapeDtype(a.shape, torch.float32)  # noqa: E731
+    return TrainState(prm.ShapeDtype((), torch.int32), params,
+                      adamw.OptState(*(tree_map_with_path(f32, params) for _ in range(3))))
+
+
+def train_state_shardings(cfg: ModelConfig, env) -> TrainState:
+    """NamedShardings of the train state on ``env``'s mesh: the step
+    replicated, the params by their logical axes, the optimizer state by
+    ZeRO-1 (the reference's train CLI's ``st_sh``)."""
+    aparams, axes = abstract_params(cfg), param_axes(cfg)
+    return TrainState(NamedSharding(env.mesh, P()), param_shardings(axes, aparams, env),
+                      opt_state_shardings(axes, aparams, env))
+
+
+def place_tree(tree, shardings):
+    """Each leaf of ``tree`` (whole, the same on every rank) placed with the
+    same-path leaf of ``shardings`` (``parallel.sharding.place``)."""
+    by_path = dict(tree_flatten_with_paths(shardings))
+    return tree_map_with_path(lambda path, t: place(t, by_path[path]), tree)
+
+
+def decode_state_shardings(cfg: ModelConfig, states, env):
+    """NamedShardings of a decode state on ``env``'s mesh, from the stack's
+    state axes (the KV cache's ``kv_seq`` axis is what ``ctx_parallel``
+    shards)."""
+    return param_shardings(stack_state_axes(cfg), states, env)
 
 
 def make_prefill_step(cfg: ModelConfig, force=None):
@@ -104,7 +154,11 @@ def init_train_state(cfg: ModelConfig, seed: int, device="cpu") -> TrainState:
 def _batch_on(batch, device):
     """The batch's arrays (numpy or tensors) as tensors on ``device``: the
     integer ``tokens`` and ``labels`` as int64, floating ``frames`` in their
-    own dtype."""
+    own dtype. Under an active mesh env, DTensors placed by ``shard_batch``
+    (a batch of DTensors is taken as it is)."""
+    env = current_env()
+    if env.active:
+        return shard_batch(batch, env, device)
     out = {}
     for k, v in batch.items():
         t = torch.as_tensor(v)
@@ -150,9 +204,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, force=None):
                                                donate=state.params)
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()},
                    **om, "step": state.step}
+        metrics = {k: _whole(v) for k, v in metrics.items()}
         return TrainState(state.step + 1, new_params, new_opt), metrics
 
     return train_step
+
+
+def _whole(t):
+    """A replicated DTensor metric as a plain tensor (plain ones as they are)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def make_eval_step(cfg: ModelConfig, force=None):

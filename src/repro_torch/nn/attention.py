@@ -14,11 +14,14 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops
 from repro_torch.nn import params as prm
 from repro_torch.nn.layers import apply_rope, def_headnorm, rmsnorm
 from repro_torch.nn.policy import interior_einsum
+from repro_torch.parallel import shard
+from repro_torch.parallel.sharding import batch_only, gather_dim
 
 NEG_INF = -1e30
 
@@ -67,6 +70,7 @@ def _project_qkv(p, x, positions, rope_theta, use_rope=True):
     reference's order: the products, with the biases where the arch has
     them (qkv_bias), in x's dtype, then the per-head norms (qk_norm), then
     RoPE."""
+    x = batch_only(x)
     q = _project(x, p["wq"], p.get("bq"))
     k = _project(x, p["wk"], p.get("bk"))
     v = _project(x, p["wv"], p.get("bv"))
@@ -76,6 +80,9 @@ def _project_qkv(p, x, positions, rope_theta, use_rope=True):
     if use_rope:
         q = apply_rope(q, positions[:, None, :], rope_theta)
         k = apply_rope(k, positions[:, None, :], rope_theta)
+    q = shard(q, "batch_attn", "heads", "attn_seq", "head_dim")
+    k = shard(k, "batch_attn", "kv_heads", "attn_seq", "head_dim")
+    v = shard(v, "batch_attn", "kv_heads", "attn_seq", "head_dim")
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
@@ -158,8 +165,18 @@ def decode_attention(q, cache: KVCache, cache_len: int, *, window=0):
 
     q: (B, H, 1, D); cache.k/v: (B, KV, S_max, D); ``cache_len`` valid
     entries (the new token's k/v already written at cache_len - 1). Scores
-    are computed in the cache's dtype, the softmax in fp32.
+    are computed in the cache's dtype, the softmax in fp32. DTensors whose
+    cache is whole along its sequence run on each rank's local (batch,
+    heads) shards, as the flash kernel does (``ops.heads_local``); a cache
+    split on its sequence (ctx_parallel) runs as DTensors, q's heads
+    gathered first (DTensor 2.11 cannot split a split head axis into
+    groups).
     """
+    if isinstance(q, DTensor):
+        if Shard(2) not in cache.k.placements:
+            return ops.heads_local(q, cache.k, cache.v, lambda ql, kl, vl: decode_attention(
+                ql, KVCache(kl, vl), cache_len, window=window), "decode_attention")
+        q = gather_dim(q, 1)
     b, h, _, d = q.shape
     n_kv, s_max = cache.k.shape[1], cache.k.shape[2]
     qg = _group_q(q * (d ** -0.5), n_kv)
@@ -172,6 +189,24 @@ def decode_attention(q, cache: KVCache, cache_len: int, *, window=0):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgsc,bkcd->bkgsd", p.to(cache.v.dtype), cache.v)
     return o.reshape(b, h, 1, d).to(q.dtype)
+
+
+def _write_local(cache: DTensor, new: DTensor, pos: int):
+    """Write ``new`` (B, KV, 1, D) at position ``pos`` of the DTensor
+    ``cache`` (B, KV, S_max, D), in place, into each rank's local shard:
+    ``new`` is first placed as the cache is on batch and heads, and where
+    the cache splits its sequence (ctx_parallel) only the rank that holds
+    ``pos`` writes."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    mesh = cache.device_mesh
+    want = tuple(Replicate() if p == Shard(2) else p for p in cache.placements)
+    shape, offset = compute_local_shape_and_global_offset(cache.shape, mesh,
+                                                          cache.placements)
+    at = pos - offset[2]
+    with torch.no_grad():
+        new = new.redistribute(mesh, want).to_local()  # on every rank: a collective
+        if 0 <= at < shape[2]:
+            cache.to_local()[:, :, at] = new[:, :, 0]
 
 
 def gqa_attention(
@@ -200,8 +235,12 @@ def gqa_attention(
             raise ValueError("decode needs a cache and cache_len")
         # In place: the cache is preallocated at capacity, and this step's
         # k/v land at position cache_len; then attend cache_len+1 entries.
-        cache.k[:, :, cache_len:cache_len + 1] = k
-        cache.v[:, :, cache_len:cache_len + 1] = v
+        if isinstance(cache.k, DTensor):
+            _write_local(cache.k, k, cache_len)
+            _write_local(cache.v, v, cache_len)
+        else:
+            cache.k[:, :, cache_len:cache_len + 1] = k
+            cache.v[:, :, cache_len:cache_len + 1] = v
         new_cache = cache
         o = decode_attention(q, cache, cache_len + 1, window=window)
     elif mode in ("train", "prefill"):
@@ -210,7 +249,8 @@ def gqa_attention(
         new_cache = KVCache(k, v) if mode == "prefill" else None
     else:
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
-    y = interior_einsum("bhsk,hkd->bsd", o, p["wo"])
+    o = shard(o, "batch_attn", "heads", "attn_seq", "head_dim")
+    y = batch_only(interior_einsum("bhsk,hkd->bsd", o, p["wo"]))
     return y, new_cache
 
 

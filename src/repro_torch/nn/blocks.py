@@ -42,6 +42,8 @@ from repro_torch.nn.mlp import def_mlp, mlp
 from repro_torch.nn.moe import def_moe, moe_ffn
 from repro_torch.nn.policy import interior_einsum
 from repro_torch.nn.recurrent import (
+    MLSTMState,
+    SLSTMState,
     causal_conv,
     causal_conv_step,
     conv_state_init,
@@ -57,6 +59,8 @@ from repro_torch.nn.recurrent import (
     slstm_state_init,
     slstm_step,
 )
+from repro_torch.parallel import current_env, shard, use_env
+from repro_torch.parallel.sharding import batch_only, gather_dim
 from repro_torch.utils.trees import (
     tree_flatten_with_paths,
     tree_map_with_path,
@@ -176,7 +180,12 @@ def _conv_history(u, width):
     """Prefill's conv state: the last width-1 *pre-conv* inputs (B, width-1,
     C), zeros before the prompt's start where it is shorter (ROADMAP C.7:
     the reference cannot slice them there)."""
-    return F.pad(u[:, -(width - 1):], (0, 0, max(0, width - 1 - u.shape[1]), 0))
+    hist = u[:, -(width - 1):]
+    short = width - 1 - hist.shape[1]
+    if short <= 0:
+        return hist
+    zeros = torch.zeros((u.shape[0], short, u.shape[2]), dtype=u.dtype, device=u.device)
+    return torch.cat([zeros, hist], dim=1)  # not F.pad: see nn.recurrent._shift
 
 
 def _split_heads(t, n_heads):
@@ -211,14 +220,14 @@ def apply_attn_block(p, x, cfg: ModelConfig, *, positions, mode="prefill",
         p["attn"], h, positions=positions, rope_theta=cfg.rope_theta,
         use_rope=cfg.use_rope, causal=True, window=cfg.local_window,
         cache=state, cache_len=cache_len, mode=mode, force=force)
-    x = x + attn_out
+    x = shard(x + attn_out, "batch", "seq", "embed")
     h = norm(p["norm2"], x, cfg.rms_norm)
     if cfg.is_moe:
         ffn_out, aux = moe_ffn(p["moe"], h, top_k=cfg.top_k,
                                capacity_factor=cfg.capacity_factor, act=cfg.act)
     else:
         ffn_out, aux = mlp(p["mlp"], h, cfg.act), None
-    return x + ffn_out, new_cache, aux
+    return shard(x + ffn_out, "batch", "seq", "embed"), new_cache, aux
 
 
 def _check_mode(mode):
@@ -235,7 +244,7 @@ def apply_rglru_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None,
     ``apply_rglru_block``); under grad on the card its scan is
     ``RGLRUScanFn``."""
     _check_mode(mode)
-    h = norm(p["norm1"], x, cfg.rms_norm)
+    h = batch_only(norm(p["norm1"], x, cfg.rms_norm))
     gate = activation("gelu")(
         interior_einsum("bsd,dw->bsw", h, p["w_gate"]).float()).to(x.dtype)
     u = interior_einsum("bsd,dw->bsw", h, p["w_x"])
@@ -245,15 +254,19 @@ def apply_rglru_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None,
         r = r[:, None]
         new_state = {"conv": conv_state, "h": h_new}
     else:
-        r, h_last = rglru(p["lru"], causal_conv(p["conv"], u), cfg.n_heads,
+        # --sp splits the sequence before lru can take the model axis, and
+        # the scan runs on whole time: gathered here, as XLA gathers it
+        xs = gather_dim(shard(causal_conv(p["conv"], u), "batch", "seq", "lru"), 1)
+        r, h_last = rglru(p["lru"], xs, cfg.n_heads,
                           h0=state["h"] if state is not None else None,
                           force=force)
         new_state = None
         if mode == "prefill":
             new_state = {"conv": _conv_history(u, p["conv"]["w"].shape[0]), "h": h_last}
-    x = x + interior_einsum("bsw,wd->bsd", (r * gate).to(x.dtype), p["w_out"])
+    x = x + batch_only(interior_einsum("bsw,wd->bsd", (r * gate).to(x.dtype), p["w_out"]))
+    x = shard(x, "batch", "seq", "embed")
     x = x + mlp(p["mlp"], norm(p["norm2"], x, cfg.rms_norm), cfg.act)
-    return x, new_state
+    return shard(x, "batch", "seq", "embed"), new_state
 
 
 def apply_mlstm_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None):
@@ -296,7 +309,7 @@ def apply_mlstm_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None):
             new_state = {"conv": _conv_history(u, p["conv"]["w"].shape[0]), "state": mstate}
     hout = _group_rms(p["out_norm"], hout, nh)
     y = (hout * F.silu(g.float()).to(x.dtype)) @ p["wo"]
-    return x + y.to(x.dtype), new_state
+    return shard(x + y.to(x.dtype), "batch", "seq", "embed"), new_state
 
 
 def apply_slstm_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None):
@@ -330,7 +343,7 @@ def apply_slstm_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None):
         if mode == "prefill":
             new_state = {"conv": _conv_history(h, p["conv"]["w"].shape[0]), "state": sstate}
     x = x + _group_rms(p["out_norm"], hout, nh)
-    return x + mlp(p["ffn"], x, "silu"), new_state
+    return shard(x + mlp(p["ffn"], x, "silu"), "batch", "seq", "embed"), new_state
 
 
 def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions=None,
@@ -391,9 +404,17 @@ def _remat_wrap(fn, cfg: ModelConfig):
     """The reference's per-layer remat: nothing for ``"none"``, a
     non-reentrant ``torch.utils.checkpoint`` for ``"full"`` (the layer's
     forward runs again in the backward), the same keeping matmul outputs
-    for ``"dots"``."""
+    for ``"dots"``. The forward's mesh env goes with it: on the card the
+    backward, recompute included, runs on autograd's device thread, whose
+    env stack is its own (empty)."""
     if cfg.remat == "none":
         return fn
+    env, inner = current_env(), fn
+
+    def fn(*args):
+        with use_env(env):
+            return inner(*args)
+
     if cfg.remat == "full":
         return functools.partial(checkpoint, fn, use_reentrant=False)
     if cfg.remat == "dots":
@@ -469,3 +490,36 @@ def init_stack_state(cfg: ModelConfig, batch: int, s_max: int,
                        v=torch.zeros(shape, dtype=dtype, device=device))
     return [init_block_state(cfg, kind, batch, s_max, dtype, device)
             for kind in cfg.pattern_for_layers()]
+
+
+# --------------------------------------------------------------------------
+# logical axes of decode state (its shardings on a mesh)
+# --------------------------------------------------------------------------
+
+def block_state_axes(cfg: ModelConfig, kind: str):
+    """The logical axes of one block's decode state, leaf for leaf."""
+    if kind == "attn":
+        kv = ("batch", "kv_heads", "kv_seq", "head_dim")
+        return KVCache(k=kv, v=kv)
+    if kind == "rglru":
+        return {"conv": ("batch", None, "lru"), "h": ("batch", "lru")}
+    if kind == "mlstm":
+        return {"conv": ("batch", None, "lru"),
+                "state": MLSTMState(c=("batch", "heads", None, None),
+                                    n=("batch", "heads", None),
+                                    m=("batch", "heads"))}
+    if kind == "slstm":
+        return {"conv": ("batch", None, "lru"),
+                "state": SLSTMState(c=("batch", "heads", None),
+                                    n=("batch", "heads", None),
+                                    m=("batch", "heads", None),
+                                    h=("batch", "heads", None))}
+    raise ValueError(kind)
+
+
+def stack_state_axes(cfg: ModelConfig):
+    """The decode state's logical axes for the whole stack."""
+    if _stackable(cfg):
+        kv = ("layers", "batch", "kv_heads", "kv_seq", "head_dim")
+        return KVCache(k=kv, v=kv)
+    return [block_state_axes(cfg, k) for k in cfg.pattern_for_layers()]

@@ -9,8 +9,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.nn import params as prm
+from repro_torch.parallel.sharding import batch_only
 
 
 # --------------------------------------------------------------------------
@@ -18,13 +20,19 @@ from repro_torch.nn import params as prm
 # --------------------------------------------------------------------------
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of ``table``. A DTensor table sharded over its vocab is
+    gathered first: DTensor's masked lookup of a vocab shard gives a partial
+    result whose gradient it cannot route back."""
+    if isinstance(table, DTensor) and Shard(0) in table.placements:
+        whole = tuple(Replicate() if p == Shard(0) else p for p in table.placements)
+        table = table.redistribute(table.device_mesh, whole)
     return F.embedding(ids, table)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: x @ table.T → logits in fp32 (bf16 operands are
     exact in fp32, so this is the fp32-accumulated product)."""
-    return torch.einsum("...d,vd->...v", x.float(), table.float())
+    return torch.einsum("...d,vd->...v", batch_only(x).float(), table.float())
 
 
 # --------------------------------------------------------------------------
@@ -89,6 +97,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_freqs(x.shape[-1], theta, x.device)  # (half,)
     angles = positions[..., None].float() * freqs  # (..., seq, half)
     cos, sin = torch.cos(angles), torch.sin(angles)
+    if isinstance(x, DTensor) and not isinstance(cos, DTensor):
+        # replicated DTensors, not plain constants: the product's backward
+        # meets them in autograd's thread, where no env lets them mix
+        whole = [Replicate()] * x.device_mesh.ndim
+        cos, sin = (DTensor.from_local(t, x.device_mesh, whole, run_check=False)
+                    for t in (cos, sin))
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

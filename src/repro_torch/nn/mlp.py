@@ -7,6 +7,8 @@ import torch
 from repro_torch.nn import params as prm
 from repro_torch.nn.layers import activation
 from repro_torch.nn.policy import interior_einsum
+from repro_torch.parallel import shard
+from repro_torch.parallel.sharding import batch_only, gather_dim
 
 
 def def_mlp(d_model: int, d_ff: int, act: str = "silu"):
@@ -27,10 +29,12 @@ def mlp(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     the gating product) run in fp32. The reference keeps the up/gate
     products in fp32 until then; here they come back in x's dtype first,
     which adds one bf16 rounding (fp32 is exact; ROADMAP C.8)."""
+    x = batch_only(x)
     up = interior_einsum("...d,df->...f", x, p["up"])
     if "gate" in p:
         gate = interior_einsum("...d,df->...f", x, p["gate"])
         h = activation(act)(gate.float()) * up.float()
     else:
         h = activation(act)(up.float())
-    return interior_einsum("...f,fd->...d", h.to(x.dtype), p["down"])
+    h = gather_dim(shard(h.to(x.dtype), "batch", "seq", "mlp"), 1)  # --sp splits its seq
+    return batch_only(interior_einsum("...f,fd->...d", h, p["down"]))

@@ -87,6 +87,24 @@ def materialize(seed: int, defs, dtype: torch.dtype = torch.bfloat16,
     return tree_map_with_path(build, defs)
 
 
+@dataclass(frozen=True)
+class ShapeDtype:
+    """A leaf's shape and dtype, with no storage (``jax.ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def abstract(defs, dtype: torch.dtype = torch.bfloat16):
+    """ShapeDtype tree for a ParamDef tree (no allocation)."""
+    return tree_map_with_path(lambda _, d: ShapeDtype(tuple(d.shape), leaf_dtype(d, dtype)),
+                              defs)
+
+
+def axes_of(defs):
+    """Logical-axes tree (leaves = tuples) mirroring the params tree."""
+    return tree_map_with_path(lambda _, d: tuple(d.axes), defs)
+
+
 # --- declaration helpers --------------------------------------------------
 
 

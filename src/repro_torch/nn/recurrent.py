@@ -41,14 +41,24 @@ def def_causal_conv(width, channels):
     }
 
 
+def _shift(x, j):
+    """x (B, S, C) shifted j steps later along S, zeros before its start: a
+    concatenation, not a pad and a slice, which on a DTensor give a wrong
+    local shape in some PyTorch versions (2.11)."""
+    b, s, c = x.shape
+    if j == 0:
+        return x
+    zeros = torch.zeros((b, min(j, s), c), dtype=x.dtype, device=x.device)
+    return zeros if j >= s else torch.cat([zeros, x[:, :s - j]], dim=1)
+
+
 def causal_conv(p, x):
     """x: (B, S, C) → same shape; causal depthwise conv, width = p.w.shape[0].
     Accumulated in fp32 (tap j sees x shifted j steps back), bias in fp32."""
-    width, s = p["w"].shape[0], x.shape[1]
+    width = p["w"].shape[0]
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for j in range(width):
-        xj = F.pad(x, (0, 0, j, 0))[:, :s]
-        out = out + xj.float() * p["w"][width - 1 - j].float()
+        out = out + _shift(x, j).float() * p["w"][width - 1 - j].float()
     out = out + p["b"].float()
     return out.to(x.dtype)
 

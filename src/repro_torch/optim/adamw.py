@@ -12,6 +12,15 @@ reference's train CLI donates its jitted step's): m, v, the master copy and
 the params are then updated in place, with the same arithmetic and so the
 same bits, and no second copy of the optimizer state is allocated
 (recurrentgemma-2b's fp32 m, v and master take 32 GB).
+
+On a mesh the leaves are DTensors: the params placed by their logical axes,
+m, v and the master by ZeRO-1 (``parallel.zero``). The donated update then
+runs the reference's ZeRO-1 schedule by hand: each gradient is
+redistributed to its leaf's optimizer placement (a reduce-scatter over DP
+of a partial sum), the global norm is taken over the DTensors, AdamW runs
+on each rank's local shards of m, v and the master, in the same pieces,
+and each new param is brought back to its own placement (an all-gather
+over DP).
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.utils.trees import tree_flatten_with_paths, tree_unflatten
 
@@ -78,7 +88,9 @@ def init(params) -> OptState:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf in fp32, the leaves summed in
-    flattening order (sorted dict keys), as the reference sums them."""
+    flattening order (sorted dict keys), as the reference sums them. Over
+    DTensors each square sum is a partial sum over the shards, reduced
+    once at the sqrt: a replicated 0-d DTensor."""
     total = None
     for _, leaf in tree_flatten_with_paths(tree):
         sq = torch.sum(torch.square(leaf.float()))
@@ -90,15 +102,36 @@ def global_norm(tree) -> torch.Tensor:
 DONATE_PIECE = 1 << 26
 
 
+def _local(t):
+    """A DTensor's local shard (its own storage, written in place), or t."""
+    if isinstance(t, DTensor):
+        with torch.no_grad():
+            return t.to_local()
+    return t
+
+
 def update(cfg: AdamWConfig, grads, state: OptState, step, donate=None):
     """One AdamW step. ``grads`` in any dtype, the math in fp32 on the master
     weights; ``step`` the 0-d int step tensor before this update. With
     ``donate`` (the params tree that ``state`` belongs to) the update is
     written into ``state``'s tensors and ``donate``'s instead of new ones.
+    DTensor leaves (module doc) take the donated update only.
 
     Returns (new_params (each cast to its grad's dtype, the param's own),
     new_state, {"grad_norm", "lr"})."""
+    flat_m = dict(tree_flatten_with_paths(state.m))
+    sharded = isinstance(next(iter(flat_m.values())), DTensor)
+    if sharded:
+        if donate is None:
+            raise ValueError("adamw.update: DTensor state takes the donated update")
+        # ZeRO-1: each gradient reduced straight to its optimizer placement
+        grads = tree_unflatten({path: g.redistribute(flat_m[path].device_mesh,
+                                                     flat_m[path].placements)
+                                for path, g in tree_flatten_with_paths(grads)})
     gnorm = global_norm(grads)
+    if isinstance(gnorm, DTensor):
+        gnorm = gnorm.full_tensor()
+    step = _local(step)
     device = gnorm.device
     if cfg.clip_norm > 0:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -150,10 +183,20 @@ def update(cfg: AdamWConfig, grads, state: OptState, step, donate=None):
         # granite-moe (32 x 40 x 1536 x 512) takes 4 GiB a temporary. Each
         # op is elementwise, so the pieces give the whole leaf's bits.
         decay = decay_of(flat_w[path])
-        pieces = [g.reshape(-1).split(DONATE_PIECE)] + [
-            t.view(-1).split(DONATE_PIECE)  # views: written in place
-            for t in (flat_m[path], flat_v[path], flat_w[path], flat_p[path])]
+        p, w_full = flat_p[path], flat_w[path]
+        gather = sharded and p.placements != w_full.placements
+        # the param's own pieces, or (ZeRO-1) its shard in the master's placement
+        p_loc = torch.empty_like(_local(w_full), dtype=p.dtype) if gather else _local(p)
+        pieces = [_local(g).reshape(-1).split(DONATE_PIECE)] + [
+            _local(t).view(-1).split(DONATE_PIECE)  # views: written in place
+            for t in (flat_m[path], flat_v[path], w_full)] + [
+            p_loc.view(-1).split(DONATE_PIECE)]
         for gp, mp, vp, wp, pp in zip(*pieces):
             _, _, w = upd(gp, mp, vp, wp, decay)
             pp.copy_(w)  # the master rounded to the param's dtype, as .to rounds
+        if gather:  # the new param back to its own placement: all-gather over DP
+            new = DTensor.from_local(p_loc, w_full.device_mesh, w_full.placements,
+                                     run_check=False, shape=w_full.shape,
+                                     stride=w_full.stride())
+            _local(p).copy_(new.redistribute(p.device_mesh, p.placements).to_local())
     return donate, state, {"grad_norm": gnorm, "lr": lr}

@@ -286,8 +286,8 @@ def test_moe_grads_with_rows_dropped_at_capacity_match_jax():
     drops, ties = [], 0
     dispatch, router_topk = moe._dispatch_indices, moe.router_topk
 
-    def counting_dispatch(idx, n_experts, cap):
-        src, sizes = dispatch(idx, n_experts, cap)
+    def counting_dispatch(idx, n_experts, cap, *local_experts):
+        src, sizes = dispatch(idx, n_experts, cap, *local_experts)
         drops.append(idx.numel() - int(sizes.sum()))
         return src, sizes
 

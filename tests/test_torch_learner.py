@@ -198,10 +198,42 @@ def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
     assert all(torch.isfinite(t.float()).all() for t in resumed.values())
 
 
-def test_train_cli_refuses_sharding_options():
-    for extra in (["--mesh", "2x2"], ["--sp"], ["--batch-tp"]):
-        with pytest.raises(NotImplementedError, match="A.13"):
-            train_cli.main(["--arch", "smollm-360m", "--tiny", "--device", "cpu", *extra])
+@pytest.fixture
+def world_of_one():
+    """A one-process gloo group for the CLI's 1x1 mesh, gone after the test
+    (kept where one was there already)."""
+    import torch.distributed as dist
+    owned = not dist.is_initialized()
+    yield
+    if owned and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("extra", [[], ["--sp"], ["--batch-tp"]], ids=["mesh", "sp", "batch_tp"])
+def test_train_cli_sharding_options_run_on_a_1x1_mesh(world_of_one, capsys, extra):
+    """``--mesh 1x1`` with each of the reference's sharding options trains
+    on a one-process mesh (params and optimizer state as DTensors) and
+    takes the unsharded run's steps: on one device every placement is whole."""
+    base = ["--arch", "smollm-360m", "--tiny", "--device", "cpu", "--steps", "2",
+            "--batch", "2", "--seq", "16", "--log-every", "1"]
+    train_cli.main(base)
+    plain = capsys.readouterr().out
+    state = train_cli.main(base + ["--mesh", "1x1", *extra])
+    out = capsys.readouterr().out
+    assert "mesh=1x1" in out
+    from torch.distributed.tensor import DTensor
+    assert isinstance(state.params["embed"], DTensor)
+    assert isinstance(state.opt.m["embed"], DTensor)
+    losses = lambda text: [ln.split("loss")[1].split()[0]  # noqa: E731
+                           for ln in text.splitlines() if ln.startswith("step")]
+    assert losses(out) == losses(plain) and len(losses(out)) == 2
+
+
+def test_train_cli_mesh_must_match_the_world(world_of_one):
+    """A mesh whose product is not the world size exits with the reference's
+    message."""
+    with pytest.raises(SystemExit, match="mesh 2x2 needs 4 devices, have 1"):
+        train_cli.main(["--arch", "smollm-360m", "--tiny", "--device", "cpu", "--mesh", "2x2"])
 
 
 @pytest.mark.gpu

@@ -101,14 +101,50 @@ def test_router_topk_matches_reference(t, d, e, k, f):
     (5, 3, 4, 1),      # capacity 1
 ])
 def test_dispatch_indices_equal_reference(t, k, e, cap):
-    """At all the experts (the reference's e_start 0, e_local E: the port
-    has no mesh to split them over)."""
+    """At all the experts (the reference's e_start 0, e_local E; subsets
+    below)."""
     rng = _rng(t + cap)
     idx = np.stack([rng.permutation(e)[:k] for _ in range(t)]).astype(np.int32)
     jsrc, jsizes = jmoe._dispatch_indices(jnp.asarray(idx), e, cap, 0, e)
     src, sizes = moe._dispatch_indices(torch.from_numpy(idx).long(), e, cap)
     np.testing.assert_array_equal(src.numpy(), np.asarray(jsrc))
     np.testing.assert_array_equal(sizes.numpy(), np.asarray(jsizes))
+
+
+@pytest.mark.parametrize("t,k,e,cap,e_start,e_local", [
+    (32, 2, 8, 16, 0, 4),    # the first of two expert-parallel shards
+    (32, 2, 8, 4, 4, 4),     # the second, with drops
+    (64, 8, 40, 16, 30, 10),  # the last of four at granite's width
+    (5, 3, 4, 1, 2, 1),      # one expert, capacity 1
+])
+def test_dispatch_indices_of_an_expert_subset_equal_reference(t, k, e, cap, e_start, e_local):
+    """The expert-parallel branch's map: the slots of experts [e_start,
+    e_start + e_local) only, index for index."""
+    rng = _rng(t + cap + e_start)
+    idx = np.stack([rng.permutation(e)[:k] for _ in range(t)]).astype(np.int32)
+    jsrc, jsizes = jmoe._dispatch_indices(jnp.asarray(idx), e, cap, e_start, e_local)
+    src, sizes = moe._dispatch_indices(torch.from_numpy(idx).long(), e, cap, e_start, e_local)
+    np.testing.assert_array_equal(src.numpy(), np.asarray(jsrc))
+    np.testing.assert_array_equal(sizes.numpy(), np.asarray(jsizes))
+
+
+@pytest.mark.parametrize("factor", [1.25, 0.5])
+@pytest.mark.parametrize("shard", [0, 1])
+def test_moe_ffn_local_of_an_expert_subset_matches_reference(shard, factor):
+    """One of two expert-parallel shards of qwen3-moe tiny's 8 experts: the
+    local experts' contributions only, fp32, as the reference's
+    ``moe_ffn_local(e_start=, e_local=)`` gives them."""
+    t, d, e, k, f = 48, 64, 8, 2, 96
+    p = _params(d, e, f)
+    lo, hi = 4 * shard, 4 * shard + 4
+    p = dict(p, **{n: p[n][lo:hi] for n in ("up", "gate", "down")})
+    jp, tp = _both(p, "float32")
+    jx, x = _x(t, d, "float32")
+    jy, jaux = jmoe.moe_ffn_local(jp, jx, top_k=k, capacity_factor=factor, e_start=lo,
+                                  e_local=4)
+    y, aux = moe.moe_ffn_local(tp, x, top_k=k, capacity_factor=factor, e_start=lo, e_local=4)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(float(aux), float(jaux), atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -458,6 +458,37 @@ def test_synthetic_batches_equal_reference(seed):
                 np.testing.assert_array_equal(a[key], b[key])
 
 
+def test_prefetch_iterator_delivers_the_reference_batches_in_order():
+    """The port's PrefetchIterator over its stream yields the reference's
+    batches in step order, from a start step, and stops its thread."""
+    from repro_torch.data.pipeline import PrefetchIterator
+    kw = dict(vocab_size=50, seq_len=8, global_batch=2, seed=3)
+    theirs = JSyntheticLM(JDataConfig(**kw))
+    it = PrefetchIterator(SyntheticLM(DataConfig(**kw)).iterate(4), prefetch=2, workers=2,
+                          prep_cost_s=0.002)
+    try:
+        for step in range(4, 9):
+            got, want = next(it), theirs.batch_at(step)
+            for key in want:
+                np.testing.assert_array_equal(got[key], want[key])
+    finally:
+        it.close()
+    it._thread.join(timeout=10)
+    assert not it._thread.is_alive()
+
+
+def test_shard_batch_with_no_mesh_gives_device_tensors():
+    """With no mesh env, ``shard_batch`` is the host batch as tensors:
+    integer arrays as int64, floating ones in their own dtype."""
+    from repro_torch.data.pipeline import shard_batch
+    batch = SyntheticLM(DataConfig(vocab_size=50, seq_len=8, global_batch=2)).batch_at(0)
+    frames = np.ones((2, 3, 4), np.float32)
+    out = shard_batch({**batch, "frames": frames})
+    assert out["tokens"].dtype == out["labels"].dtype == torch.int64
+    assert out["frames"].dtype == torch.float32
+    assert torch.equal(out["tokens"], torch.from_numpy(batch["tokens"]).long())
+
+
 @pytest.mark.gpu
 def test_remat_policies_agree_on_card():
     """On the card, through the flash kernels: remat none, full and dots give
