@@ -151,7 +151,18 @@ Phases; any failure makes the script exit non-zero:
    and one backward an attention layer, two scan forwards and one backward
    an rglru layer); the same 3 steps again bit-equal (the first run's state
    kept on the host); one profiled step for the step time, tokens/s, peak
-   memory, busy share and the kernels' shares of it.
+   memory, busy share and the kernels' shares of it; one more step counted
+   by ``launch.op_cost`` (its ATen ops and kernel calls), the peak device
+   memory reset just before it.
+7a. The dry-run (``phase_dryrun``): each of those four steps counted again
+   on meta tensors (``launch.dryrun.run_cell``, no mesh, no process group):
+   the predicted peak within 10% of that counted step's
+   ``torch.cuda.max_memory_allocated``, the meta FLOPs within 1e-6
+   (relative) of its executed count, and ``mfu`` (FLOPs over step time x
+   989 TFLOP/s) printed beside the card's name and power limit. Then the
+   dry-run's CLI, each in a process of its own: recurrentgemma-2b
+   ``train_4k`` on a fake 16x16 mesh and llama3-8b ``prefill_32k`` on a
+   fake 2x16x16 one must exit 0.
 7b. xlstm-125m's training at full width through the same phase (no step 0
    against a plain path: none of the port's kernels is on it), and the
    sLSTM loop's and the chunkwise mLSTM's shares of the profiled step, in
@@ -218,6 +229,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -235,7 +247,7 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
 from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
-from repro_torch.configs import get_config, get_tiny_config  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_config, get_tiny_config  # noqa: E402
 from repro_torch.core.executor import TorchLearner  # noqa: E402
 from repro_torch.data.objectstore import MountedBucket  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch  # noqa: E402
@@ -258,6 +270,7 @@ from repro_torch.kernels.rglru import (  # noqa: E402
     uses_tma,
 )
 from repro_torch.kernels.rglru import smem_bytes as scan_smem_bytes  # noqa: E402
+from repro_torch.launch import dryrun, op_cost  # noqa: E402
 from repro_torch.launch.mesh import init_process_group, make_env, make_mesh  # noqa: E402
 from repro_torch.launch.serve import PHASES, ServeEngine, _install_prefill  # noqa: E402
 from repro_torch.launch.train import deterministic  # noqa: E402
@@ -347,6 +360,12 @@ TINY_ARCHS = ("chameleon-34b", "deepseek-coder-33b", "qwen3-moe-235b-a22b")
 # take 38-46 GB), and those trained at their tiny configs only (phase 8b:
 # llama3-8b's state needs about 128 GB, the others' more)
 TRAIN_FULL_WIDTH = ("smollm-360m", "recurrentgemma-2b", "qwen2.5-3b", "granite-moe-3b-a800m")
+# The dry-run phase: phase 7's steps counted on meta tensors, beside the same
+# steps executed on the card (peak device memory, the executed count); the
+# bounds below are the phase's gates. And two production cells of the CLI.
+DRYRUN_PEAK_TOL = 0.10  # relative, predicted against measured peak
+DRYRUN_FLOPS_TOL = 1e-6  # relative, meta against executed FLOPs
+DRYRUN_CELLS = (("recurrentgemma-2b", "train_4k", False), ("llama3-8b", "prefill_32k", True))
 # xlstm-125m: pure recurrent (mLSTM and sLSTM blocks), no kernel on its path
 XLSTM = "xlstm-125m"
 XLSTM_GENERATES = [(8, 512, 32), (1, 2048, 8)]  # 2048: four mLSTM chunks of 512
@@ -793,10 +812,11 @@ def device_split(fn, iters=10, replays=3) -> tuple[dict, dict]:
     ``iters`` calls captured in a CUDA graph and replayed ``replays`` times
     under torch.profiler, each kernel execution counted once (by name and
     start). Kineto drops a session's first GPU records (ROADMAP C.12), so
-    the session opens with a CUDA operation of its own, and only the
-    records that start inside the replays' span count. Returns ({kernel
-    name as in the source: ms a call}, {kernel name: executions the
-    profiler saw a call})."""
+    the session opens with a CUDA operation and one replay of its own (a
+    CUDA operation alone still lost 2 of 30 executions once), and only the
+    records that start inside the replays' span count. Returns
+    ({kernel name as in the source: ms a call}, {kernel name: executions
+    the profiler saw a call})."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -811,6 +831,8 @@ def device_split(fn, iters=10, replays=3) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.ones(1, device="cuda").sum().item()  # the session's first records
+        graph.replay()
+        torch.cuda.synchronize()
         with record_function("replays"):
             for _ in range(replays):
                 graph.replay()
@@ -2507,6 +2529,15 @@ def phase_train_full_width(arch, failures):
                                                            batches[TRAIN_STEPS])
     print(f"{arch} train: the profiled step took {time.perf_counter() - t0:.1f} s with the "
           "trace's processing")
+    if arch in TRAIN_FULL_WIDTH:  # one more step, its ATen ops and kernel calls counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counter = op_cost.OpCost()
+        with counter:
+            again, _ = step_fn(again, batches[0])
+        torch.cuda.synchronize()
+        out["executed"] = {"flops": counter.flops, "kernels": counter.kernels,
+                           "peak_bytes": torch.cuda.max_memory_allocated()}
     del again
     shares = kernel_shares(by_name)
     n_kernels = sum(c for _, c in by_name.values())
@@ -2542,6 +2573,71 @@ def phase_train_full_width(arch, failures):
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"{arch} train phase: {out['phase_s']:.1f} s")
     return launches, out
+
+
+def phase_dryrun(full_train, failures):
+    """The dry-run's count (``launch.op_cost`` over ``launch.dryrun.run_cell``
+    on meta tensors, no mesh, no process group) of each TRAIN_FULL_WIDTH
+    arch's phase-7 train step (B8 x S512, remat full, bf16), held to that
+    phase's run on the card: the predicted peak within DRYRUN_PEAK_TOL of
+    ``torch.cuda.max_memory_allocated`` over one step (reset just before it),
+    the meta FLOPs within DRYRUN_FLOPS_TOL of ``op_cost``'s count of that
+    step executed through the real kernels; and the whole-step share
+    ``mfu`` = FLOPs / (step time x 989 TFLOP/s) beside the card. Then the
+    CLI on DRYRUN_CELLS, each in a process of its own (the fake process
+    group cannot share a process with phase 8c's NCCL group): exit 0.
+    Returns {arch: metrics}."""
+    card = card_line()
+    out = {}
+    shape = ShapeConfig("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    for arch in TRAIN_FULL_WIDTH:
+        executed, metrics = full_train[arch][1]["executed"], full_train[arch][1]
+        t0 = time.perf_counter()
+        res = dryrun.run_cell(arch, shape=shape, mesh_shape=())
+        peak_err = abs(res["peak_bytes"] - executed["peak_bytes"]) / executed["peak_bytes"]
+        flops_err = abs(res["flops_per_device"] - executed["flops"]) / executed["flops"]
+        mfu = res["flops_per_device"] / (metrics["step_ms"] / 1e3 * PEAK_FLOPS["bf16"])
+        out[arch] = {"trace_s": time.perf_counter() - t0, "predicted_peak_bytes": res["peak_bytes"],
+                     "measured_peak_bytes": executed["peak_bytes"], "peak_rel_err": peak_err,
+                     "meta_flops": res["flops_per_device"], "executed_flops": executed["flops"],
+                     "flops_rel_err": flops_err, "step_ms": metrics["step_ms"], "mfu": mfu,
+                     "meta_kernels": res["kernels"], "executed_kernels": executed["kernels"]}
+        ok_peak, ok_flops = peak_err <= DRYRUN_PEAK_TOL, flops_err <= DRYRUN_FLOPS_TOL
+        print(f"{arch} dry-run of the B{TRAIN_BATCH} S{TRAIN_SEQ} train step: peak predicted "
+              f"{res['peak_bytes'] / 2**30:.3f} GiB, measured {executed['peak_bytes'] / 2**30:.3f} "
+              f"GiB ({100 * peak_err:.2f}%, tol {100 * DRYRUN_PEAK_TOL:.0f}% "
+              f"{'ok' if ok_peak else 'FAIL'}); FLOPs meta {res['flops_per_device']:.6e}, "
+              f"executed {executed['flops']:.6e} (relative {flops_err:.2e}, tol "
+              f"{DRYRUN_FLOPS_TOL} {'ok' if ok_flops else 'FAIL'}); mfu {mfu:.4f} at "
+              f"{metrics['step_ms']:.2f} ms a step, {card}")
+        if not ok_peak:
+            failures.append(f"{arch} dry-run peak {res['peak_bytes']} vs measured "
+                            f"{executed['peak_bytes']}")
+        if not ok_flops:
+            failures.append(f"{arch} dry-run FLOPs {res['flops_per_device']} vs executed "
+                            f"{executed['flops']}")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for arch, cell, multi_pod in DRYRUN_CELLS:
+        label = f"{arch} {cell} on {'2x16x16' if multi_pod else '16x16'}"
+        with tempfile.TemporaryDirectory() as tmp:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                   "--shape", cell, "--out", tmp] + (["--multi-pod"] if multi_pod else [])
+            t0 = time.perf_counter()
+            run = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                                 timeout=600)
+            files = list(Path(tmp).glob("*.json"))
+            res = json.loads(files[0].read_text()) if files else {}
+        keys = ("flops_per_device", "bytes_per_device", "collective_bytes_per_device",
+                "arg_bytes", "peak_bytes", "fits_80gb", "bottleneck", "trace_s")
+        out[label] = {"rc": run.returncode, "wall_s": time.perf_counter() - t0,
+                      **{k: res.get(k) for k in keys}}
+        print(f"dry-run CLI {label} (torch {torch.__version__}, a process of its own): rc "
+              f"{run.returncode} in {out[label]['wall_s']:.1f} s; "
+              + ", ".join(f"{k} {res.get(k)}" for k in keys))
+        if run.returncode != 0 or not files:
+            print(run.stdout[-3000:] + run.stderr[-3000:], file=sys.stderr)
+            failures.append(f"dry-run CLI {label}: rc {run.returncode}")
+    return out
 
 
 def phase_tiny_train(failures):
@@ -2985,6 +3081,7 @@ def main() -> int:
     tiny_launches = phase("tiny configs on the card", phase_tiny_archs)
     full_train = {arch: phase(f"{arch} train", phase_train_full_width, arch)
                   for arch in TRAIN_FULL_WIDTH}
+    dryrun_metrics = phase("dry-run", phase_dryrun, full_train)
     xl_train_launches, xl_train = phase(f"{XLSTM} train", phase_train_full_width, XLSTM)
     xl_cpu = phase(f"{XLSTM} card against the CPU", phase_cpu_step, XLSTM)
     wh_train_launches, wh_train = phase(f"{WHISPER} train", phase_train_full_width, WHISPER)
@@ -3069,6 +3166,7 @@ def main() -> int:
           f"{WHISPER}: {json.dumps(wh_metrics)}; {WHISPER} train: {json.dumps(wh_train)}; "
           f"{WHISPER} card against the CPU: {json.dumps(wh_cpu)}; "
           f"the mesh: {json.dumps(mesh['metrics'])}; "
+          f"the dry-run: {json.dumps(dryrun_metrics)}; "
           f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     if failures:

@@ -118,6 +118,22 @@ class ModelConfig:
         return full - moe_total + moe_active
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+# The reference's four LM shape cells.
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 # The archs the port runs: all ten of the reference's, in its order.
 ARCH_IDS = [
     "qwen3-moe-235b-a22b",
@@ -148,3 +164,16 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def get_tiny_config(arch_id: str) -> ModelConfig:
     return _module_for(arch_id).tiny()
+
+
+def cells(arch_id: str) -> list[tuple[str, str]]:
+    """The (arch, shape) cells of an arch: every shape, ``long_500k`` only
+    for a sub-quadratic arch (full attention at 500k is skipped, as the
+    reference skips it)."""
+    cfg = get_config(arch_id)
+    return [(arch_id, shape.name) for shape in SHAPES.values()
+            if shape.name != "long_500k" or cfg.sub_quadratic]
+
+
+def all_cells() -> list[tuple[str, str]]:
+    return [cell for arch in ARCH_IDS for cell in cells(arch)]

@@ -47,7 +47,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 # the backward's head dims by route (dtype)
@@ -79,11 +79,14 @@ def smem_bytes(head_dim: int, dtype: torch.dtype) -> int:
     return fn(head_dim)
 
 
-def _check(q, k, v):
+def _check(q, k, v, device="cuda"):
+    """What the kernels take; ``device`` "meta" checks a shape function's
+    inputs (which lie on no card and have no storage)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda:
-            raise ValueError(f"flash_attention_cuda: {name} is on {t.device}, "
-                             "the kernel takes CUDA tensors only")
+        if t.device.type != device:
+            raise ValueError(f"flash_attention_{device}: {name} is on {t.device}, the "
+                             + ("kernel takes CUDA" if device == "cuda" else
+                                "shape function takes meta") + " tensors only")
         if t.dim() != 4:
             raise ValueError(f"flash_attention_cuda: {name} must be 4-D, got {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -132,10 +135,29 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, q_offset=0,
     if err != 0:
         raise RuntimeError(f"{ROUTES[q.dtype][0]}_fwd launch failed: cudaError {err}")
     flash_attention_cuda.launches += 1
+    cost.report_attention(q, k, v, (o, lse), causal=causal, window=window, q_offset=q_offset)
     return (o, lse) if return_lse else o
 
 
 flash_attention_cuda.launches = 0  # kernel launches since the last reset
+
+
+def flash_attention_meta(q, k, v, *, causal=True, window=0, q_offset=0,
+                         return_lse=False):
+    """The forward kernel's shape function on meta tensors (the dry-run's):
+    it checks what ``flash_attention_cuda`` checks, allocates what it
+    allocates (o, and the fp32 lse when asked), reports the kernel's cost
+    (``cost``) and launches nothing: no (B, H, Sq, Skv) scores, as the
+    kernel keeps none."""
+    _check(q, k, v, "meta")
+    if window < 0 or q_offset < 0:
+        raise ValueError("flash_attention_meta: window and q_offset must be >= 0")
+    b, h, sq, _ = q.shape
+    o = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    cost.report_attention(q, k, v, (o, lse), causal=causal, window=window, q_offset=q_offset)
+    return (o, lse) if return_lse else o
 
 
 @functools.cache
@@ -169,7 +191,41 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=0,
     otherwise) and the forward's fp32 ``lse`` (B, H, Sq). head_dim 16 to
     256 in bf16, 16 to 128 in fp32 (``BWD_HEAD_DIMS``). Two launches on the
     same inputs give the same bits."""
-    _check(q, k, v)
+    dq, dk, dv, delta = _bwd_outputs(q, k, v, o, do, lse, window, q_offset, "cuda")
+    b, h, sq, d = q.shape
+    n_kv, skv = k.shape[1], k.shape[2]
+    with torch.cuda.device(q.device):
+        err = _bwd(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                            dk.data_ptr(), dv.data_ptr(), b, h, n_kv, sq, skv, d,
+                            int(bool(causal)), int(window), int(q_offset), float(d ** -0.5),
+                            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{BWD_ROUTES[q.dtype][0]} launch failed: cudaError {err}")
+    flash_attention_bwd_cuda.launches += 1
+    cost.report_attention(q, k, v, (dq, dk, dv, delta), (o, do, lse), causal=causal,
+                          window=window, q_offset=q_offset, backward=True)
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0  # backward calls (three kernels each) since the last reset
+
+
+def flash_attention_bwd_meta(q, k, v, o, do, lse, *, causal=True, window=0,
+                             q_offset=0):
+    """The backward's shape function on meta tensors (the dry-run's): the
+    checks and allocations of ``flash_attention_bwd_cuda`` (dq, dk, dv and
+    the fp32 Δ scratch), its cost reported (``cost``), no launch."""
+    dq, dk, dv, delta = _bwd_outputs(q, k, v, o, do, lse, window, q_offset, "meta")
+    cost.report_attention(q, k, v, (dq, dk, dv, delta), (o, do, lse), causal=causal,
+                          window=window, q_offset=q_offset, backward=True)
+    return dq, dk, dv
+
+
+def _bwd_outputs(q, k, v, o, do, lse, window, q_offset, device):
+    """The backward's checks on ``device``'s tensors, and its outputs and
+    scratch, allocated: (dq, dk, dv, the fp32 Δ)."""
+    _check(q, k, v, device)
     b, h, sq, d = q.shape
     if d not in BWD_HEAD_DIMS[q.dtype]:
         raise NotImplementedError(
@@ -192,22 +248,8 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=0,
             or not lse.is_contiguous():
         raise ValueError(f"flash_attention_bwd_cuda: lse must be contiguous fp32 "
                          f"{(b, h, sq)} on {q.device}, got {tuple(lse.shape)} {lse.dtype}")
-    n_kv, skv = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _bwd(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                            dk.data_ptr(), dv.data_ptr(), b, h, n_kv, sq, skv, d,
-                            int(bool(causal)), int(window), int(q_offset), float(d ** -0.5),
-                            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{BWD_ROUTES[q.dtype][0]} launch failed: cudaError {err}")
-    flash_attention_bwd_cuda.launches += 1
-    return dq, dk, dv
-
-
-flash_attention_bwd_cuda.launches = 0  # backward calls (three kernels each) since the last reset
+    return dq, dk, dv, torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -218,8 +260,9 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
-        o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                      q_offset=q_offset, return_lse=True)
+        fwd = flash_attention_meta if q.is_meta else flash_attention_cuda
+        o, lse = fwd(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                     return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
         return o
@@ -227,5 +270,6 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do.contiguous(), lse, **ctx.mask)
+        bwd = flash_attention_bwd_meta if q.is_meta else flash_attention_bwd_cuda
+        dq, dk, dv = bwd(q, k, v, o, do.contiguous(), lse, **ctx.mask)
         return dq, dk, dv, None, None, None

@@ -1,5 +1,7 @@
 """Dispatching wrappers: the Hopper kernel for a CUDA tensor, the plain
-PyTorch version for a CPU tensor.
+PyTorch version for a CPU tensor, the kernel's shape function for a meta
+tensor (the dry-run's: it allocates what the kernel allocates, reports the
+kernel's own cost to a counter, ``kernels.cost``, and computes nothing).
 
 The model code calls these. ``force`` picks a path explicitly: ``"kernel"``
 (raises on a CPU tensor) or ``"ref"`` (the plain version, on any device).
@@ -32,8 +34,15 @@ from repro_torch.kernels.flash_attention import (
     FlashAttentionFn,
     flash_attention_bwd_cuda,
     flash_attention_cuda,
+    flash_attention_meta,
 )
-from repro_torch.kernels.rglru import RGLRUScanFn, rglru_scan_bwd_cuda, rglru_scan_cuda
+from repro_torch.kernels.rglru import (
+    RGLRUScanFn,
+    rglru_scan_bwd_cuda,
+    rglru_scan_cuda,
+    rglru_scan_meta,
+)
+from repro_torch.parallel.sharding import contiguous_stride
 
 _FORCES = (None, "kernel", "ref")
 _KERNELS = {"flash_attention": flash_attention_cuda,
@@ -43,10 +52,12 @@ _KERNELS = {"flash_attention": flash_attention_cuda,
 
 
 def _plain(x, force) -> bool:
-    """Whether the plain version runs: forced, or x lies off the card."""
+    """Whether the plain version runs: forced, or x lies on the CPU (neither
+    on the card nor on the meta device, where the kernel's shape function
+    stands in for it)."""
     if force not in _FORCES:
         raise ValueError(f"force must be one of {_FORCES}, got {force!r}")
-    return force == "ref" or (force is None and not x.is_cuda)
+    return force == "ref" or (force is None and not (x.is_cuda or x.is_meta))
 
 
 def _placements(t, mesh, what):
@@ -108,7 +119,7 @@ def heads_local(q, k, v, fn, what="attention"):
         kl, vl = kl[:, lo:hi], vl[:, lo:hi]
     o = fn(ql.contiguous(), kl.contiguous(), vl.contiguous())
     return DTensor.from_local(o, mesh, q.placements, run_check=False,
-                              shape=q.shape, stride=q.stride())
+                              shape=q.shape, stride=contiguous_stride(q.shape))
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
@@ -127,8 +138,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, window, q_offset)
-    return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                q_offset=q_offset)
+    fwd = flash_attention_meta if q.is_meta else flash_attention_cuda
+    return fwd(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
 def _scan_local(a, b, h0, force):
@@ -164,7 +175,7 @@ def rglru_scan(a, b, h0=None, *, force: str | None = None):
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in (a, b, h0)):
         return RGLRUScanFn.apply(a, b, h0)
-    return rglru_scan_cuda(a, b, h0)
+    return (rglru_scan_meta if a.is_meta else rglru_scan_cuda)(a, b, h0)
 
 
 def launch_counts() -> dict[str, int]:

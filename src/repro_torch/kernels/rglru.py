@@ -33,7 +33,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -63,11 +63,18 @@ def uses_tma(a, b) -> bool:
     return bool(fn(a.data_ptr(), b.data_ptr(), a.shape[-1], _DTYPE_CODES[a.dtype]))
 
 
-def _check(a, b, h0):
+def _on(fn, name, t, device):
+    """Raise unless ``t`` lies on ``device``: "cuda" for a kernel, "meta" for
+    its shape function (the dry-run's)."""
+    if t.device.type != device:
+        raise ValueError(f"{fn}: {name} is on {t.device}, the "
+                         + ("kernel takes CUDA" if device == "cuda" else
+                            "shape function takes meta") + " tensors only")
+
+
+def _check(a, b, h0, device="cuda"):
     for name, t in (("a", a), ("b", b)):
-        if not t.is_cuda:
-            raise ValueError(f"rglru_scan_cuda: {name} is on {t.device}, "
-                             "the kernel takes CUDA tensors only")
+        _on(f"rglru_scan_{device}", name, t, device)
         if t.dim() != 3:
             raise ValueError(f"rglru_scan_cuda: {name} must be (B, S, W), got {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -105,10 +112,22 @@ def rglru_scan_cuda(a, b, h0=None):
     if err != 0:
         raise RuntimeError(f"rglru_scan_fwd launch failed: cudaError {err}")
     rglru_scan_cuda.launches += 1
+    cost.report_scan(a, (a, b, h0), (h, h_last))
     return h, h_last
 
 
 rglru_scan_cuda.launches = 0  # kernel launches since the last reset
+
+
+def rglru_scan_meta(a, b, h0=None):
+    """The scan's shape function on meta tensors (the dry-run's): the checks
+    and allocations of ``rglru_scan_cuda``, its cost reported (``cost``), no
+    launch."""
+    _check(a, b, h0, "meta")
+    h = torch.empty_like(b)
+    h_last = torch.empty((a.shape[0], a.shape[2]), dtype=torch.float32, device=a.device)
+    cost.report_scan(a, (a, b, h0), (h, h_last))
+    return h, h_last
 
 
 @functools.cache
@@ -137,11 +156,9 @@ def bwd_uses_tma(a, h, g) -> bool:
     return bool(fn(a.data_ptr(), h.data_ptr(), g.data_ptr(), a.shape[-1]))
 
 
-def _check_bwd(a, h, g, h0, g_last):
+def _check_bwd(a, h, g, h0, g_last, device="cuda"):
     for name, t in (("a", a), ("h", h), ("g", g)):
-        if not t.is_cuda:
-            raise ValueError(f"rglru_scan_bwd_cuda: {name} is on {t.device}, "
-                             "the kernel takes CUDA tensors only")
+        _on(f"rglru_scan_bwd_{device}", name, t, device)
         if t.dim() != 3 or t.shape != a.shape:
             raise ValueError(f"rglru_scan_bwd_cuda: {name} must be (B, S, W) "
                              f"{tuple(a.shape)}, got {tuple(t.shape)}")
@@ -181,10 +198,22 @@ def rglru_scan_bwd_cuda(a, h, g, h0=None, g_last=None):
     if err != 0:
         raise RuntimeError(f"rglru_scan_bwd launch failed: cudaError {err}")
     rglru_scan_bwd_cuda.launches += 1
+    cost.report_scan(a, (a, h, g, h0, g_last), (da, db, dh0), backward=True)
     return da, db, dh0
 
 
 rglru_scan_bwd_cuda.launches = 0  # kernel launches since the last reset
+
+
+def rglru_scan_bwd_meta(a, h, g, h0=None, g_last=None):
+    """The backward's shape function on meta tensors (the dry-run's): the
+    checks and allocations of ``rglru_scan_bwd_cuda``, its cost reported
+    (``cost``), no launch."""
+    _check_bwd(a, h, g, h0, g_last, "meta")
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    cost.report_scan(a, (a, h, g, h0, g_last), (da, db, dh0), backward=True)
+    return da, db, dh0
 
 
 class RGLRUScanFn(torch.autograd.Function):
@@ -199,7 +228,7 @@ class RGLRUScanFn(torch.autograd.Function):
         if a.dtype != torch.float32 or b.dtype != torch.float32:
             raise ValueError(f"RGLRUScanFn: a {a.dtype} and b {b.dtype}; the scan trains "
                              "in fp32 only (its backward kernel takes fp32)")
-        h, h_last = rglru_scan_cuda(a, b, h0)
+        h, h_last = (rglru_scan_meta if a.is_meta else rglru_scan_cuda)(a, b, h0)
         ctx.save_for_backward(a, h, h0)
         ctx.set_materialize_grads(False)
         return h, h_last
@@ -209,5 +238,6 @@ class RGLRUScanFn(torch.autograd.Function):
         a, h, h0 = ctx.saved_tensors
         g = torch.zeros_like(h) if g is None else g.contiguous()
         g_last = None if g_last is None else g_last.contiguous()
-        da, db, dh0 = rglru_scan_bwd_cuda(a, h, g, h0, g_last)
+        bwd = rglru_scan_bwd_meta if a.is_meta else rglru_scan_bwd_cuda
+        da, db, dh0 = bwd(a, h, g, h0, g_last)
         return da, db, dh0

@@ -25,6 +25,22 @@ from repro_torch.parallel.sharding import (
 )
 
 
+# H100 SXM5 80GB data-sheet figures at its 700 W limit (NVIDIA's data sheet,
+# dense rates): not measurements. The dry-run's roofline terms read them.
+PEAK_FLOPS_BF16 = 989e12      # FLOP/s a GPU, bf16 on the tensor cores
+HBM_BW = 3.35e12              # bytes/s a GPU
+NVLINK_BW = 450e9             # bytes/s a GPU each way, within one host of 8 GPUs
+NET_BW = 50e9                 # bytes/s a GPU beyond 8: one 400 Gb/s port (DGX H100)
+NVLINK_DOMAIN = 8             # GPUs a host joins by NVLink
+
+
+def collective_bw(n_devices: int) -> float:
+    """The bytes/s a GPU's collectives move at over a mesh of ``n_devices``:
+    NVLink within one host of 8, the network beyond (the reference's single
+    ``ICI_BW`` of a TPU's torus)."""
+    return NVLINK_BW if n_devices <= NVLINK_DOMAIN else NET_BW
+
+
 def init_process_group(device="cuda", init_method: str | None = None,
                        rank: int | None = None, world_size: int | None = None) -> int:
     """Join (or make) the default process group; returns its world size.
@@ -78,6 +94,57 @@ def make_mesh(shape, axes, device="cuda"):
                             mesh_dim_names=tuple(axes))
 
 
+FAKE_WORLD = 512  # the largest production mesh: every dry-run mesh fits in it
+
+
+def init_fake_process_group(world_size: int = FAKE_WORLD) -> int:
+    """A fake process group of ``world_size`` ranks in this one process,
+    this process rank 0: its collectives move nothing (the dry-run's, whose
+    tensors are meta). ``torch.testing``'s fake backend, imported here, so
+    that nothing else loads it. A fake group already started is kept (one
+    group for the process's life: DTensor caches plans by mesh shape, and a
+    replaced group would leave them naming its dead subgroups); a real one
+    raises."""
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"a {dist.get_backend()} process group is running; the "
+                               "dry-run's fake group needs a process of its own")
+        return dist.get_world_size()
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    return dist.get_world_size()
+
+
+def make_fake_mesh(shape, axes):
+    """A ``DeviceMesh`` over the first prod(shape) ranks of the fake world
+    (``init_fake_process_group``, started here where it is not), its dims
+    named ``axes``, of device type cuda (the card's collectives, e.g. its
+    all-to-all, where a CPU mesh would fall back to all-gathers): the
+    dry-run's meshes, this process their rank 0."""
+    from torch.distributed.device_mesh import DeviceMesh
+    n = 1
+    for d in shape:
+        n *= d
+    if init_fake_process_group() < n:
+        raise ValueError(f"mesh {tuple(shape)} needs {n} ranks, the fake world has "
+                         f"{dist.get_world_size()}")
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    return DeviceMesh("cuda", torch.arange(n).reshape(tuple(shape)), mesh_dim_names=tuple(axes))
+
+
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The reference's production meshes over a real world of 256 or 512
+    processes: 16x16 (data, model) or 2x16x16 (pod, data, model). The
+    dry-run builds the same shapes over its fake world (``make_fake_mesh``
+    of ``PRODUCTION_MESHES``)."""
+    shape, axes = PRODUCTION_MESHES[multi_pod]
+    return make_mesh(shape, axes, device)
+
+
 def make_test_mesh(data: int = 2, model: int = 2, device="cpu"):
     """A (data, model) mesh for the CPU integration tests (a world of
     data*model processes)."""
@@ -122,5 +189,7 @@ def parse_mesh(spec: str):
     return tuple(parts)
 
 
-__all__ = ["AbstractMesh", "init_process_group", "local_device",
-           "make_env", "make_mesh", "make_test_mesh", "mesh_env", "parse_mesh"]
+__all__ = ["AbstractMesh", "HBM_BW", "NET_BW", "NVLINK_BW", "PEAK_FLOPS_BF16",
+           "collective_bw", "init_fake_process_group", "init_process_group", "make_fake_mesh",
+           "local_device", "make_env", "make_mesh", "make_production_mesh",
+           "make_test_mesh", "mesh_env", "parse_mesh"]

@@ -124,6 +124,28 @@ def init_decode_state(p, memory, cfg: ModelConfig, batch: int, s_max: int,
     return states
 
 
+def abstract_decode_state(cfg: ModelConfig, batch: int, s_max: int,
+                          dtype=torch.bfloat16):
+    """``init_decode_state``'s leaves as ``params.ShapeDtype``, with no
+    params, memory or allocation (the dry-run's)."""
+    def sd(shape):
+        return prm.ShapeDtype(shape, dtype)
+
+    kv = (batch, cfg.n_kv_heads, s_max, cfg.hd)
+    cross = (batch, cfg.n_heads, cfg.enc_seq, cfg.hd)
+    return [{"self": KVCache(sd(kv), sd(kv)), "cross_kv": (sd(cross), sd(cross))}
+            for _ in range(cfg.n_layers)]
+
+
+def decode_state_axes(cfg: ModelConfig):
+    """The decode state's logical axes, leaf for leaf (its shardings on a
+    mesh)."""
+    kv = ("batch", "kv_heads", "kv_seq", "head_dim")
+    cross = ("batch", "heads", "enc_seq", "head_dim")
+    return [{"self": KVCache(k=kv, v=kv), "cross_kv": (cross, cross)}
+            for _ in range(cfg.n_layers)]
+
+
 def decode_step(p, token, states, cache_len: int, cfg: ModelConfig):
     """One decode step. token: (B, 1); returns (logits (B, 1, V), states):
     each self-attention cache is written in place at ``cache_len``."""

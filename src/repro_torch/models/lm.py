@@ -59,16 +59,30 @@ def cross_entropy(logits, labels, z_loss: float = 1e-4):
     least 1)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    if isinstance(logits, DTensor):
-        # the gather along a vocab-sharded dim takes DTensor's masked partial
-        # path, which fails on these shapes: gather the vocab first
-        whole = tuple(Replicate() if p == Shard(logits.dim() - 1) else p
-                      for p in logits.placements)
-        logits = logits.redistribute(logits.device_mesh, whole)
-    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    gold = _gold_logit(logits, labels.clamp(min=0).long())
     nll = lse - gold
     if z_loss:
         nll = nll + z_loss * torch.square(lse)
     mask = (labels >= 0).float()
     denom = torch.clamp(mask.sum(), min=1.0)
     return (nll * mask).sum() / denom
+
+
+def _gold_logit(logits, labels):
+    """logits[..., label] of (B, S, V) logits and (B, S) labels. On a mesh
+    the vocab is gathered first (DTensor's gather along a vocab-sharded dim
+    takes a masked partial path that fails on these shapes) and the gather
+    runs on each rank's local shards, labels placed as the logits: DTensor's
+    own gather would take its backward through a zero tensor of the global
+    (B, S, V) on every rank (206 GB of fp32 at smollm-360m's train_4k on
+    16x16, found by the dry-run)."""
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    mesh = logits.device_mesh
+    whole = tuple(Replicate() if p == Shard(logits.dim() - 1) else p
+                  for p in logits.placements)
+    logits = logits.redistribute(mesh, whole)
+    labels = labels.redistribute(mesh, whole)
+    gold = torch.gather(logits.to_local(), -1, labels.to_local()[..., None])[..., 0]
+    return DTensor.from_local(gold, mesh, whole, run_check=False, shape=labels.shape,
+                              stride=labels.stride())

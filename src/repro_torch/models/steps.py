@@ -13,14 +13,14 @@ from typing import NamedTuple
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.pipeline import shard_batch
 from repro_torch.models import encdec, lm
 from repro_torch.nn import params as prm
 from repro_torch.nn.blocks import init_stack_state, stack_state_axes
 from repro_torch.optim import adamw
 from repro_torch.parallel import current_env
-from repro_torch.parallel.sharding import NamedSharding, P, param_shardings, place
+from repro_torch.parallel.sharding import NamedSharding, P, gather_dim, param_shardings, place
 from repro_torch.parallel.zero import opt_state_shardings
 from repro_torch.utils.trees import tree_flatten_with_paths, tree_map_with_path, tree_unflatten
 
@@ -57,9 +57,7 @@ def abstract_params(cfg: ModelConfig):
 def abstract_train_state(cfg: ModelConfig) -> TrainState:
     """The train state's leaves as ``ShapeDtype`` (restore's ``like``)."""
     params = abstract_params(cfg)
-    f32 = lambda _, a: prm.ShapeDtype(a.shape, torch.float32)  # noqa: E731
-    return TrainState(prm.ShapeDtype((), torch.int32), params,
-                      adamw.OptState(*(tree_map_with_path(f32, params) for _ in range(3))))
+    return TrainState(prm.ShapeDtype((), torch.int32), params, adamw.abstract_state(params))
 
 
 def train_state_shardings(cfg: ModelConfig, env) -> TrainState:
@@ -85,6 +83,15 @@ def decode_state_shardings(cfg: ModelConfig, states, env):
     return param_shardings(stack_state_axes(cfg), states, env)
 
 
+def greedy(logits):
+    """The greedy next token (B, 1) of (B, S, V) logits' last position. On a
+    mesh the last position's vocab is gathered first: DTensor's argmax over
+    a split vocab fails on a (pod, data, model) mesh (torch 2.13's
+    all-gather of the per-shard winners, found by the dry-run's 2x16x16
+    prefill), and the gather moves only B x V values."""
+    return torch.argmax(gather_dim(logits[:, -1:], 2), dim=-1)
+
+
 def make_prefill_step(cfg: ModelConfig, force=None):
     """Returns fn(params, batch) → (next_token (B,1), states, last_logits).
 
@@ -99,14 +106,13 @@ def make_prefill_step(cfg: ModelConfig, force=None):
         def prefill(params, batch):
             memory = encdec.encode(params, batch["frames"], cfg, force=force)
             logits = encdec.decode_train(params, batch["tokens"], memory, cfg, force=force)
-            return torch.argmax(logits[:, -1:], dim=-1), memory, logits[:, -1]
+            return greedy(logits), memory, logits[:, -1]
         return prefill
 
     def prefill(params, batch):
         logits, states = lm.lm_apply(params, batch["tokens"], cfg,
                                      mode="prefill", force=force)
-        nxt = torch.argmax(logits[:, -1:], dim=-1)
-        return nxt, states, logits[:, -1]
+        return greedy(logits), states, logits[:, -1]
 
     return prefill
 
@@ -119,14 +125,13 @@ def make_decode_step(cfg: ModelConfig):
     if cfg.is_encoder_decoder:
         def decode(params, token, states, cache_len):
             logits, new_states = encdec.decode_step(params, token, states, cache_len, cfg)
-            return torch.argmax(logits[:, -1:], dim=-1), new_states
+            return greedy(logits), new_states
         return decode
 
     def decode(params, token, states, cache_len):
         logits, new_states = lm.lm_apply(params, token, cfg, mode="decode",
                                          states=states, cache_len=cache_len)
-        nxt = torch.argmax(logits[:, -1:], dim=-1)
-        return nxt, new_states
+        return greedy(logits), new_states
 
     return decode
 
@@ -143,6 +148,40 @@ def decode_state(cfg: ModelConfig, batch: int, s_max: int, device="cpu"):
                          "use encdec.init_decode_state")
     return init_stack_state(cfg, batch, s_max, prm.torch_dtype(cfg.dtype),
                             device)
+
+
+def abstract_decode_state(cfg: ModelConfig, batch: int, s_max: int):
+    """The decode state's leaves as ``params.ShapeDtype`` (no allocation).
+    A local-attention cache is ``compact``: bounded at its window + 1, so
+    that ``long_500k`` states the arch's memory, not a 500k cache's."""
+    dtype = prm.torch_dtype(cfg.dtype)
+    if cfg.is_encoder_decoder:
+        return encdec.abstract_decode_state(cfg, batch, s_max, dtype)
+    state = init_stack_state(cfg, batch, s_max, dtype, "meta", compact=True)
+    return tree_map_with_path(lambda _, t: prm.ShapeDtype(tuple(t.shape), t.dtype), state)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """Every model input of an (arch, shape) cell as ``params.ShapeDtype``:
+    train and prefill a token batch (int32, as the reference's; the steps
+    take any integer type), with ``frames`` for an encoder-decoder; decode
+    one token a sequence, the whole decode state at capacity ``seq_len``
+    and ``cache_len`` (a 0-d int32)."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def tok(*sh):
+        return prm.ShapeDtype(sh, torch.int32)
+
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": tok(b, s)}
+        if shape.kind == "train":
+            batch["labels"] = tok(b, s)
+        if cfg.is_encoder_decoder:
+            batch["frames"] = prm.ShapeDtype((b, cfg.enc_seq, cfg.d_model),
+                                             prm.torch_dtype(cfg.dtype))
+        return {"batch": batch}
+    return {"token": tok(b, 1), "states": abstract_decode_state(cfg, b, s),
+            "cache_len": prm.ShapeDtype((), torch.int32)}
 
 
 def init_train_state(cfg: ModelConfig, seed: int, device="cpu") -> TrainState:

@@ -21,7 +21,7 @@ from repro_torch.nn import params as prm
 from repro_torch.nn.layers import apply_rope, def_headnorm, rmsnorm
 from repro_torch.nn.policy import interior_einsum
 from repro_torch.parallel import shard
-from repro_torch.parallel.sharding import batch_only, gather_dim
+from repro_torch.parallel.sharding import batch_heads, batch_only, gather_dim
 
 NEG_INF = -1e30
 
@@ -277,12 +277,22 @@ def cross_attention(p, x, memory=None, mem_kv=None):
     in x's dtype, (k, v)). Naive attention with the reference's rounding
     points: the projections accumulated in fp32 and rounded to x's dtype
     (a bf16 memory under fp32 weights is multiplied in fp32), fp32 scores
-    and softmax, the probabilities in v's dtype for P.V."""
-    q = interior_einsum("bsd,dhk->bhsk", x, p["wq"])
+    and softmax, the probabilities in v's dtype for P.V. DTensors run on
+    each rank's local (batch, heads) shards (``ops.heads_local``): DTensor
+    would flatten a batch split over two mesh axes with heads for the
+    products, whose sharding search takes minutes on a 3-D mesh."""
+    q = interior_einsum("bsd,dhk->bhsk", batch_only(x), p["wq"])
     if mem_kv is None:
+        memory = batch_only(memory)
         k = interior_einsum("bsd,dhk->bhsk", memory, p["wk"], x.dtype)
         v = interior_einsum("bsd,dhk->bhsk", memory, p["wv"], x.dtype)
     else:
         k, v = mem_kv
-    o = naive_attention(q, k, v, causal=False)
-    return interior_einsum("bhsk,hkd->bsd", o, p["wo"]), (k, v)
+    if isinstance(q, DTensor):  # on local (batch, heads) shards, as decode attention
+        k = batch_heads(k)
+        q, v = (t.redistribute(k.device_mesh, k.placements) for t in (q, v))
+        o = ops.heads_local(q, k, v, lambda ql, kl, vl: naive_attention(ql, kl, vl, causal=False),
+                            "cross_attention")
+    else:
+        o = naive_attention(q, k, v, causal=False)
+    return batch_only(interior_einsum("bhsk,hkd->bsd", o, p["wo"])), (k, v)

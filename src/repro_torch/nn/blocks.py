@@ -60,7 +60,7 @@ from repro_torch.nn.recurrent import (
     slstm_step,
 )
 from repro_torch.parallel import current_env, shard, use_env
-from repro_torch.parallel.sharding import batch_only, gather_dim
+from repro_torch.parallel.sharding import batch_only, gather_dim, heads_whole, pin_grad
 from repro_torch.utils.trees import (
     tree_flatten_with_paths,
     tree_map_with_path,
@@ -147,13 +147,22 @@ def def_block(cfg: ModelConfig, kind: str):
 # state init (decode)
 # --------------------------------------------------------------------------
 
+def _kv_capacity(cfg: ModelConfig, s_max: int, compact: bool) -> int:
+    """A KV cache's capacity: ``s_max``, or with ``compact`` a local-attention
+    cache bounded at window + 1 (the reference's dry-run sizing, so that
+    ``long_500k`` does not charge a local-attention arch a 500k cache).
+    Executed serving keeps the full ``s_max``: decode indexes the cache by
+    absolute position."""
+    window = cfg.local_window
+    return min(s_max, window + 1) if (window and compact) else s_max
+
+
 def init_block_state(cfg: ModelConfig, kind: str, batch: int, s_max: int,
-                     dtype=torch.bfloat16, device="cpu"):
+                     dtype=torch.bfloat16, device="cpu", compact: bool = False):
     """Zeroed decode state of one block. An attention block's KV cache is
-    allocated at the full ``s_max``, window or not, so that decode indexes
-    it by absolute position (the reference's executed-serving layout)."""
+    allocated at ``_kv_capacity`` (the full ``s_max`` unless ``compact``)."""
     if kind == "attn":
-        shape = (batch, cfg.n_kv_heads, s_max, cfg.hd)
+        shape = (batch, cfg.n_kv_heads, _kv_capacity(cfg, s_max, compact), cfg.hd)
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                        v=torch.zeros(shape, dtype=dtype, device=device))
     if kind == "rglru":
@@ -189,9 +198,16 @@ def _conv_history(u, width):
 
 
 def _split_heads(t, n_heads):
-    """(B, S, n_heads * dh) → (B, n_heads, S, dh)."""
+    """(B, S, n_heads * dh) → (B, n_heads, S, dh); on a mesh the last dim
+    is gathered first where its split does not keep the heads whole
+    (``heads_whole``)."""
     b, s, _ = t.shape
-    return t.reshape(b, s, n_heads, -1).transpose(1, 2)
+    return heads_whole(t, 2, n_heads).reshape(b, s, n_heads, -1).transpose(1, 2)
+
+
+def _heads(t, n_heads):
+    """(B, n_heads * dh) → (B, n_heads, dh), as ``_split_heads``."""
+    return heads_whole(t, 1, n_heads).reshape(t.shape[0], n_heads, -1)
 
 
 def _group_rms(scale, x, n_heads, eps=1e-6):
@@ -199,9 +215,9 @@ def _group_rms(scale, x, n_heads, eps=1e-6):
     channels, times the fp32 ``scale``, back in x's dtype (xLSTM's output
     norm)."""
     b, s, dd = x.shape
-    xh = x.reshape(b, s, n_heads, dd // n_heads).float()
+    xh = heads_whole(x, 2, n_heads).reshape(b, s, n_heads, dd // n_heads).float()
     var = torch.mean(xh * xh, dim=-1, keepdim=True)
-    y = (xh * torch.rsqrt(var + eps)).reshape(b, s, dd) * scale
+    y = pin_grad((xh * torch.rsqrt(var + eps)).reshape(b, s, dd)) * scale
     return y.to(x.dtype)
 
 
@@ -279,7 +295,6 @@ def apply_mlstm_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None):
     _check_mode(mode)
     nh = cfg.n_heads
     di = 2 * cfg.d_model
-    dh = di // nh
     h = norm(p["norm"], x, cfg.rms_norm)
     u = interior_einsum("bsd,de->bse", h, p["wu"])
     g = interior_einsum("bsd,de->bse", h, p["wg"])
@@ -287,11 +302,9 @@ def apply_mlstm_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None):
     if mode == "decode":
         c, conv_state = causal_conv_step(p["conv"], u[:, 0], state["conv"])
         c = F.silu(c.float()).to(x.dtype)
-        q = (c @ p["wq"]).reshape(-1, nh, dh)
-        k = (c @ p["wk"]).reshape(-1, nh, dh)
-        v = (u[:, 0] @ p["wv"]).reshape(-1, nh, dh)
-        ig = (c @ p["wi"] + p["bi"]).float()
-        fg = (c @ p["wf"] + p["bf"] + 3.0).float()
+        q, k, v = (_heads(t, nh) for t in (c @ p["wq"], c @ p["wk"], u[:, 0] @ p["wv"]))
+        ig = (batch_only(c @ p["wi"]) + p["bi"]).float()
+        fg = (batch_only(c @ p["wf"]) + p["bf"] + 3.0).float()
         hout, mstate = mlstm_step(q, k, v, ig, fg, state["state"])
         hout = hout.reshape(-1, 1, di)
         new_state = {"conv": conv_state, "state": mstate}
@@ -299,12 +312,14 @@ def apply_mlstm_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None):
         c = F.silu(causal_conv(p["conv"], u).float()).to(x.dtype)
         b, s, _ = c.shape
         q, k, v = (_split_heads(t, nh) for t in (c @ p["wq"], c @ p["wk"], u @ p["wv"]))
-        ig = (c @ p["wi"] + p["bi"]).float().transpose(1, 2)
-        fg = (c @ p["wf"] + p["bf"] + 3.0).float().transpose(1, 2)
+        # the gates' products summed over their split input before the bias
+        # (DTensor 2.11 cannot add a split bias to a partial sum)
+        ig = (batch_only(c @ p["wi"]) + p["bi"]).float().transpose(1, 2)
+        fg = (batch_only(c @ p["wf"]) + p["bf"] + 3.0).float().transpose(1, 2)
         hout, mstate = mlstm_chunkwise(q, k, v, ig, fg,
                                        state["state"] if state is not None else None,
                                        chunk=min(cfg.attn_chunk, s))
-        hout = hout.transpose(1, 2).reshape(b, s, di)
+        hout = pin_grad(hout.transpose(1, 2).reshape(b, s, di))
         if mode == "prefill":
             new_state = {"conv": _conv_history(u, p["conv"]["w"].shape[0]), "state": mstate}
     hout = _group_rms(p["out_norm"], hout, nh)
@@ -319,16 +334,13 @@ def apply_slstm_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None):
     step a token) or, in decode, ``slstm_step``. Its FFN has no pre-norm."""
     _check_mode(mode)
     d, nh = cfg.d_model, cfg.n_heads
-    dh = d // nh
     h = norm(p["norm"], x, cfg.rms_norm)
     new_state = None
     if mode == "decode":
         c, conv_state = causal_conv_step(p["conv"], h[:, 0], state["conv"])
         c = F.silu(c.float()).to(x.dtype)
-        gates = {"i": (c @ p["wi"]).reshape(-1, nh, dh),
-                 "f": (c @ p["wf"]).reshape(-1, nh, dh),
-                 "z": (h[:, 0] @ p["wz"]).reshape(-1, nh, dh),
-                 "o": (h[:, 0] @ p["wo_g"]).reshape(-1, nh, dh)}
+        gates = {"i": _heads(c @ p["wi"], nh), "f": _heads(c @ p["wf"], nh),
+                 "z": _heads(h[:, 0] @ p["wz"], nh), "o": _heads(h[:, 0] @ p["wo_g"], nh)}
         hout, sstate = slstm_step(p["r"], gates, state["state"])
         hout = hout.reshape(-1, 1, d).to(x.dtype)
         new_state = {"conv": conv_state, "state": sstate}
@@ -339,7 +351,7 @@ def apply_slstm_block(p, x, cfg: ModelConfig, *, mode="prefill", state=None):
                  "z": _split_heads(h @ p["wz"], nh), "o": _split_heads(h @ p["wo_g"], nh)}
         hout, sstate = slstm_scan(p["r"], gates,
                                   state["state"] if state is not None else None)
-        hout = hout.transpose(1, 2).reshape(b, s, d).to(x.dtype)
+        hout = pin_grad(hout.transpose(1, 2).reshape(b, s, d)).to(x.dtype)
         if mode == "prefill":
             new_state = {"conv": _conv_history(h, p["conv"]["w"].shape[0]), "state": sstate}
     x = x + _group_rms(p["out_norm"], hout, nh)
@@ -482,13 +494,15 @@ def stack_apply(p, x, cfg: ModelConfig, *, positions, mode="prefill",
 
 
 def init_stack_state(cfg: ModelConfig, batch: int, s_max: int,
-                     dtype=torch.bfloat16, device="cpu"):
-    """Decode-time state for the whole stack (stacked for scan models)."""
+                     dtype=torch.bfloat16, device="cpu", compact: bool = False):
+    """Decode-time state for the whole stack (stacked for scan models);
+    ``compact`` as ``init_block_state``'s."""
     if _stackable(cfg):
-        shape = (cfg.n_layers, batch, cfg.n_kv_heads, s_max, cfg.hd)
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads, _kv_capacity(cfg, s_max, compact),
+                 cfg.hd)
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                        v=torch.zeros(shape, dtype=dtype, device=device))
-    return [init_block_state(cfg, kind, batch, s_max, dtype, device)
+    return [init_block_state(cfg, kind, batch, s_max, dtype, device, compact)
             for kind in cfg.pattern_for_layers()]
 
 

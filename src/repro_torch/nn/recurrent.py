@@ -25,9 +25,18 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.utils._python_dispatch import _disable_current_modes
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import cost, ops
 from repro_torch.nn import params as prm
+from repro_torch.parallel.sharding import (
+    batch_heads_placements,
+    contiguous_stride,
+    heads_whole,
+    pin_grad,
+    placed_as,
+)
 
 
 # --------------------------------------------------------------------------
@@ -112,16 +121,22 @@ def def_rglru(width, n_heads):
 
 
 def _rglru_coeffs(p, x, n_heads):
-    """x: (B, S, W) → log_a (B,S,W) fp32, gated input b (B,S,W) fp32."""
+    """x: (B, S, W) → log_a (B,S,W) fp32, gated input b (B,S,W) fp32. On a
+    mesh whose split of W does not keep the heads whole (10 heads on a
+    16-way ``lru``), W is gathered for the per-head gates and the
+    coefficients split again as x was (``heads_whole``)."""
     b_, s, w = x.shape
-    xh = x.reshape(b_, s, n_heads, w // n_heads)
-    r = torch.sigmoid(blockdiag(p["a_gate"], xh).float()).reshape(b_, s, w)
-    i = torch.sigmoid(blockdiag(p["i_gate"], xh).float()).reshape(b_, s, w)
+    xw = heads_whole(x, 2, n_heads)
+    # its gradient made whole as xw is before the reshape's backward merges
+    # the heads again (torch 2.11 cannot merge them split on their width)
+    xh = pin_grad(xw.reshape(b_, s, n_heads, w // n_heads))
+    r = pin_grad(torch.sigmoid(blockdiag(p["a_gate"], xh).float()).reshape(b_, s, w))
+    i = pin_grad(torch.sigmoid(blockdiag(p["i_gate"], xh).float()).reshape(b_, s, w))
     log_a = -_RG_C * F.softplus(p["lam"] + _LAMBDA_SHIFT) * r
-    gated_x = i * x.float()
+    gated_x = i * xw.float()
     # sqrt(1 - a^2) input normalizer (Griffin eq. 4), computed from log_a.
     multiplier = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
-    return log_a, multiplier * gated_x
+    return placed_as(log_a, x), placed_as(multiplier * gated_x, x)
 
 
 def rglru(p, x, n_heads, h0=None, force=None):
@@ -195,6 +210,8 @@ def mlstm_chunkwise(q, k, v, i_gate, f_gate, state=None, chunk=256):
     (in bf16 both the scale and the product round, as the reference's do),
     then every product runs in fp32. Returns (h (B, H, S, dv) in q's dtype,
     final MLSTMState)."""
+    if isinstance(q, DTensor):
+        return _mlstm_local(mlstm_chunkwise, q, k, v, i_gate, f_gate, state, chunk)
     b, hn, s, dk = q.shape
     dv = v.shape[-1]
     if state is None:
@@ -250,7 +267,10 @@ def mlstm_chunkwise(q, k, v, i_gate, f_gate, state=None, chunk=256):
 
 def mlstm_step(q, k, v, i_gate, f_gate, state: MLSTMState):
     """One decode step. q, k: (B, H, dk); v: (B, H, dv); gates (B, H). q is
-    scaled in fp32 (the reference's step, unlike its chunkwise form)."""
+    scaled in fp32 (the reference's step, unlike its chunkwise form).
+    DTensors run on local shards (``_mlstm_local``)."""
+    if isinstance(q, DTensor):
+        return _mlstm_local(mlstm_step, q, k, v, i_gate, f_gate, state)
     scale = q.shape[-1] ** -0.5
     logf = F.logsigmoid(f_gate.float())
     logi = i_gate.float()
@@ -342,7 +362,9 @@ def _side_by_side(p, x_gates):
 def slstm_step(p, x_gates, state: SLSTMState):
     """One step. x_gates: {"i", "f", "z", "o"} of (B, H, dh) pre-activations
     from the input; p: {"ri", "rf", "rz", "ro"} of (H, dh, dh). Returns (h
-    fp32, new state)."""
+    fp32, new state). DTensors run on local shards (``_slstm_local``)."""
+    if isinstance(x_gates["i"], DTensor):
+        return _slstm_local(slstm_step, p, x_gates, state)
     r, x_t = _side_by_side(p, x_gates)
     return _slstm_cell(x_t, r, state)
 
@@ -354,11 +376,133 @@ def slstm_scan(p, x_gates, state=None):
     time once (so that under grad their gradient is one ``stack``, not a
     zero-filled tensor a step); each step is one product and the cell's
     elementwise ops."""
+    if isinstance(x_gates["i"], DTensor):
+        return _slstm_local(slstm_scan, p, x_gates, state)
     b, hn, s, dh = x_gates["i"].shape
     st = state if state is not None else slstm_state_init(b, hn, dh, x_gates["i"].device)
     r, xs = _side_by_side(p, x_gates)
+    if xs.is_meta:
+        hs, *last = _SLSTMLoopMeta.apply(xs, r, *st)
+        return hs.to(x_gates["i"].dtype), SLSTMState(*last)
     hs = []
     for x_t in xs.unbind(2):
         h, st = _slstm_cell(x_t, r, st)
         hs.append(h)
     return torch.stack(hs, dim=2).to(x_gates["i"].dtype), st
+
+
+def _measure_step(x_t, r, state):
+    """One ``_slstm_cell`` step on fresh meta leaves, counted by the active
+    cost counter's ``measure`` (away from its own count): (the forward's
+    count, the backward's count, the bytes of the storages the step saves
+    for its backward, those of its long-lived inputs x and r left out), or
+    None with no counter."""
+    counter = cost.counter()
+    if counter is None:
+        return None
+    with _disable_current_modes():
+        leaves = [t.detach().requires_grad_() for t in (x_t, r, *state)]
+    saved = []
+
+    def forward():
+        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
+                lambda t: saved.append(t) or t, lambda t: t):
+            h, st = _slstm_cell(leaves[0], leaves[1], SLSTMState(*leaves[2:]))
+        return [h, *st]
+
+    fwd, outs = counter.measure(forward)
+    with _disable_current_modes():
+        grads = [torch.empty_like(o) for o in outs]
+    bwd, _ = counter.measure(lambda: torch.autograd.grad(outs, leaves, grads, allow_unused=True))
+    inputs = {x_t.untyped_storage()._cdata, r.untyped_storage()._cdata}
+    sizes = {t.untyped_storage()._cdata: t.untyped_storage().nbytes() for t in saved}
+    return fwd, bwd, sum(n for key, n in sizes.items() if key not in inputs)
+
+
+class _SLSTMLoopMeta(torch.autograd.Function):
+    """The sLSTM's time loop on meta tensors (the dry-run's). Every step
+    runs the same ops on the same shapes, so one step is run and counted
+    (``_measure_step``: its forward, its backward and the bytes it saves
+    for its backward) and the loop costs that step's count times the
+    steps, where executing tens of thousands of steps of meta ops would
+    take the host hours. What the loop allocates is allocated: the stacked
+    h (B, H, S, dh) fp32 and the final state; under grad the steps' saved
+    tensors (one buffer of their bytes, kept for the backward), else the S
+    steps' h, held until their stack; in the backward the S steps' input
+    gradients and their stack, r's and the initial state's gradients."""
+
+    @staticmethod
+    def forward(ctx, xs, r, c, n, m, h):
+        b, hn, s, _ = xs.shape
+        step = _measure_step(xs[:, :, 0], r, SLSTMState(c, n, m, h))
+        hs_bytes = b * hn * s * c.shape[-1] * 4
+        if step is not None:  # the steps, then the stack of their h (read, written)
+            cost.report_loop("slstm_scan", s * step[0].flops, s * step[0].bytes + 2 * hs_bytes)
+        grad = any(ctx.needs_input_grad)
+        nbytes = s * (step[2] if step else 0) if grad else hs_bytes
+        held = torch.empty((nbytes,), dtype=torch.uint8, device=xs.device)
+        hs = torch.empty((b, hn, s, c.shape[-1]), dtype=torch.float32, device=xs.device)
+        last = [torch.empty_like(t) for t in (c, n, m, h)]
+        ctx.step, ctx.steps = step, s
+        if grad:
+            ctx.save_for_backward(held, xs, r, c)
+        del held
+        return (hs, *last)
+
+    @staticmethod
+    def backward(ctx, *_):
+        _, xs, r, c = ctx.saved_tensors
+        if ctx.step is not None:  # the steps, then the stack of their x gradients
+            cost.report_loop("slstm_scan_bwd", ctx.steps * ctx.step[1].flops,
+                             ctx.steps * ctx.step[1].bytes + 2 * xs.numel() * 4)
+        per_step = torch.empty(xs.shape, dtype=torch.float32, device=xs.device)
+        dxs = torch.empty(xs.shape, dtype=torch.float32, device=xs.device)
+        del per_step
+        return (dxs, torch.empty_like(r), *(torch.empty_like(c) for _ in range(4)))
+
+
+def _bh_local(t, pl, grads=None):
+    return t.redistribute(t.device_mesh, pl).to_local(grad_placements=grads)
+
+
+def _bh_wrap(t, mesh, pl):
+    """A local (B, H, ...) shard as a DTensor placed ``pl`` (even splits)."""
+    shape = list(t.shape)
+    for i, q in enumerate(pl):
+        if isinstance(q, Shard):
+            shape[q.dim] *= mesh.size(i)
+    return DTensor.from_local(t, mesh, pl, run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def _mlstm_local(fn, q, k, v, i_gate, f_gate, state, *extra):
+    """``fn`` (``mlstm_chunkwise`` or ``mlstm_step``) of DTensors on each
+    rank's local shards of batch and heads (as ``_slstm_local``): each
+    (batch row, head) is its own recurrence, DTensor has no strategy for
+    some of its ops' backwards (``log_sigmoid_backward``), and its plans
+    for a step's split heads take minutes on a 3-D mesh."""
+    mesh, pl = q.device_mesh, batch_heads_placements(q)
+    h, st = fn(*(_bh_local(t, pl) for t in (q, k, v, i_gate, f_gate)),
+               None if state is None else MLSTMState(*(_bh_local(t, pl) for t in state)),
+               *extra)
+    return _bh_wrap(h, mesh, pl), MLSTMState(*(_bh_wrap(t, mesh, pl) for t in st))
+
+
+def _slstm_local(fn, p, x_gates, state):
+    """``fn`` (``slstm_scan`` or ``slstm_step``) of DTensors on each rank's
+    local shards. The recurrence is independent for each (batch row, head),
+    so the time loop runs on plain tensors: DTensor's dispatch at every op
+    of every step would cost the host seconds a layer (32,768 steps in a
+    32k prefill). The gates are placed first as the input gate's split of
+    batch (dim 0) and heads (dim 1), every other split gathered and partial
+    sums reduced; the recurrent weights' heads split as the gates' heads,
+    else whole, and their gradient is then a partial sum over the axes that
+    split the batch. The state is placed as the gates."""
+    xi = x_gates["i"]
+    mesh, pl = xi.device_mesh, batch_heads_placements(xi)
+    r_pl = tuple(Shard(0) if q == Shard(1) else Replicate() for q in pl)
+    grads = tuple(Partial() if q == Shard(0) else w for q, w in zip(pl, r_pl))
+    h, st = fn({k: _bh_local(w, r_pl, grads) for k, w in p.items()},
+               {g: _bh_local(t, pl) for g, t in x_gates.items()},
+               None if state is None else SLSTMState(*(_bh_local(t, pl) for t in state)))
+    return _bh_wrap(h, mesh, pl), SLSTMState(*(_bh_wrap(t, mesh, pl) for t in st))

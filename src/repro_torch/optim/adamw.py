@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch.nn.params import ShapeDtype
 from repro_torch.utils.trees import tree_flatten_with_paths, tree_unflatten
 
 
@@ -84,6 +85,13 @@ def init(params) -> OptState:
     zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
     return OptState(m=_map(zeros, params), v=_map(zeros, params),
                     master=_map(lambda p: p.detach().to(torch.float32, copy=True), params))
+
+
+def abstract_state(params) -> OptState:
+    """The optimizer state's leaves as fp32 ``ShapeDtype`` (no allocation)
+    for a tree of params or of their ``ShapeDtype``."""
+    f32 = lambda p: ShapeDtype(tuple(p.shape), torch.float32)  # noqa: E731
+    return OptState(m=_map(f32, params), v=_map(f32, params), master=_map(f32, params))
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -31,6 +31,8 @@ from typing import Optional, Sequence, Union
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.utils.trees import tree_flatten_with_paths, tree_map_with_path
+
 # A logical rule maps a logical axis name to one mesh axis, a tuple of mesh
 # axes (sharded over their product), or None (replicated).
 MeshAxes = Union[None, str, tuple]
@@ -320,11 +322,14 @@ def batch_only(x):
     DTensor (torch 2.11) cannot flatten (B, S) for a product while S
     is split, forward or backward (the ``--sp`` residual, the token-parallel
     MoE's output), and a redistribute here puts the gradient back as it
-    came."""
+    came. Where x is batch-only already, its gradient is pinned to that
+    (``pin_grad``): a gradient that came back split on the sequence would
+    make the product's backward flatten a split (B, S), which torch 2.13's
+    DTensor plans for minutes on a 3-D mesh (the dry-run's 2x2x2 cells)."""
     if not isinstance(x, DTensor):
         return x
     want = tuple(p if p == Shard(0) else Replicate() for p in x.placements)
-    return x if want == tuple(x.placements) else x.redistribute(x.device_mesh, want)
+    return pin_grad(x) if want == tuple(x.placements) else x.redistribute(x.device_mesh, want)
 
 
 def gather_dim(x, dim: int):
@@ -336,6 +341,62 @@ def gather_dim(x, dim: int):
         return x
     return x.redistribute(x.device_mesh, tuple(Replicate() if p == Shard(dim) else p
                                                for p in x.placements))
+
+
+def heads_whole(x, dim: int, n_heads: int):
+    """x with its dim ``dim`` gathered (``gather_dim``) where the dim's split
+    does not keep each of its ``n_heads`` heads whole on one rank, ahead of
+    a reshape of the dim into (n_heads, width / n_heads): DTensor cannot
+    unflatten a dim whose split does not divide the heads (recurrentgemma's
+    10 heads, xlstm's 4, on a 16-way ``model`` axis), where XLA reshards it.
+    A plain tensor, or a split into whole heads, as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    ways = 1
+    for i, p in enumerate(x.placements):
+        if p == Shard(dim % x.dim()):
+            ways *= x.device_mesh.size(i)
+    return x if n_heads % ways == 0 else gather_dim(x, dim % x.dim())
+
+
+def batch_heads_placements(x) -> tuple:
+    """A (B, H, ...) DTensor's splits of batch (dim 0) and heads (dim 1);
+    every other split, every partial sum and every size-1 mesh dim made
+    whole: the placements under which each rank's local shard holds whole
+    (batch row, head) problems."""
+    mesh = x.device_mesh
+    return tuple(q if isinstance(q, Shard) and q.dim in (0, 1) and mesh.size(i) > 1
+                 else Replicate() for i, q in enumerate(x.placements))
+
+
+def batch_heads(x):
+    """x redistributed to ``batch_heads_placements`` (partial sums reduced,
+    other splits gathered); a plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    want = batch_heads_placements(x)
+    return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
+
+
+def pin_grad(x):
+    """x as it is, with its gradient brought to x's own placements on the
+    way back (the backward of ``DTensor.from_local`` redistributes it): put
+    after a reshape that merged whole heads (``heads_whole``), whose
+    backward splits the dim again and cannot take a gradient that a later
+    product left split unevenly. A plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def placed_as(t, like):
+    """``t`` redistributed to ``like``'s placements (a DTensor of ``like``'s
+    rank), or ``t`` as it is."""
+    if not isinstance(t, DTensor) or placements_equal(t.placements, like.placements,
+                                                      t.device_mesh):
+        return t
+    return t.redistribute(t.device_mesh, like.placements)
 
 
 def place(t: torch.Tensor, sharding: Optional[NamedSharding]):
@@ -356,13 +417,47 @@ def place(t: torch.Tensor, sharding: Optional[NamedSharding]):
                               shape=t.shape, stride=t.stride())
 
 
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``."""
+    stride, n = [], 1
+    for d in reversed(tuple(shape)):
+        stride.append(n)
+        n *= d
+    return tuple(reversed(stride))
+
+
+def place_abstract(tree, shardings):
+    """Each leaf of ``tree`` (a ``params.ShapeDtype`` or anything with a
+    shape and a dtype) as a DTensor of its global shape over an empty meta
+    local shard of ``shard_shape`` under the same-path leaf of
+    ``shardings``: nothing is allocated, sliced or gathered, so a 235 B-param
+    state costs nothing (the dry-run's). A None sharding (or ``shardings``
+    None: no mesh) gives a plain meta tensor."""
+    by_path = {} if shardings is None else dict(tree_flatten_with_paths(shardings))
+
+    def one(path, leaf):
+        sharding = by_path.get(path)
+        if sharding is None:
+            return torch.empty(tuple(leaf.shape), dtype=leaf.dtype, device="meta")
+        local = torch.empty(sharding.shard_shape(leaf.shape), dtype=leaf.dtype, device="meta")
+        return DTensor.from_local(local, sharding.mesh, sharding.placements, run_check=False,
+                                  shape=torch.Size(leaf.shape),
+                                  stride=contiguous_stride(leaf.shape))
+
+    return tree_map_with_path(one, tree)
+
+
 def resolve_spec(axes_leaf, shape, env: Optional[MeshEnv] = None) -> PartitionSpec:
     """PartitionSpec for one parameter given its logical axes and shape."""
     return logical_to_spec(axes_leaf, env=env, shape=shape)
 
 
 def _is_axes(leaf) -> bool:
-    return isinstance(leaf, tuple) and not hasattr(leaf, "_fields")
+    """A leaf of an axes tree: a plain tuple of names (or None), as the
+    reference's ``is_leaf``; a tuple of such tuples (whisper's ``cross_kv``)
+    is a node."""
+    return isinstance(leaf, tuple) and not hasattr(leaf, "_fields") and \
+        all(isinstance(x, (str, type(None))) for x in leaf)
 
 
 def map_axes(fn, axes_tree, shapes_tree):
@@ -372,9 +467,11 @@ def map_axes(fn, axes_tree, shapes_tree):
         return fn(axes_tree, shapes_tree)
     if isinstance(axes_tree, dict):
         return {k: map_axes(fn, v, shapes_tree[k]) for k, v in axes_tree.items()}
-    if isinstance(axes_tree, tuple):  # a named tuple
+    if isinstance(axes_tree, tuple) and hasattr(axes_tree, "_fields"):
         return type(axes_tree)(*(map_axes(fn, a, s)
                                  for a, s in zip(axes_tree, shapes_tree)))
+    if isinstance(axes_tree, tuple):
+        return tuple(map_axes(fn, a, s) for a, s in zip(axes_tree, shapes_tree))
     if isinstance(axes_tree, list):
         return [map_axes(fn, a, s) for a, s in zip(axes_tree, shapes_tree)]
     raise TypeError(f"not an axes tree node: {axes_tree!r}")
@@ -392,9 +489,10 @@ def param_shardings(axes_tree, shapes_tree, env: Optional[MeshEnv] = None):
         env.mesh, resolve_spec(tuple(axes), arr.shape, env)), axes_tree, shapes_tree)
 
 
-__all__ = ["AbstractMesh", "MULTI_POD_RULES", "MeshEnv", "NamedSharding", "P", "batch_only",
-           "gather_dim",
+__all__ = ["AbstractMesh", "MULTI_POD_RULES", "MeshEnv", "NamedSharding", "P", "batch_heads",
+           "batch_heads_placements", "batch_only",
+           "gather_dim", "heads_whole", "pin_grad", "placed_as",
            "PartitionSpec", "SINGLE_POD_RULES", "current_env",
-           "logical_to_spec", "map_axes", "mesh_shape", "null_env",
-           "param_shardings", "place", "placements_equal", "resolve_spec",
+           "contiguous_stride", "logical_to_spec", "map_axes", "mesh_shape", "null_env",
+           "param_shardings", "place", "place_abstract", "placements_equal", "resolve_spec",
            "shard", "shard_shape", "spec_to_placements", "use_env", "zero1_rules"]

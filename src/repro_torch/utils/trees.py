@@ -80,3 +80,29 @@ def tree_unflatten(flat: dict[str, Any]):
         return {k: listify(v) for k, v in node.items()}
 
     return listify(root)
+
+
+def _leaf_count(x) -> int:
+    if hasattr(x, "shape"):
+        n = 1
+        for d in x.shape:
+            n *= int(d)
+        return n
+    return 1
+
+
+def _leaf_bytes(x) -> int:
+    if hasattr(x, "dtype") and hasattr(x, "shape"):
+        return _leaf_count(x) * x.dtype.itemsize
+    return 0
+
+
+def tree_count(tree) -> int:
+    """Total number of elements across all array leaves (tensors, DTensors
+    at their global shape, ``params.ShapeDtype``)."""
+    return sum(_leaf_count(leaf) for _, leaf in tree_flatten_with_paths(tree))
+
+
+def tree_bytes(tree) -> int:
+    """Total bytes across all array leaves, as ``tree_count`` counts them."""
+    return sum(_leaf_bytes(leaf) for _, leaf in tree_flatten_with_paths(tree))
