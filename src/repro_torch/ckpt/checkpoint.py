@@ -43,6 +43,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.launch.mesh import local_device
 from repro_torch.parallel.sharding import place
+from repro_torch.utils.pool import imap_window
 from repro_torch.utils.trees import tree_flatten_with_paths, tree_map_with_path
 
 try:
@@ -196,13 +197,12 @@ def _leaf_bytes(leaf) -> tuple[str, list, bytes]:
     return str(arr.dtype), list(arr.shape), arr.tobytes()
 
 
-def _encode_leaf(leaf) -> bytes:
-    dtype, shape, raw = _leaf_bytes(leaf)
+def _encode_raw(leaf_bytes: tuple[str, list, bytes]) -> bytes:
+    dtype, shape, raw = leaf_bytes
     return _compress(packb({"dtype": dtype, "shape": shape, "data": raw}))
 
 
-def _decode_leaf(blob: bytes) -> torch.Tensor:
-    payload = unpackb(_decompress(blob))
+def _tensor_of(payload: dict) -> torch.Tensor:
     dtype = _DTYPES.get(payload["dtype"])
     if dtype is None:
         raise CheckpointError(f"checkpoint leaf of dtype {payload['dtype']!r} is not supported")
@@ -213,8 +213,38 @@ def _decode_leaf(blob: bytes) -> torch.Tensor:
     return torch.frombuffer(bytearray(data), dtype=dtype).reshape(shape)
 
 
+def _decode_leaf(blob: bytes) -> torch.Tensor:
+    return _tensor_of(unpackb(_decompress(blob)))
+
+
 def _sha(b: bytes) -> str:
     return hashlib.sha256(b).hexdigest()
+
+
+def _blob_and_sha(leaf_bytes) -> tuple[bytes, str]:
+    blob = _encode_raw(leaf_bytes)
+    return blob, _sha(blob)
+
+
+def _checked_payload(path: str, blob: bytes, sha256: str) -> dict:
+    if _sha(blob) != sha256:
+        raise CheckpointError(f"checksum mismatch for {path}")
+    return unpackb(_decompress(blob))
+
+
+# Raw or compressed bytes of the leaves in flight at once (``imap_window``):
+# the threads compress, hash and decompress a full-width train state on
+# every core while the host holds this window beside the tree.
+WINDOW_BYTES = 4 << 30
+
+
+def _pool(fn, args, size):
+    """``imap_window(fn, args)`` within WINDOW_BYTES, ``size(a)`` the bytes
+    of a call's leaf. zlib and sha256 let go of the GIL. ``args`` is drawn
+    on the calling thread, which does every torch operation (a torch call
+    on a new thread would start a thread team of its own) and every read
+    and write of the store, in the tree's order, as before."""
+    return imap_window(fn, args, size, WINDOW_BYTES)
 
 
 # --------------------------------------------------------------------------
@@ -261,11 +291,13 @@ def save(bucket, prefix: str, step: int, tree, metadata: Optional[dict] = None):
         dist.barrier()
         return base
     manifest = {"step": step, "leaves": {}, "metadata": metadata or {}}
-    for path, leaf in tree_flatten_with_paths(tree):
-        blob = _encode_leaf(leaf)
+    flat = tree_flatten_with_paths(tree)
+    encoded = _pool(_blob_and_sha, ((_leaf_bytes(leaf),) for _, leaf in flat),
+                    lambda a: len(a[0][2]))
+    for (path, _), (blob, sha256) in zip(flat, encoded):
         key = f"{base}/leaf/{path}"
         bucket.write(key, blob)
-        manifest["leaves"][path] = {"key": key, "sha256": _sha(blob), "bytes": len(blob)}
+        manifest["leaves"][path] = {"key": key, "sha256": sha256, "bytes": len(blob)}
     # Commit marker LAST: an interrupted save leaves no manifest → invalid.
     bucket.write(f"{base}/MANIFEST.json", json.dumps(manifest).encode())
     return base
@@ -279,14 +311,15 @@ def is_valid(bucket, prefix: str, step: int, verify_data: bool = True) -> bool:
     # raises, makes the checkpoint invalid: recovery moves on to an older one.
     try:
         manifest = json.loads(bucket.read(f"{base}/MANIFEST.json"))
-        for info in manifest["leaves"].values():
-            if not bucket.exists(info["key"]):
-                return False
-            if verify_data and _sha(bucket.read(info["key"])) != info["sha256"]:
-                return False
+        infos = list(manifest["leaves"].values())
+        if not all(bucket.exists(info["key"]) for info in infos):
+            return False
+        if not verify_data:
+            return True
+        shas = _pool(_sha, ((bucket.read(info["key"]),) for info in infos), lambda a: len(a[0]))
+        return all(sha == info["sha256"] for sha, info in zip(shas, infos))
     except Exception:
         return False
-    return True
 
 
 def steps_available(bucket, prefix: str) -> list[int]:
@@ -323,12 +356,10 @@ def restore(bucket, prefix: str, step: int, like=None, shardings=None):
     if not bucket.exists(f"{base}/MANIFEST.json"):
         raise CheckpointError(f"no manifest for {base}")
     manifest = json.loads(bucket.read(f"{base}/MANIFEST.json"))
-    by_path = {}
-    for path, info in manifest["leaves"].items():
-        blob = bucket.read(info["key"])
-        if _sha(blob) != info["sha256"]:
-            raise CheckpointError(f"checksum mismatch for {path}")
-        by_path[path] = _decode_leaf(blob)
+    leaves = manifest["leaves"]
+    payloads = _pool(_checked_payload, ((path, bucket.read(info["key"]), info["sha256"])
+                                        for path, info in leaves.items()), lambda a: len(a[1]))
+    by_path = {path: _tensor_of(payload) for path, payload in zip(leaves, payloads)}
     if like is None:
         return by_path, manifest["metadata"]
     missing = [p for p, _ in tree_flatten_with_paths(like) if p not in by_path]

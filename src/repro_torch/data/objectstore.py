@@ -1,18 +1,110 @@
-"""Bucket views the port's checkpoints read and write: its own copies of
-the reference's ``MountedBucket`` and ``DirBucket``
+"""The object store and the bucket views the port's checkpoints read and
+write: its own copies of the reference's ``ObjectStore``, ``StoreStats``,
+``ObjectStoreError``, ``MountedBucket`` and ``DirBucket``
 (``repro/data/objectstore.py``).
 
-``MountedBucket`` wraps an object store service by duck typing: anything
-with ``get``, ``put``, ``list`` and ``exists`` (the platform's in-memory
-``ObjectStore`` reaches the learner as ``ctx.objstore``). The reference's
-read-through block cache is not carried over: checkpoints are read once.
-``DirBucket`` is the same interface over a local directory, the train CLI's
-checkpoint target.
+``ObjectStore`` models the remote service (FfDL C8): buckets of immutable
+blobs with GET/PUT/LIST and per-operation byte accounting, a chaos hook
+and the fault plane's interposition points. The platform owns one; it
+reaches the learner as ``ctx.objstore``. ``MountedBucket`` wraps an object
+store service by duck typing: anything with ``get``, ``put``, ``list`` and
+``exists``. The reference's read-through block cache is not carried over:
+checkpoints are read once. ``DirBucket`` is the same interface over a
+local directory, the train CLI's checkpoint target.
 """
 
 from __future__ import annotations
 
 import os
+import threading
+from dataclasses import dataclass
+from typing import Optional
+
+
+class ObjectStoreError(Exception):
+    pass
+
+
+@dataclass
+class StoreStats:
+    gets: int = 0
+    puts: int = 0
+    bytes_read: int = 0
+    bytes_written: int = 0
+    cache_hits: int = 0
+    cache_misses: int = 0
+
+
+class ObjectStore:
+    """In-process object storage service: buckets → key → immutable bytes.
+
+    ``bandwidth_bps`` (optional) models the shared network/storage pipe: each
+    transfer asks the clock for ``size / bandwidth`` seconds, which the scale
+    benchmark aggregates to reproduce heavy-load degradation.
+    """
+
+    def __init__(self, clock=None, bandwidth_bps: Optional[float] = None):
+        self._buckets: dict[str, dict[str, bytes]] = {}
+        self._lock = threading.RLock()
+        self.stats = StoreStats()
+        self.clock = clock
+        self.bandwidth_bps = bandwidth_bps
+        self.fail_next: int = 0  # chaos hook: fail the next N operations
+        # gray-failure interposition (objstore.get / objstore.put): wired
+        # by the owning platform to the shared FaultPlane
+        self.faults = None
+        self.fault_key = None
+
+    def _maybe_fail(self, op: str):
+        if self.fail_next > 0:
+            self.fail_next -= 1
+            raise ObjectStoreError(f"injected object-store fault during {op}")
+        if self.faults is not None:
+            self.faults.on(f"objstore.{op}", key=self.fault_key,
+                           exc=ObjectStoreError)
+
+    def _charge(self, nbytes: int):
+        if self.clock is not None and self.bandwidth_bps:
+            self.clock.advance(nbytes / self.bandwidth_bps)
+
+    def create_bucket(self, name: str):
+        with self._lock:
+            self._buckets.setdefault(name, {})
+
+    def put(self, bucket: str, key: str, data):
+        self._maybe_fail("put")
+        if isinstance(data, str):
+            data = data.encode()
+        with self._lock:
+            self._buckets.setdefault(bucket, {})[key] = bytes(data)
+            self.stats.puts += 1
+            self.stats.bytes_written += len(data)
+        self._charge(len(data))
+
+    def get(self, bucket: str, key: str) -> bytes:
+        self._maybe_fail("get")
+        with self._lock:
+            try:
+                data = self._buckets[bucket][key]
+            except KeyError:
+                raise ObjectStoreError(f"no such object {bucket}/{key}")
+            self.stats.gets += 1
+            self.stats.bytes_read += len(data)
+        self._charge(len(data))
+        return data
+
+    def delete(self, bucket: str, key: str):
+        with self._lock:
+            self._buckets.get(bucket, {}).pop(key, None)
+
+    def list(self, bucket: str, prefix: str = "") -> list[str]:
+        with self._lock:
+            return sorted(k for k in self._buckets.get(bucket, {})
+                          if k.startswith(prefix))
+
+    def exists(self, bucket: str, key: str) -> bool:
+        with self._lock:
+            return key in self._buckets.get(bucket, {})
 
 
 class MountedBucket:

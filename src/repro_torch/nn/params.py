@@ -5,8 +5,9 @@ axes + initializer); ``materialize`` turns a def-tree into tensors. Every
 leaf is drawn in fp32 from its own CPU ``torch.Generator``, seeded from the
 model seed and the crc32 of the leaf's path, then cast and moved: the same
 seed gives the same weights on the CPU and on the card, whatever order the
-tree is walked in. The values differ from ``jax.random``'s, so parity
-tests load the reference's params (``repro_torch.convert``).
+tree is walked in, and whichever thread draws a leaf. The values differ
+from ``jax.random``'s, so parity tests load the reference's params
+(``repro_torch.convert``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.utils.pool import imap_window
 from repro_torch.utils.trees import tree_map_with_path
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -52,22 +54,35 @@ def leaf_dtype(d: ParamDef, default_dtype: torch.dtype) -> torch.dtype:
     return torch_dtype(d.dtype) if d.dtype else default_dtype
 
 
-def _init_leaf(gen: torch.Generator, d: ParamDef, default_dtype: torch.dtype,
+def _std(d: ParamDef) -> Optional[float]:
+    """The std of a drawn leaf's init; None for a constant one."""
+    if d.init in ("zeros", "ones"):
+        return None
+    if d.init == "normal":
+        return d.scale if d.scale is not None else 0.02
+    if d.init == "scaled_fan_in":
+        scale = d.scale if d.scale is not None else 1.0
+        return scale / math.sqrt(max(_fan_in(d.shape), 1))
+    raise ValueError(f"unknown init {d.init}")
+
+
+def _draw(seed: int, path: str, d: ParamDef) -> Optional[torch.Tensor]:
+    """The leaf's N(0, 1) fp32 draw on the CPU (None for a constant leaf):
+    one serial kernel, no thread team, no GIL."""
+    if _std(d) is None:
+        return None
+    gen = torch.Generator(device="cpu").manual_seed(leaf_seed(seed, path))
+    return torch.randn(d.shape, generator=gen, dtype=torch.float32)
+
+
+def _init_leaf(x: Optional[torch.Tensor], d: ParamDef, default_dtype: torch.dtype,
                device) -> torch.Tensor:
     dtype = leaf_dtype(d, default_dtype)
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=device)
-    if d.init == "normal":
-        std = d.scale if d.scale is not None else 0.02
-    elif d.init == "scaled_fan_in":
-        scale = d.scale if d.scale is not None else 1.0
-        std = scale / math.sqrt(max(_fan_in(d.shape), 1))
-    else:
-        raise ValueError(f"unknown init {d.init}")
-    x = torch.randn(d.shape, generator=gen, dtype=torch.float32)
-    return (std * x).to(device=device, dtype=dtype)
+    return (_std(d) * x).to(device=device, dtype=dtype)
 
 
 def leaf_seed(seed: int, path: str) -> int:
@@ -76,15 +91,31 @@ def leaf_seed(seed: int, path: str) -> int:
     return seed * 2**31 + zlib.crc32(path.encode()) % (2**31)
 
 
+# fp32 draws in flight at once: a full-width model's weights are drawn on
+# every core, two of llama3-8b's largest leaves at a time. A tree whose
+# draws come to less than DRAW_POOL_MIN_BYTES (a tiny config's) is drawn on
+# the calling thread: handing its leaves to threads would cost more.
+DRAW_WINDOW_BYTES = 16 << 30
+DRAW_POOL_MIN_BYTES = 64 << 20
+
+
+def _draw_bytes(args) -> int:
+    return 4 * math.prod(args[2].shape)
+
+
 def materialize(seed: int, defs, dtype: torch.dtype = torch.bfloat16,
                 device="cpu"):
-    """Turn a ParamDef tree into a tree of tensors on ``device``."""
-
-    def build(path: str, d: ParamDef):
-        gen = torch.Generator(device="cpu").manual_seed(leaf_seed(seed, path))
-        return _init_leaf(gen, d, dtype, device)
-
-    return tree_map_with_path(build, defs)
+    """Turn a ParamDef tree into a tree of tensors on ``device``. The
+    leaves' draws run on a pool of threads (``imap_window``, at most
+    DRAW_WINDOW_BYTES of them in flight); the calling thread scales, casts
+    and moves each leaf, in the tree's order."""
+    order = []
+    tree_map_with_path(lambda path, d: order.append((seed, path, d)), defs)
+    if sum(map(_draw_bytes, order)) < DRAW_POOL_MIN_BYTES:
+        drawn = (_draw(*a) for a in order)
+    else:
+        drawn = imap_window(_draw, order, _draw_bytes, DRAW_WINDOW_BYTES)
+    return tree_map_with_path(lambda _, d: _init_leaf(next(drawn), d, dtype, device), defs)
 
 
 @dataclass(frozen=True)

@@ -166,6 +166,39 @@ def test_port_roundtrip_keeps_dtypes_shapes_and_bits(bucket):
         ckpt.save(bucket, "ck", 4, {"x": torch.zeros(2, dtype=torch.float64)})
 
 
+def test_pool_holds_a_window_of_leaves_on_the_host(bucket, monkeypatch):
+    """save draws a leaf's bytes only while the drawn and unwritten leaves
+    fit WINDOW_BYTES, and restore reads a blob only while the read blobs
+    not yet made tensors fit it: the host holds a window of leaves, not
+    the tree (here 3 of 20 leaves of 256 bytes, and the one just drawn or
+    read). The bits come back all the same."""
+    monkeypatch.setattr(ckpt, "WINDOW_BYTES", 1000)
+    gen = torch.Generator().manual_seed(0)
+    tree = {f"l{i:02d}": torch.randn(64, generator=gen) for i in range(20)}
+    count = {"drawn": 0, "written": 0, "read": 0, "made": 0, "save": 0, "restore": 0}
+
+    def counted(name, fn, kind):
+        def wrap(*args, **kwargs):
+            if name in ("drawn", "made") or "/leaf/" in args[0]:
+                count[name] += 1
+            count[kind] = max(count[kind], count["drawn"] - count["written"]
+                              if kind == "save" else count["read"] - count["made"])
+            return fn(*args, **kwargs)
+        return wrap
+
+    monkeypatch.setattr(ckpt, "_leaf_bytes", counted("drawn", ckpt._leaf_bytes, "save"))
+    monkeypatch.setattr(bucket, "write", counted("written", bucket.write, "save"))
+    ckpt.save(bucket, "ck", 1, tree)
+    monkeypatch.setattr(bucket, "read", counted("read", bucket.read, "restore"))
+    monkeypatch.setattr(ckpt, "_tensor_of", counted("made", ckpt._tensor_of, "restore"))
+    assert ckpt.is_valid(bucket, "ck", 1)  # reads every blob and makes no tensor
+    count["read"] = count["restore"] = 0
+    restored, _ = ckpt.restore(bucket, "ck", 1)
+    assert count["drawn"] == count["written"] == count["made"] == 20
+    assert count["save"] == count["restore"] == 4
+    assert all(torch.equal(restored[p], t) for p, t in tree.items())
+
+
 # --------------------------------------------------------------------------
 # recovery's view: partial and corrupt checkpoints
 # --------------------------------------------------------------------------

@@ -35,6 +35,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch.serve import ServeEngine, _install_prefill
 from repro_torch.models import lm, steps
 from repro_torch.nn import attention, layers, mlp
+from repro_torch.nn import params as prm
 from repro_torch.utils.trees import (tree_flatten_with_paths, tree_map_with_path,
                                      tree_unflatten)
 
@@ -171,6 +172,20 @@ def test_materialize_is_deterministic_per_seed():
     assert not torch.equal(wq[0], wq[1])
     assert torch.equal(fa["blocks/scan/norm1/scale"],
                        torch.ones_like(fa["blocks/scan/norm1/scale"]))
+
+
+@pytest.mark.parametrize("window", [1, 1 << 12, 1 << 30])
+def test_materialize_on_threads_equals_the_calling_threads_draw(monkeypatch, window):
+    """A full-width model's leaves are drawn on a pool of threads within a
+    window of bytes; the weights are those of the calling thread's draw,
+    bit for bit, whatever the window (one leaf at a time, a few, all)."""
+    _, cfg = _cfgs(scan_layers=True)
+    serial = dict(tree_flatten_with_paths(steps.init_params(cfg, seed=5)))
+    monkeypatch.setattr(prm, "DRAW_POOL_MIN_BYTES", 0)
+    monkeypatch.setattr(prm, "DRAW_WINDOW_BYTES", window)
+    pooled = tree_flatten_with_paths(steps.init_params(cfg, seed=5))
+    assert [p for p, _ in pooled] == list(serial)
+    assert all(t.dtype == serial[p].dtype and torch.equal(t, serial[p]) for p, t in pooled)
 
 
 # --------------------------------------------------------------------------
