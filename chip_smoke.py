@@ -195,15 +195,16 @@ Phases; any failure makes the script exit non-zero:
    status history through DEPLOYING, DOWNLOADING, PROCESSING and STORING,
    with exactly one restart, on the uninterrupted job's state bit for bit;
    the uninterrupted job's launches must equal ``step_launches(cfg, 60)``.
-8d. smollm-360m at full width as a job through the platform
-   (``phase_platform_full_width``): 6 steps at B8 x S512, bf16, remat full,
-   checkpoint every 3, beside two SimLearner gang jobs of a tenant with a
+8d. smollm-360m at full width and 8 of its 32 layers as a job through the
+   platform (``phase_platform_full_width``): 6 steps at B8 x S512, bf16,
+   remat full, checkpoint every 3, beside two SimLearner gang jobs of a tenant with a
    4-chip quota (one admitted over it); crashed once after its step-3
    checkpoint, it must resume from step 3 and end COMPLETED, bit-equal to
    the uninterrupted job's final state, each run's flash launches counted
    against ``step_launches``. Prints the object store's bytes, each
    checkpoint save's time and the wall time a step through the platform
-   beside phase 7's bare step, with the card's name and power limit.
+   beside the same step run bare at the same depth (and phase 7's at 32
+   layers), with the card's name and power limit.
 8b. llama3-8b, deepseek-coder-33b, chameleon-34b and qwen3-moe-235b-a22b
    at their tiny configs: one bf16 and one fp32 step each through the
    kernels (both routes of the forward and the backward) against the plain
@@ -229,6 +230,23 @@ Phases; any failure makes the script exit non-zero:
    decides them, and the fp32 prefill's last logits within 1e-3 (32 fp32
    flash launches). A train state saved from the mesh restores unsharded,
    and one saved unsharded restores onto the mesh, bit for bit.
+8e. FfDL's serving tier (``phase_serving_tier``): the port's
+   ``Federation`` of two shards on the card (its default device) with the
+   autonomous operator installed; an ``AdminClient`` creates a tenant with
+   a 4-chip quota and a rate limit; the tenant's ``WorkloadClient`` applies
+   a Pipeline whose ``train`` stage is a real job (smollm-360m's tiny
+   config, 20 steps, trained by ``TorchLearner`` on the card) and whose
+   ``serve`` stage materializes a Service. Ticked until the stage's job is
+   COMPLETED (its stage DONE) and the Service RUNNING, the tenant's bus
+   events in the DAG's order, the stage's flash launches equal to
+   ``step_launches(tiny cfg, 20)``. Then a full-width smollm-360m
+   ``ServeEngine`` (bf16, seeded weights) is attached to the Service and
+   invoked through the workloads gateway 4 times at B8 x S512 -> 32
+   tokens, each invoke counted from 0 (32 bf16 flash forwards, one a
+   layer); the Service is re-applied with 2 replicas and invoked twice
+   more, the replies alternating between the replica slots. Prints each
+   invoke's prefill and decode ms a token and the phase's wall time beside
+   the card's name and power limit.
 9. One JSON line ``{"kernels": [...]}``, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -264,7 +282,8 @@ from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E
 
 from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
 from repro_torch.configs import ShapeConfig, get_config, get_tiny_config  # noqa: E402
-from repro_torch.api import ApiClient  # noqa: E402
+from repro_torch.api import AdminClient, ApiClient, Federation, WorkloadClient  # noqa: E402
+from repro_torch.api.ops import install_operator  # noqa: E402
 from repro_torch.core import FfDLPlatform, JobManifest  # noqa: E402
 from repro_torch.core.types import TERMINAL  # noqa: E402
 from repro_torch.data.objectstore import MountedBucket, ObjectStore  # noqa: E402
@@ -485,11 +504,24 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 3
 # Jobs through the port's FfDLPlatform (phases 8 and 8d): the tiny job of
 # tests/test_torch_learner.py (checkpoint every 20, crashed at step 30) and
 # the full-width one (checkpoint every 3, crashed after its step-3
-# checkpoint); each must pass these statuses in this order.
+# checkpoint) at PLATFORM_LAYERS of its 32 layers: its four checkpoint saves
+# at 32 layers took about 150 s of the script's time limit; each must pass
+# these statuses in this order.
 PLATFORM_ARCH = "smollm-360m"
+PLATFORM_LAYERS = 8
 TINY_JOB = {"steps": 60, "batch": 4, "seq": 64, "seed": 3}
-FULL_JOB = {"tiny": False, "steps": 6, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "seed": 3}
+FULL_JOB = {"tiny": False, "overrides": {"n_layers": PLATFORM_LAYERS}, "steps": 6,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "seed": 3}
 FULL_JOB_CKPT = 3
+# FfDL's serving tier (phase 8e): a tenant's Pipeline whose train stage is a
+# real tiny smollm-360m job, then a Service of the full-width engine, invoked
+# at the serving phases' batch shape
+SERVING_TENANT = "serving"
+SERVING_STAGE = {"n_learners": 1, "chips_per_learner": 1, "arch": PLATFORM_ARCH,
+                 "checkpoint_interval": 10,
+                 "train": {"steps": 20, "batch": 4, "seq": 64, "seed": 3}}
+SERVING_INVOKE = {"batch": 8, "prompt_len": 512, "gen": 32}
+SERVING_INVOKES = (4, 2)  # invokes on one replica, then on two
 PIPELINE = ("DEPLOYING", "DOWNLOADING", "PROCESSING", "STORING")
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)  # AdamW
 TRAIN_TOL = 2e-2
@@ -2825,24 +2857,49 @@ def phase_crash_resume(failures):
     return launches
 
 
-def phase_platform_full_width(bare_step_ms, failures):
-    """smollm-360m at full width (32 layers, bf16, remat full, seeded
-    weights) as a job through the port's FfDLPlatform on the card: 6 steps
-    at B8 x S512, checkpoint every 3, beside two SimLearner gang jobs of a
-    tenant over its quota. The job crashed once after its step-3
-    checkpoint resumes from step 3 and ends COMPLETED, bit-equal to the
-    uninterrupted job (which checkpoints only at its end: its state does
-    not depend on when it saves), each counted against ``step_launches``.
-    A checkpoint is 362 M params x (2 + 4 + 4 + 4) B, about 5 GB on the
-    host: only the uninterrupted job's final leaves are kept, and its
-    platform is gone before the crashed job starts. Prints the object
+def bare_step_ms(cfg, train, n=4):
+    """The mean wall time of steps 2..n of the platform job's own step
+    (``TorchLearner``'s state, optimizer and data) run bare on the card,
+    synchronized after each step."""
+    device = torch.device("cuda")
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=train["steps"])
+    step_fn = steps.make_train_step(cfg, opt_cfg)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, train["seq"], train["batch"],
+                                  seed=train["seed"]))
+    state = steps.init_train_state(cfg, train["seed"], device)
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, data.batch_at(i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    del state
+    return 1e3 * sum(times[1:]) / (n - 1)
+
+
+def phase_platform_full_width(full_step_ms, failures):
+    """smollm-360m at full width and PLATFORM_LAYERS of its 32 layers
+    (bf16, remat full, seeded weights) as a job through the port's
+    FfDLPlatform on the card: 6 steps at B8 x S512, checkpoint every 3,
+    beside two SimLearner gang jobs of a tenant over its quota. The job
+    crashed once after its step-3 checkpoint resumes from step 3 and ends
+    COMPLETED, bit-equal to the uninterrupted job (which checkpoints only at
+    its end: its state does not depend on when it saves), each counted
+    against ``step_launches``. A checkpoint is params x (2 + 4 + 4 + 4) B,
+    about 1.8 GB on the host at 8 layers (126 M params; 5 GB at 32): only
+    the uninterrupted job's final leaves are kept, and its platform is gone
+    before the crashed job starts. Prints the object
     store's bytes and the wall time a step through the platform (its
     checkpoints' saves taken out; the learner draws each batch on the host
     inside it), tick by tick with each tick's steps, for both jobs, and
     its mean over the steps of every tick after the phase's first, beside
-    phase 7's bare step. Returns ({path: launches}, metrics)."""
-    cfg = get_config(PLATFORM_ARCH)
+    the same step run bare at the same depth (``bare_step_ms``) and phase
+    7's bare step at 32 layers. Returns ({path: launches}, metrics)."""
+    cfg = get_config(PLATFORM_ARCH).replace(n_layers=PLATFORM_LAYERS)
     t_phase = time.perf_counter()
+    bare_ms = bare_step_ms(cfg, FULL_JOB)
+    gc.collect()
+    torch.cuda.empty_cache()
     ops.reset_launch_counts()
     straight = platform_job(FULL_JOB, 10**9, sim_jobs=2)
     launches = ops.launch_counts()
@@ -2872,8 +2929,8 @@ def phase_platform_full_width(bare_step_ms, failures):
     by_tick = [(round(1e3 * s / n, 2), n) for s, n in ticks]
     sample = sum(n for _, n in ticks[1:])
     step_ms = 1e3 * sum(s for s, _ in ticks[1:]) / sample if sample else float("nan")
-    print(f"smollm-360m platform job (full width, B{FULL_JOB['batch']} S{FULL_JOB['seq']}, "
-          f"{FULL_JOB['steps']} steps, checkpoint every {FULL_JOB_CKPT}, crashed once): final "
+    print(f"smollm-360m platform job (full width, {PLATFORM_LAYERS} layers, "
+          f"B{FULL_JOB['batch']} S{FULL_JOB['seq']}, {FULL_JOB['steps']} steps, checkpoint every {FULL_JOB_CKPT}, crashed once): final "
           f"state {'equal bit for bit' if same else 'DIFFERS'} to the uninterrupted job's "
           f"({n_bytes / 1e9:.3f} GB of leaves on the host); sim jobs {resumed['sims']}; "
           f"placements {resumed['placements']}; events {resumed['events']}")
@@ -2881,7 +2938,8 @@ def phase_platform_full_width(bare_step_ms, failures):
           f"checkpoint saves (uninterrupted, then crashed) {[round(t, 2) for t in saves_s]} s; "
           f"wall a step through the platform, saves taken out, by tick (ms a step, steps) "
           f"{by_tick}, over the {sample} steps after the phase's first tick {step_ms:.2f} ms, "
-          f"beside phase 7's bare step {bare_step_ms:.2f} ms; the crashed job's wall "
+          f"beside the same step bare at {PLATFORM_LAYERS} layers {bare_ms:.2f} ms (phase 7's "
+          f"bare step at 32 layers {full_step_ms:.2f} ms); the crashed job's wall "
           f"{resumed['wall_s']:.1f} s; card {card_line()}")
     over_quota = resumed["events"].get("over_quota_admit", 0)
     if not (same and resumed["sims"] == ["COMPLETED", "COMPLETED"] and over_quota >= 1):
@@ -2892,7 +2950,8 @@ def phase_platform_full_width(bare_step_ms, failures):
             "smollm-360m crashed platform job": crashed_launches}, {
         "step_ms_through_platform": step_ms, "steps_sampled": sample,
         "ms_a_step_by_tick": by_tick,
-        "bare_step_ms": bare_step_ms, "saves_s": saves_s,
+        "layers": PLATFORM_LAYERS, "bare_step_ms": bare_ms,
+        "phase7_bare_step_ms_32_layers": full_step_ms, "saves_s": saves_s,
         "store": resumed["store"], "job_wall_s": resumed["wall_s"]}
 
 
@@ -3154,6 +3213,161 @@ def phase_mesh(unsharded_qwen, failures):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 8e: FfDL's serving tier
+# --------------------------------------------------------------------------
+
+def dag_order(fed, tenant, stage_job):
+    """The tenant's workload events on the workloads plane's bus, and
+    whether they follow the Pipeline's DAG: the Pipeline applied, its train
+    stage submitted, the stage's job completed, then its Service applied
+    and scaled, in that order."""
+    bus = [e for p in fed.shards for e in p.events.events if e.tenant == tenant]
+    kinds = [(e.ts, e.kind) for e in bus if e.component == "workloads"]
+    done = [e.ts for e in bus if e.kind == "job_completed" and e.fields.get("job") == stage_job]
+    want = ["workload_applied", "workload_stage_submitted", "workload_applied",
+            "workload_service_scaled"]
+    at, i = [], 0
+    for kind in want:
+        while i < len(kinds) and kinds[i][1] != kind:
+            i += 1
+        at.append(i)
+        i += 1
+    ok = at[-1] < len(kinds) and bool(done) and kinds[at[1]][0] <= done[0] <= kinds[at[2]][0]
+    return [k for _, k in kinds], ok
+
+
+def phase_serving_tier(failures):
+    """FfDL's serving path through the port's own control plane on the
+    card: a two-shard ``Federation`` (its default device) with the operator
+    installed, a tenant made by an ``AdminClient`` (a 4-chip quota and a
+    rate limit), and its ``WorkloadClient``'s Pipeline: a real train stage
+    (``SERVING_STAGE``, ``TorchLearner`` on the card), then a Service.
+    Ticked until the stage is DONE and the Service RUNNING, with the launch
+    counts set to 0 just before the apply and read just after. Then a
+    full-width smollm-360m ``ServeEngine`` is attached to the Service and
+    invoked through the workloads gateway, each invoke's launches counted
+    from 0; the Service re-applied with 2 replicas, two more invokes must
+    alternate between the slots. Each invoke's prefill and decode times
+    come from a spy on the engine's ``generate``. Returns ({path:
+    launches}, metrics)."""
+    t_phase = time.perf_counter()
+    tiny = get_tiny_config(PLATFORM_ARCH)
+    fed = Federation(n_shards=2, n_hosts=2, chips_per_host=4, tick_period=5.0)
+    install_operator(fed)
+    admin = AdminClient.for_platform(fed)
+    view = admin.create_tenant(SERVING_TENANT, quota_chips=4, rate=50.0, burst=20)
+    client = WorkloadClient.for_platform(fed, tenant=SERVING_TENANT)
+    service_spec = {"replicas": 1, "chips_per_replica": 1, "engine": "real",
+                    "arch": PLATFORM_ARCH}
+    pipeline = {"kind": "Pipeline", "name": "lm", "tenant": SERVING_TENANT,
+                "stages": [{"name": "train", "job": SERVING_STAGE},
+                           {"name": "serve", "after": ["train"], "service": service_spec}]}
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    client.apply(pipeline)
+    service = None
+    for n_ticks in range(1, 301):
+        fed.tick()
+        st = client.get("lm")["status"]
+        stage, service = st["stages"]["train"], st["stages"]["serve"]["service"]
+        if stage["state"] == "FAILED" or (
+                stage["state"] == "DONE" and service
+                and client.get(service)["status"]["phase"] == "RUNNING"):
+            break
+    torch.cuda.synchronize()
+    stage_launches = ops.launch_counts()
+    stage_s = time.perf_counter() - t0
+    job = stage["job"]
+    rec = fed.router.shard_for(SERVING_TENANT).platform.meta.get(job) if job else None
+    status = rec.status.value if rec is not None else None
+    kinds, in_order = dag_order(fed, SERVING_TENANT, job)
+    print(f"serving tier: tenant {view['name']} (quota {view['quota_chips']} chips, rate "
+          f"{view['rate']}/s burst {view['burst']}) on {fed.shard_of(SERVING_TENANT)}; "
+          f"train stage {stage['state']}, its job {job} {status} after {n_ticks} ticks "
+          f"({stage_s:.1f} s wall, card {card_line()}); service {service}; the tenant's "
+          f"workload events {kinds} {'in the DAG order' if in_order else 'OUT OF ORDER'}")
+    expect_launches(f"serving tier train stage ({SERVING_STAGE['train']['steps']} steps, "
+                    "remat full)", stage_launches,
+                    step_launches(tiny, SERVING_STAGE["train"]["steps"]), failures)
+    if not (status == "COMPLETED" and stage["state"] == "DONE" and in_order and service
+            and client.get(service)["status"]["phase"] == "RUNNING"):
+        failures.append(f"serving tier: train stage {stage['state']}, job {status}, service "
+                        f"{service}, events in order {in_order}")
+        return {"serving tier train stage": stage_launches,
+                "serving tier invokes": dict.fromkeys(stage_launches, 0)}, {"stage_s": stage_s}
+
+    t0 = time.perf_counter()
+    engine = ServeEngine(PLATFORM_ARCH, tiny=False, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fed.workloads.attach_engine(SERVING_TENANT, service, engine)
+    times, invokes = [], []
+    generate = engine.generate
+
+    def timed(prompts, gen):
+        out = generate(prompts, gen)
+        times.append((out["prefill_s"], out["decode_s"]))
+        return out
+
+    B, S, gen = (SERVING_INVOKE[k] for k in ("batch", "prompt_len", "gen"))
+    want = {"flash_attention": engine.cfg.n_layers, "flash_attention_bwd": 0,
+            "rglru_scan": 0, "rglru_scan_bwd": 0}
+    total = dict.fromkeys(want, 0)
+
+    def invoke(n_replicas):
+        label = f"serving tier invoke {len(invokes) + 1} ({n_replicas} replica(s))"
+        ops.reset_launch_counts()
+        out = client.invoke(service, payload=SERVING_INVOKE)  # an ApiError fails the script
+        launches = ops.launch_counts()
+        for k in total:
+            total[k] += launches[k]
+        expect_launches(label, launches, want, failures)
+        toks = out["output"]["tokens"]
+        if len(toks) != gen or not all(0 <= t < engine.cfg.vocab_size for t in toks):
+            failures.append(f"{label}: bad tokens {toks}")
+        prefill_s, decode_s = times[-1]
+        m = {"replica": out["replica"], "job": out["job"], "prefill_ms": 1e3 * prefill_s,
+             "prefill_ms_a_token": 1e3 * prefill_s / (B * S),
+             "decode_ms_a_token": out["output"]["decode_ms_per_token"],
+             "decode_s": decode_s}
+        invokes.append(m)
+        print(f"{label}: replica {m['replica']} (job {m['job']}), B{B} S{S} -> {gen}: prefill "
+              f"{m['prefill_ms']:.2f} ms ({1e3 * m['prefill_ms_a_token']:.3f} us a token of "
+              f"{B * S}), decode {m['decode_ms_a_token']:.3f} ms a token (a step of {B}); "
+              f"card {card_line()}")
+
+    with patched({(engine, "generate"): timed}):
+        for _ in range(SERVING_INVOKES[0]):
+            invoke(1)
+        client.apply({"kind": "Service", "name": service, "tenant": SERVING_TENANT,
+                      **service_spec, "replicas": 2})
+        for _ in range(60):
+            fed.tick()
+            st = client.get(service)["status"]
+            if st["phase"] == "RUNNING" and len(st["ready_slots"]) == 2:
+                break
+        else:
+            failures.append(f"serving tier: the service never had 2 ready replicas: {st}")
+        for _ in range(SERVING_INVOKES[1]):
+            invoke(2)
+    slots = [m["replica"] for m in invokes[SERVING_INVOKES[0]:]]
+    alternate = len(slots) == 2 and slots[0] != slots[1]
+    if not alternate:
+        failures.append(f"serving tier: the two-replica invokes went to {slots}")
+    op = fed.operator.status_view()
+    phase_s = time.perf_counter() - t_phase
+    print(f"serving tier: engine built in {build_s:.1f} s; the two-replica invokes went to "
+          f"slots {slots} ({'alternating' if alternate else 'NOT alternating'}); operator "
+          f"decisions {[d['action'] for d in op['decisions']]}; phase {phase_s:.1f} s (wall); "
+          f"card {card_line()}")
+    del engine
+    return {"serving tier train stage": stage_launches, "serving tier invokes": total}, {
+        "stage_s": stage_s, "stage_ticks": n_ticks, "engine_build_s": build_s,
+        "invokes": invokes, "phase_s": phase_s}
+
+
 def kernel_entry(name, source, replaces, launches, timings, primary, worst):
     """One entry of the {"kernels": [...]} line: the primary main-path
     shape's numbers, and every main-path shape under "shapes"."""
@@ -3228,6 +3442,7 @@ def main() -> int:
         full_train["smollm-360m"][1]["step_ms"])
     tiny_train = phase("tiny configs train on the card", phase_tiny_train)
     mesh = phase("the mesh", phase_mesh, full_train[MESH_ARCH][1])
+    serving_launches, serving_metrics = phase("serving tier", phase_serving_tier)
     tiny = {dtype: {p: n["flash_attention"] for p, n in tiny_launches.items() if p.endswith(dtype)}
             for dtype in ("float32", "bfloat16")}
     rg_train_launches = full_train["recurrentgemma-2b"][0]
@@ -3235,6 +3450,7 @@ def main() -> int:
                    f"{WHISPER} train": wh_train_launches,
                    "smollm tiny platform job": learner_launches,
                    **platform_launches,
+                   "serving tier train stage": serving_launches["serving tier train stage"],
                    **{p: n for p, n in tiny_train.items() if p.endswith("bfloat16")},
                    **mesh["train"]}
     fp32_train_paths = {"smollm-360m fp32 train step": fp32_train_launches,
@@ -3254,6 +3470,8 @@ def main() -> int:
                       f"{WHISPER} prefill step": wh_pf_launches["flash_attention"],
                       **tiny["bfloat16"],
                       **{p: n["flash_attention"] for p, n in mesh["serve"].items()},
+                      "serving tier invokes":
+                          serving_launches["serving tier invokes"]["flash_attention"],
                       **{p: n["flash_attention"] for p, n in train_paths.items()}},
                      flash_t[torch.bfloat16], "smollm B8 S512", flash_worst[torch.bfloat16]),
         # the fp32 route, launched by the fp32 prefills of check_logits and
@@ -3306,6 +3524,7 @@ def main() -> int:
           f"{WHISPER} card against the CPU: {json.dumps(wh_cpu)}; "
           f"the mesh: {json.dumps(mesh['metrics'])}; "
           f"smollm-360m platform job: {json.dumps(platform_metrics)}; "
+          f"the serving tier: {json.dumps(serving_metrics)}; "
           f"the dry-run: {json.dumps(dryrun_metrics)}; "
           f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

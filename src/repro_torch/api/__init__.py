@@ -1,9 +1,12 @@
-# The replicated, versioned v1 API tier fronting the platform (FfDL §3.2),
+# The replicated, versioned API tier fronting the platform (FfDL §3.2),
 # the port's copy of the reference's ``repro.api``: typed envelopes and
 # stable error codes, per-tenant auth, idempotent submit, cursor
-# pagination, round-robin failover across stateless replicas, each shard
-# behind its own readers-writer lock. The reference's v2 admin plane, rate
-# limiting, HTTP transport, CLI and federation are not ported.
+# pagination, round-robin failover across stateless replicas, per-tenant
+# rate limiting, the v2 admin plane, and the federation that routes
+# tenants to independent backend shards, each behind its own
+# readers-writer lock. The reference's HTTP transport and ``ffdl`` CLI
+# (``repro.api.http``, ``repro.api.cli``) are not ported.
+from repro_torch.api.admin import AdminGateway, AdminPlane, MigrationPhase
 from repro_torch.api.auth import (
     ADMIN,
     ALL_TENANTS,
@@ -13,9 +16,10 @@ from repro_torch.api.auth import (
     WRITE,
 )
 from repro_torch.api.backend import AllShardsLock, Backend, RWLock
-from repro_torch.api.client import ApiClient, RetryPolicy
+from repro_torch.api.client import AdminClient, ApiClient, RetryPolicy, WorkloadClient
 from repro_torch.api.gateway import ApiGateway
 from repro_torch.api.lb import LoadBalancer
+from repro_torch.api.ratelimit import RateLimitConfig, RateLimitedApi, TokenBucket
 from repro_torch.api.router import TenantRouter
 from repro_torch.api.types import (
     ADMIN_API_VERSION,
@@ -27,12 +31,18 @@ from repro_torch.api.types import (
     SubmitRequest,
     SubmitResponse,
 )
+# Federation composes FfDLPlatform shards, which import repro_torch.api.*:
+# keep it last so the submodules above are fully initialized first.
+from repro_torch.api.federation import Federation, JOB_ID_STRIDE
 
 __all__ = [
     "ADMIN",
     "ADMIN_API_VERSION",
     "ALL_TENANTS",
     "API_VERSION",
+    "AdminClient",
+    "AdminGateway",
+    "AdminPlane",
     "AllShardsLock",
     "ApiClient",
     "ApiError",
@@ -40,15 +50,22 @@ __all__ = [
     "AuthService",
     "Backend",
     "ErrorCode",
+    "Federation",
+    "JOB_ID_STRIDE",
     "JobView",
     "LoadBalancer",
+    "MigrationPhase",
     "Page",
     "Principal",
+    "RateLimitConfig",
+    "RateLimitedApi",
     "READ",
-    "RWLock",
     "RetryPolicy",
+    "RWLock",
     "SubmitRequest",
     "SubmitResponse",
     "TenantRouter",
+    "TokenBucket",
     "WRITE",
+    "WorkloadClient",
 ]

@@ -49,11 +49,6 @@ Where the port differs:
     Without a card a real job on the default device ends FAILED, its
     learner's ``fatal:`` log naming the missing card: it never trains on
     the CPU. Simulated jobs (``SimLearner``) touch no device.
-  * The reference's v2 admin plane (``admin``, ``admin_api``) and
-    workloads plane (``workloads``, ``workloads_api``) are not built. The
-    reference's workloads plane draws an operator key at construction, so
-    the keys this platform issues are numbered one lower than the
-    reference's, and their strings differ.
 """
 
 from __future__ import annotations
@@ -166,6 +161,20 @@ class FfDLPlatform:
                        events=self.events)
             for i in range(max(1, n_api_replicas))]
         self.api = LoadBalancer(self.api_replicas, events=self.events)
+        # v2 admin control plane (repro_torch.api.admin): on a standalone
+        # platform it manages tenants/quotas/rate limits and exposes the
+        # single shard as a resource; migrations need a Federation.
+        from repro_torch.api.admin import AdminGateway, AdminPlane
+        self.admin = AdminPlane(self.router, self.auth)
+        self.admin.faults = self.faults
+        self.admin_api = AdminGateway(self.admin, self.auth)
+        # v2 workloads plane (repro_torch.workloads): manifests are storable and
+        # wire-addressable on a standalone platform, but convergence is a
+        # Federation concern — Federation.tick steps the reconciler, like
+        # migrations only advance under a Federation.
+        from repro_torch.workloads import WorkloadGateway, WorkloadPlane
+        self.workloads = WorkloadPlane(self.router, self.auth)
+        self.workloads_api = WorkloadGateway(self.workloads, self.auth)
 
     # ------------------------------------------------- API tier lifecycle
     @property

@@ -84,7 +84,7 @@ class ServeEngine:
                                          {"kv_seq": "model"} if ctx_parallel else None)
         if self.env.active and self.cfg.is_encoder_decoder:
             raise ValueError("ServeEngine: an encoder-decoder serves on one device only "
-                             "(ROADMAP A.14)")
+                             "(ROADMAP A.13b)")
         self._gen = torch.Generator(device="cpu").manual_seed(seed)
         self.params = (params if params is not None
                        else steps.init_params(self.cfg, seed, self.device))

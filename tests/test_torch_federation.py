@@ -1,0 +1,52 @@
+"""The port's Federation and autonomous operator
+(``repro_torch.api.federation``, ``repro_torch.obs.operator``,
+``repro_torch.api.ops``) against the reference's on the CPU.
+
+Every scenario of tests/test_federation.py and tests/test_operator.py runs
+on both packages from the same seed through ``tests/_torch_mirror.py`` and
+must leave the same trace: the wire responses of every gateway verb, each
+shard's event bus, journal and job records, and each federation's
+migrations, tenants, workloads, the reconciler's decision journal and the
+operator's status and decision journal.
+
+Waiting for the port's HTTP transport and CLI (ROADMAP A.19), and not run
+here:
+  * test_federation::test_cli_logs_follow_streams_to_completion
+  * test_federation::test_v1_contract_over_http_against_four_shards
+  * test_operator::test_operator_surface_over_http
+
+Then the port-side parameter: ``device`` reaches every shard, the ones
+the operator's scale-up mints included.
+"""
+
+import pytest
+
+import _torch_mirror as mirror
+from repro_torch.api import Federation
+from repro_torch.api.ops import install_operator
+
+MODULES = ("test_federation", "test_operator")
+WAITING = ["test_federation::test_cli_logs_follow_streams_to_completion",
+           "test_federation::test_v1_contract_over_http_against_four_shards",
+           "test_operator::test_operator_surface_over_http"]
+SCENARIOS = [s for stem in MODULES for s in mirror.scenarios(stem) if s not in WAITING]
+
+
+def test_waiting_scenarios_are_exactly_those_that_reach_http_or_the_cli():
+    assert sorted(s for stem in MODULES for s in mirror.waiting(stem)) == sorted(WAITING)
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS)
+def test_scenario_leaves_the_same_trace_on_both_packages(scenario, monkeypatch):
+    mirror.mirror(scenario, monkeypatch)
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_device_reaches_every_shard_and_added_ones(device):
+    fed = Federation(n_shards=2, n_hosts=1, chips_per_host=4, device=device)
+    op = install_operator(fed)
+    assert op is fed.operator
+    fed.add_shard()
+    assert fed.device == device
+    assert [p.device for p in fed.shards] == [device] * 3
+    assert [p.backend.shard_id for p in fed.shards] == ["shard-0", "shard-1", "shard-2"]

@@ -15,11 +15,10 @@ leave the same trace on both:
   * the API tier's responses, as the wire carries them (dataclasses as
     dicts, enums as their values, errors as code, message and details).
 
-Key strings and key ids are masked before the comparison. The reference's
-platform builds a workloads plane that draws an operator key at
-construction (``repro/workloads/plane.py``); the port's leaves that plane
-out (ROADMAP C.30), so its keys are numbered one lower and hash to other
-strings. Nothing else that the trace holds depends on a key.
+Key strings and key ids are compared as they are: both platforms build
+the v2 admin and workloads planes in the same order, and the workloads
+plane draws its operator key at construction on both, so the keys they
+issue agree in number and string.
 
 Then real jobs through the port's platform: smollm-360m's tiny config on
 ``device="cpu"`` crashed at step 30 of 60 resumes to the uninterrupted
@@ -32,7 +31,6 @@ no card, without training on the CPU.
 import dataclasses
 import enum
 import json
-import re
 from types import SimpleNamespace
 
 import pytest
@@ -76,16 +74,11 @@ def _ns(api, core, meta, types, kv, cluster, sched, bsa, **platform_kw):
 REF = _ns(rapi, rcore, rmeta, rtypes, rkv, rcluster, rsched, rbsa)
 PORT = _ns(tapi, tcore, tmeta, ttypes, tkv, tcluster, tsched, tbsa, device="cpu")
 
-_KEY = re.compile(r"ffdl-[0-9a-f]{24}")
-_KEY_ID = re.compile(r"key-\d{4}")
-
 
 def wire(x):
-    """``x`` as the wire would carry it, with key strings and ids masked."""
+    """``x`` as the wire would carry it."""
     if isinstance(x, enum.Enum):
         return wire(x.value)
-    if isinstance(x, str):
-        return _KEY_ID.sub("key-<id>", _KEY.sub("ffdl-<key>", x))
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         return {f.name: wire(getattr(x, f.name)) for f in dataclasses.fields(x)}
     if isinstance(x, dict):
@@ -510,15 +503,16 @@ def test_scenario_leaves_the_same_trace_on_both_platforms(name, tmp_path):
 
 
 def test_keys_are_numbered_one_lower_than_the_reference():
-    """The documented deviation the masking covers, and nothing more: the
-    same tenant's first key is key-0001 on the port's platform and key-0002
-    on the reference's, whose workloads plane drew key-0001."""
-    ids = []
+    """The first tenant key is the same on both platforms, id and string:
+    each platform's workloads plane drew key-0001 for its operator at
+    construction, so the tenant's is key-0002 on both (ROADMAP C.30)."""
+    keys = []
     for ns in (REF, PORT):
         p = ns.FfDLPlatform(n_hosts=1, chips_per_host=1, **ns.platform_kw)
         key = ns.ApiClient.for_platform(p, "A").api_key
-        ids.append(p.auth.authenticate(key).key_id)
-    assert ids == ["key-0002", "key-0001"]
+        keys.append((p.auth.authenticate(key).key_id, key))
+    assert keys[0][0] == "key-0002"
+    assert keys[1] == keys[0]
 
 
 def test_make_learner_picks_by_manifest_and_passes_the_device():

@@ -427,3 +427,37 @@ def test_engine_attached_to_a_service_serves_invokes(engine):
     assert out["replica"] == "0"
     assert out["output"]["arch"] == ARCH
     assert len(out["output"]["tokens"]) == 4
+
+
+def test_engine_attached_to_a_port_service_serves_invokes(engine):
+    """The same through the port's own workloads tier: its Federation on
+    the CPU and its WorkloadClient; a second replica takes every other
+    invoke."""
+    from repro_torch.api import Federation, WorkloadClient
+
+    fed = Federation(n_shards=1, tick_period=5.0, device="cpu")
+    client = WorkloadClient.for_platform(fed, tenant="team-a")
+    service = {"kind": "Service", "name": "lm", "tenant": "team-a",
+               "replicas": 1, "engine": "real", "arch": ARCH}
+    client.apply(service)
+    fed.workloads.attach_engine("team-a", "lm", engine)
+
+    def ready(n):
+        for _ in range(60):
+            fed.tick()
+            st = client.get("lm")["status"]
+            if st["phase"] == "RUNNING" and len(st["ready_slots"]) == n:
+                return
+        pytest.fail(f"service never converged to {n} ready replicas")
+
+    ready(1)
+    out = client.invoke("lm", payload={"prompt_len": 8, "gen": 4})
+    assert out["replica"] == "0"
+    assert out["output"]["arch"] == ARCH
+    assert len(out["output"]["tokens"]) == 4
+    client.apply({**service, "replicas": 2})
+    ready(2)
+    slots = [client.invoke("lm", payload={"prompt_len": 8, "gen": 2})["replica"]
+             for _ in range(4)]
+    assert sorted(set(slots)) == ["0", "1"]
+    assert all(a != b for a, b in zip(slots, slots[1:]))
