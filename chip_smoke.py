@@ -166,7 +166,8 @@ Phases; any failure makes the script exit non-zero:
    ``train_4k`` on a fake 16x16 mesh and llama3-8b ``prefill_32k`` on a
    fake 2x16x16 one must exit 0.
 7b. xlstm-125m's training at full width through the same phase (no step 0
-   against a plain path: none of the port's kernels is on it), and the
+   against a plain path: none of the port's kernels is on it; 2 steps
+   twice, not 3: its host-bound steps take 7-12 s each), and the
    sLSTM loop's and the chunkwise mLSTM's shares of the profiled step, in
    host time and in device time (their spans, and the backward calls of
    the autograd nodes made inside them). Then one fp32 step at B2 x S128 on
@@ -225,11 +226,16 @@ Phases; any failure makes the script exit non-zero:
    branch needs a model axis of 2 or more: the gloo tests hold it).
    smollm-360m serves at full width through
    ``ServeEngine(mesh="1x1")``, without and with ``ctx_parallel``:
-   ``generate`` 8 x 512 -> 32 counted (one flash launch a layer), the
+   ``generate`` 8 x 512 -> 8 counted (one flash launch a layer), the
    greedy tokens equal to an unsharded engine's wherever its top-1 margin
    decides them, and the fp32 prefill's last logits within 1e-3 (32 fp32
-   flash launches). A train state saved from the mesh restores unsharded,
-   and one saved unsharded restores onto the mesh, bit for bit.
+   flash launches). whisper-tiny serves at full width through
+   ``ServeEngine(mesh="1x1")`` too: ``generate`` B8 x 1500 frames -> 8,
+   its frames placed by ``shard_batch`` and its decode state by its
+   logical axes, counted (one flash launch an encoder layer, as the
+   unsharded engine's), its greedy tokens held as smollm's. A train state
+   saved from the mesh restores unsharded, and one saved unsharded
+   restores onto the mesh, bit for bit.
 8e. FfDL's serving tier (``phase_serving_tier``): the port's
    ``Federation`` of two shards on the card (its default device) with the
    autonomous operator installed; an ``AdminClient`` creates a tenant with
@@ -247,6 +253,21 @@ Phases; any failure makes the script exit non-zero:
    more, the replies alternating between the replica slots. Prints each
    invoke's prefill and decode ms a token and the phase's wall time beside
    the card's name and power limit.
+8f. FfDL's wire (``phase_wire``): the port's two-shard ``Federation`` on
+   the card behind ``ApiHttpServer`` on 127.0.0.1 with a rate limit; an
+   operator key creates a tenant over ``POST /v2/admin/tenants``; the
+   tenant's ``HttpTransport`` submits the same real job as 8e's train stage
+   over ``POST /v1/jobs``, followed by ``ffdl logs --follow`` on one SSE
+   stream to COMPLETED, its flash launches equal to ``step_launches``, its
+   final state bit-equal to the same manifest's job in-process. Then a
+   Service applied over ``POST /v2/workloads``, a full-width smollm-360m
+   ``ServeEngine`` attached, invoked 4 times over ``POST
+   /v2/workloads/{name}/invoke`` at B8 x S512 -> 32 (32 flash launches
+   each), its tokens equal to a second engine's of the same seed given the
+   same payloads in-process; ``GET /metrics`` counts each route's
+   requests. Prints each invoke's wall time over the wire beside the
+   engine's prefill and decode, the job's and the phase's wall time and
+   the card's name and power limit.
 9. One JSON line ``{"kernels": [...]}``, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -258,6 +279,8 @@ import bisect
 import contextlib
 import dataclasses
 import gc
+import http.client
+import io
 import json
 import math
 import os
@@ -265,6 +288,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -282,7 +306,17 @@ from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E
 
 from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
 from repro_torch.configs import ShapeConfig, get_config, get_tiny_config  # noqa: E402
-from repro_torch.api import AdminClient, ApiClient, Federation, WorkloadClient  # noqa: E402
+from repro_torch.api import (  # noqa: E402
+    AdminClient,
+    ApiClient,
+    ApiHttpServer,
+    Federation,
+    HttpTransport,
+    RateLimitConfig,
+    SubmitRequest,
+    WorkloadClient,
+)
+from repro_torch.api import cli as ffdl_cli  # noqa: E402
 from repro_torch.api.ops import install_operator  # noqa: E402
 from repro_torch.core import FfDLPlatform, JobManifest  # noqa: E402
 from repro_torch.core.types import TERMINAL  # noqa: E402
@@ -407,6 +441,7 @@ DRYRUN_CELLS = (("recurrentgemma-2b", "train_4k", False), ("llama3-8b", "prefill
 XLSTM = "xlstm-125m"
 XLSTM_GENERATES = [(8, 512, 32), (1, 2048, 8)]  # 2048: four mLSTM chunks of 512
 XLSTM_TOL = 1e-3  # fp32 last logits, two correct forms (LOGITS_TOL's fp32)
+XLSTM_TRAIN_STEPS = 2  # its steps are host-bound, 7-12 s each: two runs of 2, not 3
 # whisper-tiny: the encoder-decoder, its encoder bidirectional over 1500
 # frames; 3 infer requests and one generate of 8 x 1500 frames -> 32 tokens
 # (the prompt sets only the batch and the cache's capacity, as in the
@@ -428,6 +463,8 @@ TINY_DECODE_STEPS = 6
 MESH_ARCH = "qwen2.5-3b"
 MESH_TINY = ("recurrentgemma-2b", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
 MESH_SERVE = "smollm-360m"
+MESH_SERVE_GEN = 8  # a decode step on DTensors is host-bound, 0.4 s: 8 tokens, not 32
+MESH_WHISPER_GEN = 8  # whisper's decode on DTensors is host-bound: a few steps
 # Kernel names of cuBLAS's and CUTLASS's GEMMs (the profiled prefill's split)
 GEMM_KERNEL = re.compile(r"gemm|nvjet|xmma|cutlass|cublas", re.IGNORECASE)
 # (B, S, W): tests/test_kernels.py's cases, ragged ones, the edges of the
@@ -522,6 +559,9 @@ SERVING_STAGE = {"n_learners": 1, "chips_per_learner": 1, "arch": PLATFORM_ARCH,
                  "train": {"steps": 20, "batch": 4, "seq": 64, "seed": 3}}
 SERVING_INVOKE = {"batch": 8, "prompt_len": 512, "gen": 32}
 SERVING_INVOKES = (4, 2)  # invokes on one replica, then on two
+# FfDL's wire (phase 8f): the same job and invoke over HTTP
+WIRE_TENANT = "wire"
+WIRE_INVOKES = 4
 PIPELINE = ("DEPLOYING", "DOWNLOADING", "PROCESSING", "STORING")
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)  # AdamW
 TRAIN_TOL = 2e-2
@@ -2528,7 +2568,8 @@ def phase_train_full_width(arch, failures):
     TRAIN_SEQ tokens of the synthetic stream. Step 0 against the same step
     on the plain versions (``step0``; an MoE arch's fp32 routing on the same
     batch gated first, before any train state is on the card);
-    TRAIN_STEPS steps with the launch counts set to 0 just before and read
+    TRAIN_STEPS steps (xlstm-125m: XLSTM_TRAIN_STEPS, its host-bound steps
+    take 7-12 s each) with the launch counts set to 0 just before and read
     just after (``step_launches``); the same steps again from the same seed
     must end on bit-equal state (the first run's kept in host memory); one
     more step under the profiler. whisper-tiny trains on B x WHISPER_SEQ
@@ -2541,7 +2582,8 @@ def phase_train_full_width(arch, failures):
     opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
     seq = WHISPER_SEQ if cfg.is_encoder_decoder else TRAIN_SEQ
     remat = "no remat" if cfg.is_encoder_decoder else "remat full"
-    batches = train_batches(cfg, seq, TRAIN_BATCH, TRAIN_STEPS + 1)
+    n = XLSTM_TRAIN_STEPS if arch == XLSTM else TRAIN_STEPS
+    batches = train_batches(cfg, seq, TRAIN_BATCH, n + 1)
     params0, fresh = fresh_states(cfg, device)
     print(f"{arch} train: seeded weights on the host in {time.perf_counter() - t_phase:.1f} s")
     step_fn = steps.make_train_step(cfg, opt_cfg)
@@ -2559,7 +2601,7 @@ def phase_train_full_width(arch, failures):
     torch.cuda.reset_peak_memory_stats()
     metrics, step_s = [], []
     ops.reset_launch_counts()
-    for batch in batches[:TRAIN_STEPS]:
+    for batch in batches[:n]:
         t0 = time.perf_counter()
         state, m = step_fn(state, batch)
         torch.cuda.synchronize()
@@ -2568,7 +2610,6 @@ def phase_train_full_width(arch, failures):
     launches = ops.launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    n = TRAIN_STEPS
     expect_launches(f"{arch} train ({n} steps, {remat})", launches, step_launches(cfg, n),
                     failures)
     print(f"{arch} train losses {[round(m['loss'], 6) for m in metrics]}, grad norms "
@@ -2582,7 +2623,7 @@ def phase_train_full_width(arch, failures):
     gc.collect()
     torch.cuda.empty_cache()
     again = fresh()
-    for batch in batches[:TRAIN_STEPS]:
+    for batch in batches[:n]:
         again, _ = step_fn(again, batch)
     torch.cuda.synchronize()
     flat = tree_flatten_with_paths(again)
@@ -2598,7 +2639,7 @@ def phase_train_full_width(arch, failures):
 
     t0 = time.perf_counter()
     again, wall_ms, busy_ms, by_name, parts = profile_step(step_fn, again,
-                                                           batches[TRAIN_STEPS])
+                                                           batches[n])
     print(f"{arch} train: the profiled step took {time.perf_counter() - t0:.1f} s with the "
           "trace's processing")
     if arch in TRAIN_FULL_WIDTH:  # one more step, its ATen ops and kernel calls counted
@@ -3078,15 +3119,15 @@ def mesh_tiny_train(env, failures):
 def mesh_serve(env, failures):
     """smollm-360m at full width: an unsharded engine, then
     ``ServeEngine(mesh="1x1")`` on its params without and with
-    ``ctx_parallel``, each ``generate`` 8 x 512 -> 32 counted from 0 (one
-    flash launch a layer); the greedy tokens equal the unsharded engine's
-    wherever its top-1 margin (teacher-forced to the first parting step)
-    decides them; then the fp32 prefill's last logits on the mesh (32 fp32
-    flash launches) within 1e-3 of the unsharded ones. Returns ({label:
-    launches}, {label: fp32 launches}, metrics)."""
+    ``ctx_parallel``, each ``generate`` 8 x 512 -> MESH_SERVE_GEN counted
+    from 0 (one flash launch a layer); the greedy tokens equal the unsharded
+    engine's wherever its top-1 margin (teacher-forced to the first parting
+    step) decides them; then the fp32 prefill's last logits on the mesh (32
+    fp32 flash launches) within 1e-3 of the unsharded ones. Returns
+    ({label: launches}, {label: fp32 launches}, metrics)."""
     base = ServeEngine(MESH_SERVE, tiny=False, seed=0, device="cuda")
     cfg = base.cfg
-    b, s, gen = 8, 512, 32
+    b, s, gen = 8, 512, MESH_SERVE_GEN
     prompts = base.synthetic_prompts(b, s)
     want = base.generate(prompts, gen)["tokens"]
     launches, metrics = {}, {}
@@ -3145,6 +3186,57 @@ def mesh_serve(env, failures):
     return launches, fp32_launches, metrics
 
 
+def mesh_serve_whisper(failures):
+    """whisper-tiny at full width: an unsharded engine, then
+    ``ServeEngine(mesh="1x1")`` on its params, each ``generate`` B8 ->
+    MESH_WHISPER_GEN counted from 0 (one flash launch an encoder layer: the
+    encode; decode launches none). Both draw the same frames (each engine's
+    first draw from its seed); the greedy tokens equal the unsharded
+    engine's wherever its top-1 margin (the decoder teacher-forced to the
+    first parting step, over the same frames) decides them. Returns
+    ({label: launches}, metrics)."""
+    base = ServeEngine(WHISPER, tiny=False, seed=0, device="cuda")
+    cfg = base.cfg
+    b, s, gen = 8, 16, MESH_WHISPER_GEN
+    prompts = torch.zeros((b, s), dtype=torch.long)  # an encoder-decoder reads only the shape
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    want = base.generate(prompts, gen)["tokens"]
+    plain_launches = ops.launch_counts()
+    label = f"{WHISPER} serving on the 1x1 mesh"
+    engine = ServeEngine(WHISPER, tiny=False, seed=0, device="cuda", mesh="1x1",
+                         params=base.params)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = engine.generate(prompts, gen)
+    launches = ops.launch_counts()
+    expect_launches(label, launches, {"flash_attention": cfg.n_enc_layers, "rglru_scan": 0},
+                    failures)
+    if launches != plain_launches:
+        failures.append(f"{label}: launches {launches}, unsharded {plain_launches}")
+    toks = got["tokens"]
+    parted = [t for t in range(gen) if not torch.equal(toks[:, t], want[:, t])]
+    note = "equal to the unsharded engine's"
+    if parted:
+        t = parted[0]
+        rows = (toks[:, t] != want[:, t]).nonzero().flatten()
+        top2 = last_logits(cfg, base.params, want[:, :t].cuda(), None,
+                           frames=whisper_frames(cfg, b, 0)).float().topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1])[rows.cuda()]
+        note = (f"parting at step {t} in rows {rows.tolist()}, unsharded top-1 margins there "
+                f"{[round(float(m), 4) for m in margin]}")
+        if bool((margin > 2 * LOGITS_TOL[torch.bfloat16]).any()):
+            failures.append(f"{label}: tokens part from the unsharded engine's where its margin "
+                            f"decides them ({note})")
+    metrics = {"decode_ms_per_token": got["decode_s"] / (gen - 1) * 1e3,
+               "tokens_parted_at": parted[:1]}
+    print(f"{label}: generate B{b} x {cfg.enc_seq} frames -> {gen}: decode "
+          f"{metrics['decode_ms_per_token']:.3f} ms/token; tokens {note}; launches "
+          f"{launches['flash_attention']} (unsharded {plain_launches['flash_attention']})")
+    del engine, base
+    return {label: launches}, metrics
+
+
 def mesh_checkpoints(env, failures):
     """A train state saved from the 1x1 mesh (DTensors: gathered, written,
     a barrier) restores unsharded, and one saved unsharded restores onto
@@ -3181,8 +3273,8 @@ def phase_mesh(unsharded_qwen, failures):
     """The mesh: an NCCL process group of world size 1 (probed with an
     all-reduce and a barrier) and a 1x1 (data, model) mesh on the card;
     qwen2.5-3b's training at full width on it, MESH_TINY's tiny steps,
-    smollm-360m's serving with and without ctx_parallel,
-    and the checkpoint round trip. Returns {"train": {label: launches},
+    smollm-360m's serving with and without ctx_parallel, whisper-tiny's
+    serving, and the checkpoint round trip. Returns {"train": {label: launches},
     "train_fp32": {...}, "serve": {...}, "serve_fp32": {...}, "metrics":
     {...}}."""
     t_phase = time.perf_counter()
@@ -3206,6 +3298,8 @@ def phase_mesh(unsharded_qwen, failures):
         for label, n in mesh_tiny_train(env, failures).items():
             out["train_fp32" if "float32" in label else "train"][label] = n
         out["serve"], out["serve_fp32"], out["metrics"]["serve"] = mesh_serve(env, failures)
+        whisper, out["metrics"]["serve_whisper"] = mesh_serve_whisper(failures)
+        out["serve"].update(whisper)
         mesh_checkpoints(env, failures)
     finally:
         dist.destroy_process_group()
@@ -3368,6 +3462,180 @@ def phase_serving_tier(failures):
         "invokes": invokes, "phase_s": phase_s}
 
 
+# --------------------------------------------------------------------------
+# phase 8f: FfDL's wire
+# --------------------------------------------------------------------------
+
+def final_state(platform, job_id) -> dict:
+    """The leaves of a job's final checkpoint in the platform's store."""
+    bucket = MountedBucket(platform.objstore, "results")
+    step = ckpt.latest_step(bucket, f"{job_id}/ckpt")
+    return ckpt.restore(bucket, f"{job_id}/ckpt", step)[0] if step is not None else {}
+
+
+def route_requests(metrics_text: str) -> dict:
+    """{"METHOD /template": requests} of ``ffdl_http_requests_total``, over
+    every status, from a /metrics exposition."""
+    out = {}
+    for m in re.finditer(r'^ffdl_http_requests_total\{route="([^"]+)",status="\d+"\} (\d+)$',
+                         metrics_text, flags=re.MULTILINE):
+        out[m.group(1)] = out.get(m.group(1), 0) + int(m.group(2))
+    return out
+
+
+def phase_wire(failures):
+    """FfDL's wire on the card: the port's two-shard ``Federation`` (its
+    default device) behind ``ApiHttpServer`` on 127.0.0.1, with a rate
+    limit. An operator key creates the tenant over ``POST
+    /v2/admin/tenants``; the tenant's ``HttpTransport`` submits a real job
+    (``SERVING_STAGE``: smollm-360m's tiny config, 20 steps, trained by
+    ``TorchLearner`` on the card) over ``POST /v1/jobs``, and the ``ffdl``
+    CLI's ``logs --follow`` follows it on one SSE stream to its end while
+    the main thread ticks the federation (each shard's tick under that
+    shard's write lock, the locks ``server.lock`` takes). The job must end
+    COMPLETED, its flash launches (counted from 0 at the submit) equal to
+    ``step_launches``, its final state bit-equal to the same manifest's job
+    run in-process through ``FfDLPlatform``. Then a Service applied over
+    ``POST /v2/workloads``, a full-width smollm-360m ``ServeEngine`` (bf16,
+    seed 0) attached, invoked WIRE_INVOKES times over ``POST
+    /v2/workloads/{name}/invoke`` at ``SERVING_INVOKE``, each counted from 0
+    (one flash launch a layer), its tokens equal to those of a second
+    engine of the same seed given the same payloads in-process; and ``GET
+    /metrics`` counts the requests of each route used. Returns ({path:
+    launches}, metrics)."""
+    t_phase = time.perf_counter()
+    tiny = get_tiny_config(PLATFORM_ARCH)
+    fed = Federation(n_shards=2, n_hosts=2, chips_per_host=4, tick_period=5.0)
+    server = ApiHttpServer(fed, rate_limit=RateLimitConfig(rate=200.0, burst=100),
+                           heartbeat_s=1.0)
+    manifest = JobManifest(name="wire", tenant=WIRE_TENANT, **SERVING_STAGE)
+    zero = {"flash_attention": 0, "flash_attention_bwd": 0, "rglru_scan": 0, "rglru_scan_bwd": 0}
+    with server:
+        transport = HttpTransport(server.base_url, timeout=60.0)
+        admin = AdminClient(transport, fed.auth.issue_admin_key())
+        view = admin.create_tenant(WIRE_TENANT, quota_chips=4)
+        key = fed.auth.issue_key(WIRE_TENANT)
+        shard = fed.router.shard_for(WIRE_TENANT).platform
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        job = transport.submit(key, SubmitRequest(manifest=manifest)).job_id
+        followed, rc = io.StringIO(), {}
+
+        def follow():
+            with contextlib.redirect_stdout(followed):
+                rc["rc"] = ffdl_cli.main(["--endpoint", server.base_url, "--key", key,
+                                          "logs", job, "--follow"])
+
+        follower = threading.Thread(target=follow)
+        follower.start()
+        for n_ticks in range(1, 301):
+            fed.tick()
+            if shard.meta.get(job).status in TERMINAL:
+                break
+        torch.cuda.synchronize()
+        job_launches = ops.launch_counts()
+        job_s = time.perf_counter() - t0
+        follower.join(60)
+        status = transport.status(key, job).status
+        # a real learner logs only a resume or a fatal error, as the
+        # reference's does: the stream's end frame is what the follow awaits
+        lines = followed.getvalue().splitlines()
+        streams, open_streams = server.streams_opened, server.streams_active
+        print(f"wire: tenant {view['name']} on {view['shard']} created over POST "
+              f"/v2/admin/tenants; job {job} submitted over POST /v1/jobs: {status} after "
+              f"{n_ticks} ticks ({job_s:.2f} s wall, card {card_line()}); `ffdl logs "
+              f"--follow` returned {rc.get('rc')} at the job's end, {len(lines)} lines on "
+              f"{streams} SSE stream(s), {open_streams} still open")
+        expect_launches(f"wire job ({SERVING_STAGE['train']['steps']} steps, remat full)",
+                        job_launches, step_launches(tiny, SERVING_STAGE["train"]["steps"]),
+                        failures)
+        if not (status == "COMPLETED" and rc.get("rc") == 0 and streams == 1
+                and open_streams == 0 and not follower.is_alive()):
+            failures.append(f"wire job: {status}, follow exit {rc.get('rc')}, {streams} "
+                            f"streams opened, {open_streams} open")
+        wire_state = final_state(shard, job)
+        p = FfDLPlatform(n_hosts=2, chips_per_host=4)
+        j = ApiClient.for_platform(p, WIRE_TENANT).submit(manifest)
+        p.run_until_terminal([j], max_sim_s=5000)
+        same = bit_equal(wire_state, final_state(p, j))
+        print(f"wire job's final state against the same manifest's job in-process "
+              f"({p.meta.get(j).status.value}): {'bit-equal' if same else 'DIFFERENT'} "
+              f"({len(wire_state)} leaves)")
+        if not same:
+            failures.append("wire job: final state differs from the in-process job's")
+        del p
+
+        workloads = WorkloadClient(transport, key)
+        workloads.apply({"kind": "Service", "name": "lm", "tenant": WIRE_TENANT,
+                         "replicas": 1, "chips_per_replica": 1, "engine": "real",
+                         "arch": PLATFORM_ARCH})
+        for _ in range(60):
+            fed.tick()
+            if fed.workloads.get(WIRE_TENANT, "lm")["status"]["phase"] == "RUNNING":
+                break
+        else:
+            failures.append(f"wire: the service never ran: {workloads.get('lm')['status']}")
+        engine = ServeEngine(PLATFORM_ARCH, tiny=False, seed=0, device="cuda")
+        twin = ServeEngine(PLATFORM_ARCH, tiny=False, seed=0, device="cuda")
+        fed.workloads.attach_engine(WIRE_TENANT, "lm", engine)
+        times, invokes = [], []
+        generate = engine.generate
+
+        def timed(prompts, gen):
+            out = generate(prompts, gen)
+            times.append((out["prefill_s"], out["decode_s"]))
+            return out
+
+        B, S, gen = (SERVING_INVOKE[k] for k in ("batch", "prompt_len", "gen"))
+        want = {**zero, "flash_attention": engine.cfg.n_layers}
+        total = dict(zero)
+        with patched({(engine, "generate"): timed}):
+            for i in range(WIRE_INVOKES):
+                label = f"wire invoke {i + 1}"
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                out = workloads.invoke("lm", payload=SERVING_INVOKE)
+                wall_s = time.perf_counter() - t0
+                launches = ops.launch_counts()
+                for k in total:
+                    total[k] += launches[k]
+                expect_launches(label, launches, want, failures)
+                mine = twin.infer(SERVING_INVOKE)["tokens"]
+                toks = out["output"]["tokens"]
+                if toks != mine:
+                    failures.append(f"{label}: tokens {toks} over the wire, {mine} in-process")
+                prefill_s, decode_s = times[-1]
+                m = {"wall_ms": 1e3 * wall_s, "prefill_ms": 1e3 * prefill_s,
+                     "decode_ms": 1e3 * decode_s,
+                     "wire_ms": 1e3 * (wall_s - prefill_s - decode_s)}
+                invokes.append(m)
+                print(f"{label}: B{B} S{S} -> {gen}, {m['wall_ms']:.2f} ms over the wire: "
+                      f"prefill {m['prefill_ms']:.2f} ms, decode {m['decode_ms']:.2f} ms, the "
+                      f"rest {m['wire_ms']:.2f} ms ({100 * m['wire_ms'] / m['wall_ms']:.2f}%); "
+                      f"tokens {'equal to' if toks == mine else 'DIFFERENT from'} the "
+                      f"in-process engine's; card {card_line()}")
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=30)
+        conn.request("GET", "/metrics")
+        counts = route_requests(conn.getresponse().read().decode())
+        conn.close()
+    want_routes = {"POST /v2/admin/tenants": 1, "POST /v1/jobs": 1,
+                   "GET /v1/jobs/{job_id}/logs": 1, "POST /v2/workloads": 1,
+                   "POST /v2/workloads/{name}/invoke": WIRE_INVOKES}
+    print(f"wire: GET /metrics request counts {counts}")
+    for route, n in want_routes.items():
+        if counts.get(route, 0) < n:
+            failures.append(f"wire: /metrics counts {counts.get(route, 0)} requests of "
+                            f"{route}, want at least {n}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"wire phase: {phase_s:.1f} s (wall); card {card_line()}")
+    del engine, twin
+    return {"wire job": job_launches, "wire invokes": total}, {
+        "job_s": job_s, "job_ticks": n_ticks, "invokes": invokes, "routes": counts,
+        "phase_s": phase_s}
+
+
 def kernel_entry(name, source, replaces, launches, timings, primary, worst):
     """One entry of the {"kernels": [...]} line: the primary main-path
     shape's numbers, and every main-path shape under "shapes"."""
@@ -3443,6 +3711,7 @@ def main() -> int:
     tiny_train = phase("tiny configs train on the card", phase_tiny_train)
     mesh = phase("the mesh", phase_mesh, full_train[MESH_ARCH][1])
     serving_launches, serving_metrics = phase("serving tier", phase_serving_tier)
+    wire_launches, wire_metrics = phase("wire", phase_wire)
     tiny = {dtype: {p: n["flash_attention"] for p, n in tiny_launches.items() if p.endswith(dtype)}
             for dtype in ("float32", "bfloat16")}
     rg_train_launches = full_train["recurrentgemma-2b"][0]
@@ -3451,6 +3720,7 @@ def main() -> int:
                    "smollm tiny platform job": learner_launches,
                    **platform_launches,
                    "serving tier train stage": serving_launches["serving tier train stage"],
+                   "wire job": wire_launches["wire job"],
                    **{p: n for p, n in tiny_train.items() if p.endswith("bfloat16")},
                    **mesh["train"]}
     fp32_train_paths = {"smollm-360m fp32 train step": fp32_train_launches,
@@ -3472,6 +3742,7 @@ def main() -> int:
                       **{p: n["flash_attention"] for p, n in mesh["serve"].items()},
                       "serving tier invokes":
                           serving_launches["serving tier invokes"]["flash_attention"],
+                      "wire invokes": wire_launches["wire invokes"]["flash_attention"],
                       **{p: n["flash_attention"] for p, n in train_paths.items()}},
                      flash_t[torch.bfloat16], "smollm B8 S512", flash_worst[torch.bfloat16]),
         # the fp32 route, launched by the fp32 prefills of check_logits and
@@ -3525,6 +3796,7 @@ def main() -> int:
           f"the mesh: {json.dumps(mesh['metrics'])}; "
           f"smollm-360m platform job: {json.dumps(platform_metrics)}; "
           f"the serving tier: {json.dumps(serving_metrics)}; "
+          f"the wire: {json.dumps(wire_metrics)}; "
           f"the dry-run: {json.dumps(dryrun_metrics)}; "
           f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,8 @@
 ``ApiClient`` binds an API key to a *transport* — anything exposing the
 nine v1 verbs with ``(api_key, ...)`` signatures: the in-process
 ``LoadBalancer``, a single ``ApiGateway`` replica, a ``RateLimitedApi``
-front, or :class:`repro.api.http.HttpTransport` for a remote server. The
-same calling code therefore works in-process and over the wire.
+front, or :class:`repro_torch.api.http.HttpTransport` for a remote server.
+The same calling code therefore works in-process and over the wire.
 
 It replaces the retired ``FfDLPlatform.submit/status/...`` facade with the
 same ergonomic return shapes (job ids, ``JobStatus``, plain lists) but the
@@ -374,9 +374,9 @@ class AdminClient:
     ``transport`` is anything exposing the fifteen v2 admin verbs with
     ``(api_key, ...)`` signatures: the in-process
     :class:`~repro_torch.api.admin.AdminGateway` (``platform.admin_api`` /
-    ``federation.admin_api``), or the reference's
-    :class:`repro.api.http.HttpTransport`, which the port does not carry.
-    Verbs return the wire dicts verbatim (``"api_version": "v2"`` envelopes).
+    ``federation.admin_api``) or an
+    :class:`~repro_torch.api.http.HttpTransport`. Verbs return the wire
+    dicts verbatim (``"api_version": "v2"`` envelopes).
     """
 
     def __init__(self, transport, api_key: str):
@@ -463,9 +463,9 @@ class WorkloadClient:
     ``transport`` is anything exposing the five workload verbs with
     ``(api_key, ...)`` signatures: the in-process
     :class:`~repro_torch.workloads.plane.WorkloadGateway`
-    (``platform.workloads_api`` / ``federation.workloads_api``), or the
-    reference's :class:`repro.api.http.HttpTransport`, which the port does
-    not carry. Verbs return the wire dicts verbatim (``"api_version": "v2"`` envelopes).
+    (``platform.workloads_api`` / ``federation.workloads_api``) or an
+    :class:`~repro_torch.api.http.HttpTransport`. Verbs return the wire
+    dicts verbatim (``"api_version": "v2"`` envelopes).
     """
 
     def __init__(self, transport, api_key: str):

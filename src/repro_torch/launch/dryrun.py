@@ -63,9 +63,8 @@ from repro_torch.launch.mesh import (
     make_env,
     make_fake_mesh,
 )
-from repro_torch.models import encdec, steps
+from repro_torch.models import steps
 from repro_torch.models.steps import TrainState
-from repro_torch.nn.blocks import stack_state_axes
 from repro_torch.optim import adamw
 from repro_torch.parallel import logical_to_spec, param_shardings, use_env
 from repro_torch.parallel.sharding import NamedSharding, P, null_env, place_abstract
@@ -115,7 +114,7 @@ def build_cell(arch: str, shape, env, remat=None, overrides=None):
         return steps.make_prefill_step(cfg), (place_abstract(aparams, pshard), batch), cfg
 
     fn = steps.make_decode_step(cfg)
-    saxes = encdec.decode_state_axes(cfg) if cfg.is_encoder_decoder else stack_state_axes(cfg)
+    saxes = steps.decode_state_axes(cfg)
     states = place_abstract(specs["states"], _shardings(
         env, lambda: param_shardings(saxes, specs["states"], env)))
     token = place_abstract({"t": specs["token"]}, _shardings(env, lambda: batch_shardings(

@@ -18,12 +18,13 @@ processes (``launch.mesh``; ``"1x1"`` in one process), each of which
 constructs it and calls ``generate`` with the same prompts: the params
 placed by their logical axes, the prompts split over ``data``, prefill on
 DTensors (the flash kernel on each rank's local shards), and the decode
-state placed by its logical axes; ``ctx_parallel`` shards the KV cache's
-``kv_seq`` over ``model`` (the reference's ``--ctx-parallel``). Decode
-attention stays plain PyTorch, on DTensors; each decode step writes the
-new k/v in place into each rank's local cache shard (only the rank that
-holds the position, under ``ctx_parallel``). The tokens come back whole
-on every rank.
+state placed by its logical axes (an encoder-decoder's frames, drawn the
+same on every rank, split over ``data`` alike and encoded on local shards
+first); ``ctx_parallel`` shards the KV cache's ``kv_seq`` over ``model``
+(the reference's ``--ctx-parallel``). Decode attention stays plain
+PyTorch, on DTensors; each decode step writes the new k/v in place into
+each rank's local cache shard (only the rank that holds the position,
+under ``ctx_parallel``). The tokens come back whole on every rank.
 """
 
 from __future__ import annotations
@@ -82,9 +83,6 @@ class ServeEngine:
         self.cfg = get_tiny_config(arch) if tiny else get_config(arch)
         self.env, self.device = mesh_env(mesh or "1", self.device,
                                          {"kv_seq": "model"} if ctx_parallel else None)
-        if self.env.active and self.cfg.is_encoder_decoder:
-            raise ValueError("ServeEngine: an encoder-decoder serves on one device only "
-                             "(ROADMAP A.13b)")
         self._gen = torch.Generator(device="cpu").manual_seed(seed)
         self.params = (params if params is not None
                        else steps.init_params(self.cfg, seed, self.device))
@@ -121,13 +119,19 @@ class ServeEngine:
         B, S = prompts.shape
         cfg = self.cfg
         if cfg.is_encoder_decoder:
+            # drawn on the host from the engine's generator: the same frames
+            # on every rank, each keeping its own rows
             frames = torch.randn((B, cfg.enc_seq, cfg.d_model), generator=self._gen)
-            frames = frames.to(self.device, torch.bfloat16)
+            frames = shard_batch({"frames": frames.to(torch.bfloat16)}, self.env,
+                                 self.device)["frames"]
             with record_function("encode"):
                 memory = encdec.encode(self.params, frames, cfg)
                 _sync(self.device)
             states = encdec.init_decode_state(self.params, memory, cfg, B, S + gen,
                                               prm.torch_dtype(cfg.dtype))
+            if self.env.active:
+                states = steps.place_tree(states, steps.decode_state_shardings(
+                    cfg, states, self.env))
             tok = torch.zeros((B, 1), dtype=torch.long, device=self.device)
             cache_len, t_pf = 0, 0.0
         else:

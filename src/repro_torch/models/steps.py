@@ -76,11 +76,17 @@ def place_tree(tree, shardings):
     return tree_map_with_path(lambda path, t: place(t, by_path[path]), tree)
 
 
+def decode_state_axes(cfg: ModelConfig):
+    """The decode state's logical axes: the stack's, or an
+    encoder-decoder's (``encdec.decode_state_axes``)."""
+    return encdec.decode_state_axes(cfg) if cfg.is_encoder_decoder else stack_state_axes(cfg)
+
+
 def decode_state_shardings(cfg: ModelConfig, states, env):
-    """NamedShardings of a decode state on ``env``'s mesh, from the stack's
-    state axes (the KV cache's ``kv_seq`` axis is what ``ctx_parallel``
+    """NamedShardings of a decode state on ``env``'s mesh, from its logical
+    axes (the KV cache's ``kv_seq`` axis is what ``ctx_parallel``
     shards)."""
-    return param_shardings(stack_state_axes(cfg), states, env)
+    return param_shardings(decode_state_axes(cfg), states, env)
 
 
 def greedy(logits):

@@ -402,9 +402,12 @@ def placed_as(t, like):
 def place(t: torch.Tensor, sharding: Optional[NamedSharding]):
     """``t`` (whole, the same on every rank) as a DTensor with ``sharding``:
     each rank keeps its own block, with no communication (the reference's
-    ``device_put``). ``sharding`` None gives ``t`` back."""
+    ``device_put``). ``sharding`` None gives ``t`` back; a DTensor is
+    redistributed to ``sharding``."""
     if sharding is None:
         return t
+    if isinstance(t, DTensor):
+        return t.redistribute(sharding.mesh, sharding.placements)
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
     mesh, placements = sharding.mesh, sharding.placements
     shape, offset = compute_local_shape_and_global_offset(t.shape, mesh, placements)

@@ -250,7 +250,9 @@ def cli(out_dir):
 
 def serve(arch, shape, ctx_parallel, prompt_len=16):
     """6 greedy fp32 tokens of ``ServeEngine`` on the mesh, and the decode
-    cache's placements."""
+    cache's placements: those the prefill's K/V are installed in, or for an
+    encoder-decoder (no prefill) those the decode state is placed with, its
+    self-attention caches' and its cross-attention K's."""
     from repro_torch.launch import serve as serve_mod
 
     serve_mod.get_tiny_config = lambda a: tiny(a, "float32")  # this rank's engines in fp32
@@ -259,20 +261,33 @@ def serve(arch, shape, ctx_parallel, prompt_len=16):
                                    ctx_parallel=ctx_parallel)
     prompts = np.random.default_rng(0).integers(0, engine.cfg.vocab_size, (B, prompt_len))
     caches = []
-    orig = serve_mod._install_prefill
 
-    def logged(states, pf_states):
-        new = orig(states, pf_states)
-        leaves = new if isinstance(new, list) else [new]
-        caches.extend(tuple(str(p) for p in c.k.placements) for c in leaves
-                      if isinstance(c, serve_mod.KVCache))
-        return new
+    def placements(t):
+        return tuple(str(p) for p in t.placements)
 
-    serve_mod._install_prefill = logged
+    if engine.cfg.is_encoder_decoder:
+        where, name = serve_mod.steps, "place_tree"
+
+        def logged(states, shardings):
+            new = orig(states, shardings)
+            for layer in new:
+                caches.extend([placements(layer["self"].k), placements(layer["cross_kv"][0])])
+            return new
+    else:
+        where, name = serve_mod, "_install_prefill"
+
+        def logged(states, pf_states):
+            new = orig(states, pf_states)
+            leaves = new if isinstance(new, list) else [new]
+            caches.extend(placements(c.k) for c in leaves if isinstance(c, serve_mod.KVCache))
+            return new
+
+    orig = getattr(where, name)
+    setattr(where, name, logged)
     try:
         tokens = engine.generate(prompts, 6)["tokens"].numpy()
     finally:
-        serve_mod._install_prefill = orig
+        setattr(where, name, orig)
     return {"tokens": tokens, "caches": caches}
 
 
@@ -332,6 +347,7 @@ CASES = {
     "serve_2x2_ctx": lambda out: serve("qwen2.5-3b", (2, 2), True),
     "serve_rg_2x2_ctx": lambda out: serve("recurrentgemma-2b", (2, 2), True, prompt_len=18),
     "serve_1x4_ctx": lambda out: serve("qwen2.5-3b", (1, 4), True, prompt_len=18),
+    "serve_whisper_2x2": lambda out: serve("whisper-tiny", (2, 2), False),
     "ops_refuse": lambda out: ops_refuse(),
 }
 

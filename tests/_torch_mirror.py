@@ -1,25 +1,27 @@
 """Run a reference test module's scenarios on both packages and compare the
-traces they leave (tests/test_torch_admin.py, test_torch_workloads.py and
-test_torch_federation.py).
+traces they leave (tests/test_torch_admin.py, test_torch_workloads.py,
+test_torch_federation.py and test_torch_http.py).
 
 A reference test file (``tests/test_admin_plane.py`` and the like) is
 compiled twice from its own source: once as it is, against ``repro``, and
 once with every ``from repro... import`` read as ``from repro_torch...
 import``. A name the port's module lacks is looked up in that module's
-package (the reference's ``repro.api.http`` re-exports
-``RateLimitConfig``, which the port keeps in ``repro_torch.api``); a name
-the port's package lacks too is left unbound. Those are the reference's
-HTTP transport and CLI (ROADMAP A.19), and the scenarios that reach them
-are the ones each parity file lists as waiting.
+package; a name the port's package lacks too is left unbound. Those are
+the reference's static analyzers (``repro.analysis``, ROADMAP A.20), and
+the scenarios that reach them are the ones a parity file lists as
+waiting. A scenario's fixtures are the module's own (a generator
+fixture's teardown runs at the scenario's end) and pytest's ``capsys``.
 
 Each scenario (a test function of the module, one case of each of its
 parametrizations, each property test at fixed seeds) then runs once on
 each side under a ``Recorder``, which notes:
 
   * every verb of the v1 gateway, the v2 admin and workloads gateways, the
-    rate-limited front and the token bucket, with its arguments and its response as the
-    wire carries it (dataclasses as dicts, enums as their values, errors as
-    code, message and details);
+    rate-limited front and the token bucket, with its arguments and its
+    response as the wire carries it (dataclasses as dicts, enums as their
+    values, errors as code, message and details);
+  * every JSON response of the HTTP server: its request line, status
+    code, added headers (``Retry-After``) and body;
   * at the scenario's end, for every platform it built: the event bus
     (seq, time, component, kind, fields, tenant), the metastore's journal
     and each job record; and for every federation: the migrations (their
@@ -29,16 +31,22 @@ each side under a ``Recorder``, which notes:
 
 Both sides must pass the scenario's own assertions, and leave equal traces
 (a scenario of pure functions, such as the manifest parser's, leaves none:
-its assertions are the comparison). The scenarios that start threads record
-only from one thread, or record the same entry from each.
+its assertions are the comparison). Over HTTP the verbs run on the
+server's handler threads, in the order one client thread sends them. A
+scenario whose threads or wall clock make its trace differ from run to run
+on one package alone compares without its order (``mirror``'s ``order``),
+and its parity file names it and says why.
 """
 
 import ast
+import collections
 import dataclasses
 import enum
+import functools
 import importlib
 import inspect
 import sys
+import threading
 import types
 from pathlib import Path
 
@@ -205,21 +213,42 @@ def _split(scenario: str):
     return stem, name, cid.rstrip("]")
 
 
-def run(mod, scenario: str):
+def _fixture(mod, name: str, given: dict, teardowns: list):
+    """The value of fixture ``name``: one of pytest's own that the caller
+    passed in ``given`` (``capsys``), else the module's, its own fixtures
+    resolved first; a generator fixture's teardown is queued."""
+    if name in given:
+        return given[name]
+    raw = _raw_fixture(getattr(mod, name))
+    kwargs = {p: _fixture(mod, p, given, teardowns) for p in inspect.signature(raw).parameters}
+    if not inspect.isgeneratorfunction(raw):
+        return raw(**kwargs)
+    gen = raw(**kwargs)
+    teardowns.append(gen)
+    return next(gen)
+
+
+def run(mod, scenario: str, given=None):
     """Run one scenario of ``mod``: resolve its fixtures (the module's
-    own), its parametrization case, and a property test's seeds."""
+    own, and pytest's in ``given``), its parametrization case, and a
+    property test's seeds; then tear its fixtures down."""
     _, name, cid = _split(scenario)
     fn = getattr(mod, name)
     kwargs = dict(_parametrize(fn))[cid]
     inner = _inner(fn)
     body = inner or fn
-    for param in inspect.signature(body).parameters:
-        if param not in kwargs and not (inner is not None and param == "seed"):
-            kwargs[param] = _raw_fixture(getattr(mod, param))()
-    if inner is None:
-        return fn(**kwargs)
-    for seed in PROPERTY_SEEDS:
-        inner(seed=seed, **kwargs)
+    teardowns = []
+    try:
+        for param in inspect.signature(body).parameters:
+            if param not in kwargs and not (inner is not None and param == "seed"):
+                kwargs[param] = _fixture(mod, param, given or {}, teardowns)
+        if inner is None:
+            return fn(**kwargs)
+        for seed in PROPERTY_SEEDS:
+            inner(seed=seed, **kwargs)
+    finally:
+        for gen in reversed(teardowns):
+            next(gen, None)
 
 
 # --------------------------------------------------------------------------
@@ -258,20 +287,29 @@ class Recorder:
     def __init__(self, pkg: str, monkeypatch):
         self.pkg = pkg
         self.wire, self.platforms, self.federations = [], [], []
+        # threads alive before the scenario (a server's handler thread an
+        # earlier scenario's stream left polling its own platform) are not
+        # the scenario's: their calls go unrecorded
+        self._foreign = set(threading.enumerate()) - {threading.current_thread()}
         for mod, cls in SURFACES:
             klass = getattr(importlib.import_module(f"{pkg}.{mod}"), cls)
             for verb, fn in list(vars(klass).items()):
                 if not verb.startswith("_") and inspect.isfunction(fn):
                     monkeypatch.setattr(klass, verb, self._verb(cls, verb, fn))
+        handler = importlib.import_module(f"{pkg}.api.http")._Handler
+        monkeypatch.setattr(handler, "_send_json", self._response(handler._send_json))
         fed = importlib.import_module(f"{pkg}.api.federation").Federation
         plat = importlib.import_module(f"{pkg}.core.platform").FfDLPlatform
         monkeypatch.setattr(fed, "__init__", self._built(fed.__init__, self.federations))
         monkeypatch.setattr(plat, "__init__", self._built(plat.__init__, self.platforms))
 
     def _verb(self, cls, verb, fn):
-        log = self.wire
+        log, foreign = self.wire, self._foreign
 
+        @functools.wraps(fn)  # the verb's signature stays inspectable
         def call(obj, *args, **kwargs):
+            if threading.current_thread() in foreign:
+                return fn(obj, *args, **kwargs)
             try:
                 out = fn(obj, *args, **kwargs)
             except Exception as e:
@@ -280,6 +318,18 @@ class Recorder:
             log.append((cls, verb, wire(args), wire(kwargs), wire(out)))
             return out
         return call
+
+    def _response(self, send):
+        """The HTTP server's JSON responses: the request line, the status
+        code, the headers the handler adds and the body."""
+        log, foreign = self.wire, self._foreign
+
+        def sent(handler, status, payload, extra_headers=None):
+            if threading.current_thread() not in foreign:
+                log.append(("HTTP", f"{handler.command} {handler.path}", [status],
+                            wire(extra_headers or {}), wire(payload)))
+            return send(handler, status, payload, extra_headers)
+        return sent
 
     @staticmethod
     def _built(init, into):
@@ -311,31 +361,102 @@ class Recorder:
         return {"wire": self.wire, "platforms": platforms, "federations": federations}
 
 
-def mirror(scenario: str, monkeypatch):
+def _polled(entry, ticked=()) -> bool:
+    """A long-poll or stream read (a ``wait_ms`` argument), or a verb whose
+    answer carries a ticker thread's progress (``"Surface.verb"`` in
+    ``ticked``): what it saw, and how often it ran, depend on when."""
+    return "wait_ms" in entry[3] or f"{entry[0]}.{entry[1]}" in ticked
+
+
+def _timeless(entry, ticked=()):
+    """A wire entry without what the wall clock decides: a polled read as
+    its surface and verb alone, a token bucket's answer without its wait,
+    a 429 without its retry-after."""
+    cls, verb, args, kwargs, out = entry
+    if _polled(entry, ticked):
+        return repr((cls, verb))
+    if cls == "TokenBucket":
+        out = out[0]
+    if isinstance(out, dict) and out.get("error") == "RATE_LIMITED":
+        out = {"error": "RATE_LIMITED"}
+    return repr((cls, verb, args, kwargs, out))
+
+
+def _records(platform: dict) -> dict:
+    """A platform's job records: a job that ended, without the times of its
+    status changes; one still running (where a ticker thread left it), by
+    its id alone."""
+    ended = {s.value for s in importlib.import_module("repro_torch.core.types").TERMINAL}
+    return {job: [status, [h[1:] for h in history], *rest] if status in ended else None
+            for job, (status, history, *rest) in platform["records"].items()}
+
+
+def mirror(scenario: str, monkeypatch, capsys=None, order: str = "strict", ticked=()):
     """Run ``scenario`` on the reference, then on the port, each under a
-    recorder, and hold the port's trace to the reference's."""
+    recorder, and hold the port's trace to the reference's.
+
+    ``order`` says how, for a scenario whose threads (a ticker, concurrent
+    clients, an SSE stream's polls) or wall clock (a token bucket's refill)
+    make the trace differ from run to run on one package alone:
+
+      * ``"strict"``: every wire entry in call order, and each platform's
+        bus, journal and records and each federation's blocks in full;
+      * ``"multiset"``: the verbs' entries as a multiset, each without
+        what the wall clock decides (``_timeless``; long-poll and stream
+        reads as a set of verbs), each platform's job records
+        (``_records``: those that ended without their times), each
+        federation's shards and tenants; the HTTP responses, which carry
+        the same answers, are left out;
+      * ``"set"``: the same, the verbs' entries as a set: where a token
+        bucket's refill decides how many calls pass, the count of each
+        entry is the clock's.
+
+    ``ticked`` names the verbs (``"Surface.verb"``) the scenario calls
+    while a ticker thread runs whose answers carry the ticker's progress (a
+    loop of its own polling a migration or a rollout, the rollout's start
+    with the operator's tick count): outside ``"strict"`` they compare as
+    the long-poll reads do.
+
+    ``capsys`` is pytest's, for a scenario that reads its own output."""
     stem = _split(scenario)[0]
     traces = {}
     for side, pkg in (("reference", "repro"), ("port", "repro_torch")):
         mod, _ = load(stem, port=side == "port")
+        if capsys is not None:
+            capsys.readouterr()
         with monkeypatch.context() as m:
             rec = Recorder(pkg, m)
-            run(mod, scenario)
+            run(mod, scenario, {"capsys": capsys})
             traces[side] = rec.observed()
     ref, port = traces["reference"], traces["port"]
-    assert len(port["wire"]) == len(ref["wire"])
-    for i, (a, b) in enumerate(zip(ref["wire"], port["wire"])):
-        assert b == a, ("wire", i)
     for key in ("platforms", "federations"):
         assert len(port[key]) == len(ref[key]), key
-        for i, (a, b) in enumerate(zip(ref[key], port[key])):
-            for part in a:
-                assert b[part] == a[part], (key, i, part)
+    if order == "strict":
+        assert len(port["wire"]) == len(ref["wire"])
+        for i, (a, b) in enumerate(zip(ref["wire"], port["wire"])):
+            assert b == a, ("wire", i)
+        for key in ("platforms", "federations"):
+            for i, (a, b) in enumerate(zip(ref[key], port[key])):
+                for part in a:
+                    assert b[part] == a[part], (key, i, part)
+        return
+    assert order in ("multiset", "set"), order
+    bag = collections.Counter if order == "multiset" else set
+    verbs = {side: [e for e in t["wire"] if e[0] != "HTTP"] for side, t in traces.items()}
+    for polled in (True, False):
+        a = [_timeless(e, ticked) for e in verbs["reference"] if _polled(e, ticked) == polled]
+        b = [_timeless(e, ticked) for e in verbs["port"] if _polled(e, ticked) == polled]
+        assert (set if polled else bag)(b) == (set if polled else bag)(a), ("wire", polled)
+    for i, (a, b) in enumerate(zip(ref["platforms"], port["platforms"])):
+        assert _records(b) == _records(a), ("platforms", i, "records")
+    for i, (a, b) in enumerate(zip(ref["federations"], port["federations"])):
+        for part in ("shards", "tenants"):
+            assert b[part] == a[part], ("federations", i, part)
 
 
 def waiting(stem: str) -> list:
     """The scenarios of ``stem`` that reach a name the port does not
-    define (the reference's HTTP transport and CLI)."""
+    define (the reference's static analyzers)."""
     mod, unbound = load(stem, port=True)
     return sorted(s for s in scenarios(stem)
                   if reaches(getattr(mod, _split(s)[1]), unbound, mod))

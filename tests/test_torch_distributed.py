@@ -31,8 +31,9 @@ is a ``file://`` path under the test's tmp dir. The cases:
    end on the same checkpoint bit for bit;
 7. ``ServeEngine`` on 2x2 with and without ctx_parallel (and recurrentgemma
    with its one kv head's cache split on kv_seq, and qwen2.5 on 1x4, q's
-   heads split while the cache splits on kv_seq): 6 greedy fp32 tokens
-   equal the unsharded engine's;
+   heads split while the cache splits on kv_seq; and whisper-tiny on 2x2,
+   its frames split on batch and its decode state's self and cross K/V on
+   batch and heads): 6 greedy fp32 tokens equal the unsharded engine's;
 8. the kernels' dispatchers given a split they cannot run on local shards,
    a partial placement or a plain tensor beside DTensors: they raise.
 """
@@ -337,7 +338,8 @@ def test_cli_2x2_resume_is_bit_equal(ranks):
     ("serve_2x2", "qwen2.5-3b", 16, ("S(0)", "S(1)")),
     ("serve_2x2_ctx", "qwen2.5-3b", 16, ("S(0)", "S(1)")),  # kv heads take model first
     ("serve_rg_2x2_ctx", "recurrentgemma-2b", 18, ("S(0)", "S(2)")),  # kv_seq split
-    ("serve_1x4_ctx", "qwen2.5-3b", 18, ("R", "S(2)"))])  # q heads split, kv_seq split
+    ("serve_1x4_ctx", "qwen2.5-3b", 18, ("R", "S(2)")),  # q heads split, kv_seq split
+    ("serve_whisper_2x2", "whisper-tiny", 16, ("S(0)", "S(1)"))])  # self and cross K/V
 def test_serve_2x2_tokens_equal_unsharded(ranks, case, arch, prompt_len, split, monkeypatch):
     got = _case(ranks, case)
     monkeypatch.setattr(serve_mod, "get_tiny_config", lambda a: W.tiny(a, "float32"))

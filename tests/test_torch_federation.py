@@ -9,11 +9,18 @@ shard's event bus, journal and job records, and each federation's
 migrations, tenants, workloads, the reconciler's decision journal and the
 operator's status and decision journal.
 
-Waiting for the port's HTTP transport and CLI (ROADMAP A.19), and not run
-here:
-  * test_federation::test_cli_logs_follow_streams_to_completion
-  * test_federation::test_v1_contract_over_http_against_four_shards
-  * test_operator::test_operator_surface_over_http
+Three scenarios reach the port's HTTP transport and CLI. One compares in
+call order (test_federation::test_v1_contract_over_http_against_four_shards);
+two make their trace differ from run to run on one package alone and
+compare as ``_torch_mirror.mirror``'s ``order`` and ``ticked`` say,
+besides their own assertions:
+  * test_federation::test_cli_logs_follow_streams_to_completion, as a
+    multiset: ``ffdl logs --follow`` polls a stream while a ticker thread
+    runs the federation;
+  * test_operator::test_operator_surface_over_http, as a multiset: it
+    starts a rollout (``start_rollout``, whose answer carries the
+    operator's tick count) and polls it (``operator_status``) in a loop of
+    its own while a ticker thread runs.
 
 Then the port-side parameter: ``device`` reaches every shard, the ones
 the operator's scale-up mints included.
@@ -26,19 +33,19 @@ from repro_torch.api import Federation
 from repro_torch.api.ops import install_operator
 
 MODULES = ("test_federation", "test_operator")
-WAITING = ["test_federation::test_cli_logs_follow_streams_to_completion",
-           "test_federation::test_v1_contract_over_http_against_four_shards",
-           "test_operator::test_operator_surface_over_http"]
-SCENARIOS = [s for stem in MODULES for s in mirror.scenarios(stem) if s not in WAITING]
+ORDER = {"test_federation::test_cli_logs_follow_streams_to_completion": ("multiset", []),
+         "test_operator::test_operator_surface_over_http": (
+             "multiset", ["AdminGateway.operator_status", "AdminGateway.start_rollout"])}
+SCENARIOS = [s for stem in MODULES for s in mirror.scenarios(stem)]
 
 
 def test_waiting_scenarios_are_exactly_those_that_reach_http_or_the_cli():
-    assert sorted(s for stem in MODULES for s in mirror.waiting(stem)) == sorted(WAITING)
+    assert [s for stem in MODULES for s in mirror.waiting(stem)] == []
 
 
 @pytest.mark.parametrize("scenario", SCENARIOS)
-def test_scenario_leaves_the_same_trace_on_both_packages(scenario, monkeypatch):
-    mirror.mirror(scenario, monkeypatch)
+def test_scenario_leaves_the_same_trace_on_both_packages(scenario, monkeypatch, capsys):
+    mirror.mirror(scenario, monkeypatch, capsys, *ORDER.get(scenario, ("strict", [])))
 
 
 @pytest.mark.parametrize("device", [None, "cpu"])

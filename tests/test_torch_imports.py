@@ -38,7 +38,8 @@ def test_port_files_exist():
     for want in ("kernels/flash_attention.py", "kernels/ops.py", "kernels/ref.py",
                  "csrc/flash_attention.cu", "launch/serve.py", "convert.py",
                  "kernels/rglru.py", "csrc/rglru.cu", "nn/recurrent.py", "nn/moe.py",
-                 "core/platform.py", "core/guardian.py", "api/gateway.py"):
+                 "core/platform.py", "core/guardian.py", "api/gateway.py",
+                 "api/http.py", "api/cli.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").exists()
 

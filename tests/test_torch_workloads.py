@@ -9,9 +9,13 @@ journal and job records, and each federation's workloads (specs and
 status blocks) and the reconciler's decision journal. The property tests
 run at the same fixed seeds on both.
 
-Waiting for the port's HTTP transport (ROADMAP A.19), and not run here:
-  * test_workloads::test_http_rejects_cross_tenant_and_unknown_workload_routes
-  * test_workloads::test_workloads_over_http_with_qos_isolation
+Two scenarios reach the port's HTTP transport. One compares in call order
+(test_workloads::test_http_rejects_cross_tenant_and_unknown_workload_routes);
+test_workloads::test_workloads_over_http_with_qos_isolation compares as a
+set (``_torch_mirror.mirror``'s ``order`` and ``ticked``), besides its own
+assertions: a ticker thread runs the federation while it polls the Service
+(``get_workload``) in a loop of its own, and a token bucket's refill on the
+wall clock decides how many of the flooding tenant's invokes pass.
 
 Then FfDL's serving path end to end through the port's own control plane:
 a Pipeline whose train stage is a real tiny smollm-360m job on
@@ -43,18 +47,18 @@ from repro_torch.data.objectstore import MountedBucket
 from repro_torch.launch import serve as tserve
 
 MODULES = ("test_workloads",)
-WAITING = ["test_workloads::test_http_rejects_cross_tenant_and_unknown_workload_routes",
-           "test_workloads::test_workloads_over_http_with_qos_isolation"]
-SCENARIOS = [s for stem in MODULES for s in mirror.scenarios(stem) if s not in WAITING]
+ORDER = {"test_workloads::test_workloads_over_http_with_qos_isolation": (
+    "set", ["WorkloadGateway.get_workload"])}
+SCENARIOS = [s for stem in MODULES for s in mirror.scenarios(stem)]
 
 
 def test_waiting_scenarios_are_exactly_those_that_reach_http():
-    assert sorted(s for stem in MODULES for s in mirror.waiting(stem)) == sorted(WAITING)
+    assert [s for stem in MODULES for s in mirror.waiting(stem)] == []
 
 
 @pytest.mark.parametrize("scenario", SCENARIOS)
-def test_scenario_leaves_the_same_trace_on_both_packages(scenario, monkeypatch):
-    mirror.mirror(scenario, monkeypatch)
+def test_scenario_leaves_the_same_trace_on_both_packages(scenario, monkeypatch, capsys):
+    mirror.mirror(scenario, monkeypatch, capsys, *ORDER.get(scenario, ("strict", [])))
 
 
 # --------------------------------------------------------------------------
