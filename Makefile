@@ -8,9 +8,12 @@ test:
 
 # invariant analyzer suite (repro.analysis): lock discipline, policy
 # purity, determinism, wire-registry cross-checks, deadline coverage.
-# Fails on any finding not covered by src/repro/analysis/baseline.json.
+# Fails on any finding not covered by src/repro/analysis/baseline.json;
+# the port's copy (repro_torch.analysis) checks src/repro_torch against
+# src/repro_torch/analysis/baseline.json.
 lint:
 	$(PY) -m repro.analysis
+	$(PY) -m repro_torch.analysis
 
 test-fast:
 	$(PY) -m pytest -x -q tests/test_api_gateway.py tests/test_platform.py \

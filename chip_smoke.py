@@ -162,9 +162,9 @@ Phases; any failure makes the script exit non-zero:
    ``torch.cuda.max_memory_allocated``, the meta FLOPs within 1e-6
    (relative) of its executed count, and ``mfu`` (FLOPs over step time x
    989 TFLOP/s) printed beside the card's name and power limit. Then the
-   dry-run's CLI, each in a process of its own: recurrentgemma-2b
-   ``train_4k`` on a fake 16x16 mesh and llama3-8b ``prefill_32k`` on a
-   fake 2x16x16 one must exit 0.
+   dry-run's CLI, each in a process of its own, both started before the
+   counts: recurrentgemma-2b ``train_4k`` on a fake 16x16 mesh and
+   llama3-8b ``prefill_32k`` on a fake 2x16x16 one must exit 0.
 7b. xlstm-125m's training at full width through the same phase (no step 0
    against a plain path: none of the port's kernels is on it; 2 steps
    twice, not 3: its host-bound steps take 7-12 s each), and the
@@ -196,7 +196,7 @@ Phases; any failure makes the script exit non-zero:
    status history through DEPLOYING, DOWNLOADING, PROCESSING and STORING,
    with exactly one restart, on the uninterrupted job's state bit for bit;
    the uninterrupted job's launches must equal ``step_launches(cfg, 60)``.
-8d. smollm-360m at full width and 8 of its 32 layers as a job through the
+8d. smollm-360m at full width and 4 of its 32 layers as a job through the
    platform (``phase_platform_full_width``): 6 steps at B8 x S512, bf16,
    remat full, checkpoint every 3, beside two SimLearner gang jobs of a tenant with a
    4-chip quota (one admitted over it); crashed once after its step-3
@@ -268,6 +268,22 @@ Phases; any failure makes the script exit non-zero:
    requests. Prints each invoke's wall time over the wire beside the
    engine's prefill and decode, the job's and the phase's wall time and
    the card's name and power limit.
+8g. The port's five examples on the card (``phase_examples``), each
+   ``main`` run in-process with ``--device cuda``: ``torch_quickstart``
+   (a simulated and a real tiny smollm job, 40 steps), ``torch_multi_tenant``
+   in-process and ``--http`` (simulated tenants' jobs), ``torch_pipeline_e2e``
+   (examples/manifests/pipeline.yaml through a two-shard ``Federation``,
+   its Service invoked 4 times and scaled to 3), ``torch_chaos_drill`` (a
+   fleet under seeded chaos) and ``torch_train_e2e --quick`` (the tiny
+   config, 150 steps, HALT and RESUME; at its default size, a ~100M decoder
+   for 300 steps, it takes longer than the script's limit leaves). Every
+   job COMPLETED, the loss trail falling, the launches
+   counted from 0 for each (whole train steps: quickstart's exactly 40),
+   each transcript and wall time printed beside the card's name and power
+   limit. The port's lock-order witness (``repro_torch.analysis.witness``)
+   is installed on the port's ``RWLock`` from phase 8 to here: its
+   acquisitions and edges are printed, and the run fails on a cycle or on
+   no acquisition at all.
 9. One JSON line ``{"kernels": [...]}``, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -280,6 +296,7 @@ import contextlib
 import dataclasses
 import gc
 import http.client
+import importlib.util
 import io
 import json
 import math
@@ -304,6 +321,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
+from repro_torch.analysis.witness import witness as lock_witness  # noqa: E402
 from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
 from repro_torch.configs import ShapeConfig, get_config, get_tiny_config  # noqa: E402
 from repro_torch.api import (  # noqa: E402
@@ -542,10 +560,10 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 3
 # tests/test_torch_learner.py (checkpoint every 20, crashed at step 30) and
 # the full-width one (checkpoint every 3, crashed after its step-3
 # checkpoint) at PLATFORM_LAYERS of its 32 layers: its four checkpoint saves
-# at 32 layers took about 150 s of the script's time limit; each must pass
-# these statuses in this order.
+# at 32 layers took about 150 s of the script's time limit, at 8 layers
+# 72-76 s on a slow host; each must pass these statuses in this order.
 PLATFORM_ARCH = "smollm-360m"
-PLATFORM_LAYERS = 8
+PLATFORM_LAYERS = 4
 TINY_JOB = {"steps": 60, "batch": 4, "seq": 64, "seed": 3}
 FULL_JOB = {"tiny": False, "overrides": {"n_layers": PLATFORM_LAYERS}, "steps": 6,
             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "seed": 3}
@@ -563,6 +581,13 @@ SERVING_INVOKES = (4, 2)  # invokes on one replica, then on two
 WIRE_TENANT = "wire"
 WIRE_INVOKES = 4
 PIPELINE = ("DEPLOYING", "DOWNLOADING", "PROCESSING", "STORING")
+# phase 8g: the port's examples, each main() with these arguments and
+# --device cuda, in this order. train_e2e runs --quick (the tiny config, 150
+# steps): at its default size (~100M, 300 steps) it took 280.7 s on the card,
+# past what the script's limit leaves, and its loss did not fall (PERF.md)
+EXAMPLES = (("quickstart", []), ("multi_tenant", []), ("multi_tenant", ["--http"]),
+            ("pipeline_e2e", []), ("chaos_drill", []), ("train_e2e", ["--quick"]))
+EXAMPLE_JOBS = {"quickstart": 40, "chaos_drill": 80, "train_e2e": 150}  # real-job steps
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)  # AdamW
 TRAIN_TOL = 2e-2
 # The same first step in fp32 (the fp32 routes of the flash forward and
@@ -2698,10 +2723,27 @@ def phase_dryrun(full_train, failures):
     step executed through the real kernels; and the whole-step share
     ``mfu`` = FLOPs / (step time x 989 TFLOP/s) beside the card. Then the
     CLI on DRYRUN_CELLS, each in a process of its own (the fake process
-    group cannot share a process with phase 8c's NCCL group): exit 0.
-    Returns {arch: metrics}."""
+    group cannot share a process with phase 8c's NCCL group), all started
+    together before the counts and read after them: exit 0. Returns {arch:
+    metrics}."""
     card = card_line()
     out = {}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def cli(arch, cell, multi_pod):
+        """(the CLI's run, its result, its wall seconds) on one cell."""
+        with tempfile.TemporaryDirectory() as tmp:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                   "--shape", cell, "--out", tmp] + (["--multi-pod"] if multi_pod else [])
+            t0 = time.perf_counter()
+            run = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                                 timeout=600)
+            files = list(Path(tmp).glob("*.json"))
+            return run, json.loads(files[0].read_text()) if files else None, \
+                time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(len(DRYRUN_CELLS))
+    runs = [pool.submit(cli, *c) for c in DRYRUN_CELLS]
     shape = ShapeConfig("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
     for arch in TRAIN_FULL_WIDTH:
         executed, metrics = full_train[arch][1]["executed"], full_train[arch][1]
@@ -2729,27 +2771,20 @@ def phase_dryrun(full_train, failures):
         if not ok_flops:
             failures.append(f"{arch} dry-run FLOPs {res['flops_per_device']} vs executed "
                             f"{executed['flops']}")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    for arch, cell, multi_pod in DRYRUN_CELLS:
+    keys = ("flops_per_device", "bytes_per_device", "collective_bytes_per_device",
+            "arg_bytes", "peak_bytes", "fits_80gb", "bottleneck", "trace_s")
+    for (arch, cell, multi_pod), future in zip(DRYRUN_CELLS, runs):
         label = f"{arch} {cell} on {'2x16x16' if multi_pod else '16x16'}"
-        with tempfile.TemporaryDirectory() as tmp:
-            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                   "--shape", cell, "--out", tmp] + (["--multi-pod"] if multi_pod else [])
-            t0 = time.perf_counter()
-            run = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
-                                 timeout=600)
-            files = list(Path(tmp).glob("*.json"))
-            res = json.loads(files[0].read_text()) if files else {}
-        keys = ("flops_per_device", "bytes_per_device", "collective_bytes_per_device",
-                "arg_bytes", "peak_bytes", "fits_80gb", "bottleneck", "trace_s")
-        out[label] = {"rc": run.returncode, "wall_s": time.perf_counter() - t0,
-                      **{k: res.get(k) for k in keys}}
-        print(f"dry-run CLI {label} (torch {torch.__version__}, a process of its own): rc "
-              f"{run.returncode} in {out[label]['wall_s']:.1f} s; "
-              + ", ".join(f"{k} {res.get(k)}" for k in keys))
-        if run.returncode != 0 or not files:
+        run, res, wall_s = future.result()
+        out[label] = {"rc": run.returncode, "wall_s": wall_s,
+                      **{k: (res or {}).get(k) for k in keys}}
+        print(f"dry-run CLI {label} (torch {torch.__version__}, a process of its own, "
+              f"beside the others): rc {run.returncode} in {wall_s:.1f} s; "
+              + ", ".join(f"{k} {(res or {}).get(k)}" for k in keys))
+        if run.returncode != 0 or res is None:
             print(run.stdout[-3000:] + run.stderr[-3000:], file=sys.stderr)
             failures.append(f"dry-run CLI {label}: rc {run.returncode}")
+    pool.shutdown()
     return out
 
 
@@ -2927,7 +2962,7 @@ def phase_platform_full_width(full_step_ms, failures):
     COMPLETED, bit-equal to the uninterrupted job (which checkpoints only at
     its end: its state does not depend on when it saves), each counted
     against ``step_launches``. A checkpoint is params x (2 + 4 + 4 + 4) B,
-    about 1.8 GB on the host at 8 layers (126 M params; 5 GB at 32): only
+    about 1.2 GB on the host at 4 layers (87 M params; 5 GB at 32): only
     the uninterrupted job's final leaves are kept, and its platform is gone
     before the crashed job starts. Prints the object
     store's bytes and the wall time a step through the platform (its
@@ -3636,6 +3671,88 @@ def phase_wire(failures):
         "phase_s": phase_s}
 
 
+def load_example(name):
+    """``examples/torch_{name}.py`` of this checkout as a module."""
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_steps(name, launches, failures):
+    """The train steps one example's flash launches on the card account
+    for (0 for an example with no real job)."""
+    per_step = step_launches(get_tiny_config(PLATFORM_ARCH), 1)
+    if name not in EXAMPLE_JOBS:
+        if any(launches.values()):
+            failures.append(f"example {name}: launched {launches} with no real job")
+        return 0
+    n_steps = launches["flash_attention_bwd"] // per_step["flash_attention_bwd"]
+    if launches != {k: n * n_steps for k, n in per_step.items()} \
+            or n_steps < EXAMPLE_JOBS[name] \
+            or (name == "quickstart" and n_steps != EXAMPLE_JOBS[name]):
+        failures.append(f"example {name}: launches {launches}, not whole train steps "
+                        f"({per_step} a step) of at least {EXAMPLE_JOBS[name]}")
+    return n_steps
+
+
+def phase_examples(failures):
+    """The port's five examples (``examples/torch_*.py``) run in-process on
+    the card: each ``main(args + ["--device", "cuda"])``, its transcript
+    printed, its launches counted from 0 just before it and read just
+    after, its wall time printed beside the card's name and power limit.
+    Each example asserts its own outcome (every job COMPLETED; the chaos
+    drill's real job after its restarts; ``train_e2e --quick``'s falling
+    loss trail and its HALT and RESUME; the pipeline's Service answering 4
+    invokes and scaled to 3 ready replicas), which ends the run after its
+    transcript. The launches (``example_steps``) must be whole train steps:
+    quickstart's exactly 40, the chaos drill's at least 80, train_e2e's at
+    least 150; the multi-tenant demo, in-process and over HTTP, launches
+    nothing. Returns ({path: launches}, metrics)."""
+    launches, metrics = {}, {}
+    for name, args in EXAMPLES:
+        label = " ".join([f"torch_{name}", *args])
+        mod = load_example(name)
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:  # an example's own assertion ends the run, after its transcript
+            with contextlib.redirect_stdout(out):
+                result = mod.main([*args, "--device", "cuda"])
+        finally:
+            for line in out.getvalue().splitlines():
+                print(f"  | {line}")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counted = ops.launch_counts()
+        n_steps = example_steps(name, counted, failures)
+        print(f"example {label}: {wall_s:.1f} s (wall), launches {counted}"
+              + (f" ({n_steps} train steps)" if n_steps else "")
+              + f", returned {json.dumps(result)}; card {card_line()}")
+        metrics[label] = {"wall_s": wall_s, "train_steps": n_steps}
+        if name in EXAMPLE_JOBS:
+            launches[f"example {label}"] = counted
+        del mod, result
+        gc.collect()
+    return launches, metrics
+
+
+def check_witness(failures):
+    """The port's lock-order witness after phases 8-8g: its acquisitions
+    and edges on a line of their own; no cycle, and at least one
+    acquisition (else the port's RWLock was not hooked)."""
+    edges = {k: sorted(v) for k, v in sorted(lock_witness.snapshot().items())}
+    cycle = lock_witness.find_cycle()
+    print(f"lock-order witness over phases 8-8g: {lock_witness.acquisitions} acquisitions, "
+          f"edges {json.dumps(edges)}, {'cycle ' + ' -> '.join(cycle) if cycle else 'acyclic'}")
+    if cycle or lock_witness.acquisitions == 0:
+        failures.append(f"lock-order witness: {lock_witness.acquisitions} acquisitions, "
+                        f"cycle {cycle}")
+    return {"acquisitions": lock_witness.acquisitions, "edges": edges}
+
+
 def kernel_entry(name, source, replaces, launches, timings, primary, worst):
     """One entry of the {"kernels": [...]} line: the primary main-path
     shape's numbers, and every main-path shape under "shapes"."""
@@ -3704,6 +3821,8 @@ def main() -> int:
     wh_train_launches, wh_train = phase(f"{WHISPER} train", phase_train_full_width, WHISPER)
     wh_cpu = phase(f"{WHISPER} card against the CPU", phase_cpu_step, WHISPER)
     fp32_train_launches = phase("smollm-360m fp32 train step", phase_train_fp32)
+    # the port's lock-order witness on the port's RWLock, phases 8 to 8g
+    lock_witness.install()
     learner_launches = phase("platform job crash-resume", phase_crash_resume)
     platform_launches, platform_metrics = phase(
         "smollm-360m platform job", phase_platform_full_width,
@@ -3712,6 +3831,9 @@ def main() -> int:
     mesh = phase("the mesh", phase_mesh, full_train[MESH_ARCH][1])
     serving_launches, serving_metrics = phase("serving tier", phase_serving_tier)
     wire_launches, wire_metrics = phase("wire", phase_wire)
+    example_launches, example_metrics = phase("examples", phase_examples)
+    witness_metrics = check_witness(failures)
+    lock_witness.uninstall()
     tiny = {dtype: {p: n["flash_attention"] for p, n in tiny_launches.items() if p.endswith(dtype)}
             for dtype in ("float32", "bfloat16")}
     rg_train_launches = full_train["recurrentgemma-2b"][0]
@@ -3721,6 +3843,7 @@ def main() -> int:
                    **platform_launches,
                    "serving tier train stage": serving_launches["serving tier train stage"],
                    "wire job": wire_launches["wire job"],
+                   **example_launches,
                    **{p: n for p, n in tiny_train.items() if p.endswith("bfloat16")},
                    **mesh["train"]}
     fp32_train_paths = {"smollm-360m fp32 train step": fp32_train_launches,
@@ -3797,6 +3920,8 @@ def main() -> int:
           f"smollm-360m platform job: {json.dumps(platform_metrics)}; "
           f"the serving tier: {json.dumps(serving_metrics)}; "
           f"the wire: {json.dumps(wire_metrics)}; "
+          f"the examples: {json.dumps(example_metrics)}; "
+          f"the lock-order witness: {witness_metrics['acquisitions']} acquisitions; "
           f"the dry-run: {json.dumps(dryrun_metrics)}; "
           f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

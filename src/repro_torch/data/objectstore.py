@@ -1,22 +1,25 @@
-"""The object store and the bucket views the port's checkpoints read and
-write: its own copies of the reference's ``ObjectStore``, ``StoreStats``,
-``ObjectStoreError``, ``MountedBucket`` and ``DirBucket``
-(``repro/data/objectstore.py``).
+"""The object store, its block cache and the bucket views the port's jobs
+read and write: its own copies of the reference's ``ObjectStore``,
+``StoreStats``, ``ObjectStoreError``, ``BlockCache``, ``MountedBucket`` and
+``DirBucket`` (``repro/data/objectstore.py``).
 
 ``ObjectStore`` models the remote service (FfDL C8): buckets of immutable
 blobs with GET/PUT/LIST and per-operation byte accounting, a chaos hook
 and the fault plane's interposition points. The platform owns one; it
-reaches the learner as ``ctx.objstore``. ``MountedBucket`` wraps an object
-store service by duck typing: anything with ``get``, ``put``, ``list`` and
-``exists``. The reference's read-through block cache is not carried over:
-checkpoints are read once. ``DirBucket`` is the same interface over a
-local directory, the train CLI's checkpoint target.
+reaches the learner as ``ctx.objstore``. ``MountedBucket`` is the mounted
+view of one bucket over an object store service, by duck typing: anything
+with ``get``, ``put``, ``list`` and ``exists``. Given a ``BlockCache`` it
+reads through it: an LRU of blobs keyed by (bucket, key) and shared across
+epochs and jobs (FfDL §3.7, §4), its hits and misses counted in the store's
+``StoreStats``. ``DirBucket`` is the same interface over a local directory,
+the train CLI's checkpoint target.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Optional
 
@@ -107,15 +110,59 @@ class ObjectStore:
             return key in self._buckets.get(bucket, {})
 
 
-class MountedBucket:
-    """Filesystem-like view of one bucket of an object store."""
+class BlockCache:
+    """LRU byte-block cache shared across MountedBucket instances.
 
-    def __init__(self, store, bucket: str):
+    Keyed by (bucket, key) — "the same datasets are often used across jobs,
+    and an intelligent caching layer tuned to DL access patterns could have
+    significant cost and performance improvements" (FfDL §4).
+    """
+
+    def __init__(self, capacity_bytes: int = 1 << 30):
+        self.capacity = capacity_bytes
+        self._lru: OrderedDict[tuple, bytes] = OrderedDict()
+        self._size = 0
+        self._lock = threading.Lock()
+
+    def get(self, k):
+        with self._lock:
+            if k in self._lru:
+                self._lru.move_to_end(k)
+                return self._lru[k]
+        return None
+
+    def put(self, k, data: bytes):
+        with self._lock:
+            if k in self._lru:
+                return
+            self._lru[k] = data
+            self._size += len(data)
+            while self._size > self.capacity and self._lru:
+                _, evicted = self._lru.popitem(last=False)
+                self._size -= len(evicted)
+
+
+class MountedBucket:
+    """Filesystem-like view of one bucket of an object store, reading
+    through ``cache`` where one is given."""
+
+    def __init__(self, store, bucket: str, cache: Optional[BlockCache] = None):
         self.store = store
         self.bucket = bucket
+        self.cache = cache
 
     def read(self, key: str) -> bytes:
-        return self.store.get(self.bucket, key)
+        ck = (self.bucket, key)
+        if self.cache is not None:
+            hit = self.cache.get(ck)
+            if hit is not None:
+                self.store.stats.cache_hits += 1
+                return hit
+            self.store.stats.cache_misses += 1
+        data = self.store.get(self.bucket, key)
+        if self.cache is not None:
+            self.cache.put(ck, data)
+        return data
 
     def write(self, key: str, data: bytes):
         self.store.put(self.bucket, key, data)

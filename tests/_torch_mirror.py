@@ -1,16 +1,22 @@
 """Run a reference test module's scenarios on both packages and compare the
 traces they leave (tests/test_torch_admin.py, test_torch_workloads.py,
-test_torch_federation.py and test_torch_http.py).
+test_torch_federation.py, test_torch_http.py, test_torch_faults.py,
+test_torch_control.py and test_torch_analysis.py).
 
 A reference test file (``tests/test_admin_plane.py`` and the like) is
 compiled twice from its own source: once as it is, against ``repro``, and
 once with every ``from repro... import`` read as ``from repro_torch...
-import``. A name the port's module lacks is looked up in that module's
-package; a name the port's package lacks too is left unbound. Those are
-the reference's static analyzers (``repro.analysis``, ROADMAP A.20), and
-the scenarios that reach them are the ones a parity file lists as
-waiting. A scenario's fixtures are the module's own (a generator
-fixture's teardown runs at the scenario's end) and pytest's ``capsys``.
+import`` (and ``import repro.X as y`` as ``import repro_torch.X as y``).
+A name the port's module lacks is looked up in that module's package; a
+name the port's package lacks too is left unbound, and the scenarios that
+reach one are the ones a parity file lists as waiting. Both compilations
+draw their property tests with the vendored ``_propstrat`` (a fixed-seed
+sweep), so both sides see the same examples. A scenario is a test
+function or a ``Test*`` class's method; its fixtures are the module's own
+(a generator fixture's teardown runs at the scenario's end), pytest's
+``capsys`` and ``tmp_path``, and a ``monkeypatch`` of its own. A parity
+file that imports ``port_witness`` has the port's lock-order witness
+installed for the module and asserted acyclic at its end.
 
 Each scenario (a test function of the module, one case of each of its
 parametrizations, each property test at fixed seeds) then runs once on
@@ -49,6 +55,8 @@ import sys
 import threading
 import types
 from pathlib import Path
+
+import pytest
 
 TESTS = Path(__file__).resolve().parent
 
@@ -110,22 +118,41 @@ class _ToPort(ast.NodeTransformer):
         return out or ast.copy_location(ast.Pass(), node)
 
     def visit_Import(self, node):
-        assert not any(a.name.split(".")[0] == "repro" for a in node.names), \
-            "plain `import repro...` is not rewritten"
+        """``import repro.X as y`` → ``import repro_torch.X as y``."""
+        for alias in node.names:
+            if alias.name.split(".")[0] != "repro":
+                continue
+            assert alias.asname is not None, "plain `import repro...` binds `repro`"
+            alias.name = _port_name(alias.name)
         return node
+
+
+class _Propstrat(ast.NodeTransformer):
+    """``from hypothesis import given, settings, strategies as st`` →
+    ``from _propstrat import given, settings, st``: the vendored fixed-seed
+    sweep, which draws the same examples on both sides."""
+
+    def visit_ImportFrom(self, node):
+        if node.module != "hypothesis":
+            return node
+        names = [ast.alias(name="st", asname=a.asname) if a.name == "strategies"
+                 else a for a in node.names]
+        return ast.copy_location(ast.ImportFrom(module="_propstrat", names=names, level=0),
+                                 node)
 
 
 def load(stem: str, port: bool):
     """The reference test module ``tests/{stem}.py`` compiled against the
-    reference (``port=False``) or the port. Returns (module, unbound
-    names)."""
+    reference (``port=False``) or the port, its property tests drawn by
+    ``_propstrat``. Returns (module, unbound names)."""
     path = TESTS / f"{stem}.py"
-    tree = ast.parse(path.read_text(), filename=str(path))
+    tree = _Propstrat().visit(ast.parse(path.read_text(), filename=str(path)))
     unbound = set()
     if port:
         rewrite = _ToPort()
-        tree = ast.fix_missing_locations(rewrite.visit(tree))
+        tree = rewrite.visit(tree)
         unbound = rewrite.unbound
+    tree = ast.fix_missing_locations(tree)
     name = f"_mirror_{'port' if port else 'ref'}_{stem}"
     mod = types.ModuleType(name)
     mod.__file__ = str(path)
@@ -165,14 +192,10 @@ def _raw_fixture(fixture):
 
 
 def _inner(fn):
-    """A property test's undecorated body (hypothesis or the vendored
-    ``_propstrat`` fallback), or None for a plain test."""
-    hyp = getattr(fn, "hypothesis", None)
-    if hyp is not None:
-        return hyp.inner_test
-    if hasattr(fn, "_max_examples"):
-        return inspect.unwrap(fn)
-    return None
+    """A property test's undecorated body (``load`` draws every property
+    test with ``_propstrat``), or None for a plain test."""
+    inner = inspect.unwrap(fn)
+    return None if inner is fn else inner
 
 
 def _parametrize(fn):
@@ -193,62 +216,102 @@ def _parametrize(fn):
     return cases
 
 
+def _tests(mod):
+    """[(qualified name, function)]: the module's test functions, then the
+    test methods of its ``Test*`` classes as ``Class::name``."""
+    out = []
+    for name, obj in vars(mod).items():
+        if name.startswith("test_") and inspect.isfunction(obj):
+            out.append((name, obj))
+        elif name.startswith("Test") and inspect.isclass(obj):
+            out += [(f"{name}::{m}", fn) for m, fn in vars(obj).items()
+                    if m.startswith("test_") and inspect.isfunction(fn)]
+    return out
+
+
 def scenarios(stem: str):
-    """The scenario ids of a reference test module, as ``stem::name`` or
-    ``stem::name[case]``: one per test function, parametrization case and
-    property test."""
+    """The scenario ids of a reference test module, as ``stem::name``,
+    ``stem::Class::name`` or either with ``[case]``: one per test function
+    or method, parametrization case and property test."""
     mod, _ = load(stem, port=False)
     out = []
-    for name, fn in vars(mod).items():
-        if not (name.startswith("test_") and inspect.isfunction(fn)):
-            continue
+    for qual, fn in _tests(mod):
         for cid, _kw in _parametrize(fn):
-            out.append(f"{stem}::{name}" + (f"[{cid}]" if cid else ""))
+            out.append(f"{stem}::{qual}" + (f"[{cid}]" if cid else ""))
     return out
 
 
 def _split(scenario: str):
-    stem, rest = scenario.split("::")
-    name, _, cid = rest.partition("[")
-    return stem, name, cid.rstrip("]")
+    stem, rest = scenario.split("::", 1)
+    qual, _, cid = rest.partition("[")
+    return stem, qual, cid.rstrip("]")
+
+
+def _target(mod, qual: str):
+    """The test function of ``qual`` and its class (None for a module-level
+    test)."""
+    cls_name, _, name = qual.rpartition("::")
+    if not cls_name:
+        return getattr(mod, name), None
+    cls = getattr(mod, cls_name)
+    return vars(cls)[name], cls
+
+
+def _monkeypatch(teardowns: list):
+    mp = pytest.MonkeyPatch()
+    teardowns.append(mp.undo)
+    return mp
 
 
 def _fixture(mod, name: str, given: dict, teardowns: list):
     """The value of fixture ``name``: one of pytest's own that the caller
-    passed in ``given`` (``capsys``), else the module's, its own fixtures
-    resolved first; a generator fixture's teardown is queued."""
+    passed in ``given`` (``capsys``, ``tmp_path``), a ``monkeypatch`` of the
+    scenario's own, else the module's, its own fixtures resolved first; a
+    generator fixture's teardown is queued."""
     if name in given:
         return given[name]
+    if name == "monkeypatch":
+        return _monkeypatch(teardowns)
     raw = _raw_fixture(getattr(mod, name))
     kwargs = {p: _fixture(mod, p, given, teardowns) for p in inspect.signature(raw).parameters}
     if not inspect.isgeneratorfunction(raw):
         return raw(**kwargs)
     gen = raw(**kwargs)
-    teardowns.append(gen)
+    teardowns.append(lambda: next(gen, None))
     return next(gen)
 
 
 def run(mod, scenario: str, given=None):
     """Run one scenario of ``mod``: resolve its fixtures (the module's
     own, and pytest's in ``given``), its parametrization case, and a
-    property test's seeds; then tear its fixtures down."""
-    _, name, cid = _split(scenario)
-    fn = getattr(mod, name)
+    property test's examples (a test drawing only ``seed`` at
+    ``PROPERTY_SEEDS``, any other at ``_propstrat``'s fixed-seed sweep);
+    then tear its fixtures down."""
+    _, qual, cid = _split(scenario)
+    fn, cls = _target(mod, qual)
+    owner = cls() if cls is not None else None
+
+    def bound(f):
+        return f if owner is None else types.MethodType(f, owner)
+
     kwargs = dict(_parametrize(fn))[cid]
     inner = _inner(fn)
-    body = inner or fn
+    drawn = set() if inner is None else (
+        set(inspect.signature(bound(inner)).parameters)
+        - set(inspect.signature(bound(fn)).parameters))
+    by_seed = drawn == {"seed"}
     teardowns = []
     try:
-        for param in inspect.signature(body).parameters:
-            if param not in kwargs and not (inner is not None and param == "seed"):
+        for param in inspect.signature(bound(fn)).parameters:
+            if param not in kwargs:
                 kwargs[param] = _fixture(mod, param, given or {}, teardowns)
-        if inner is None:
-            return fn(**kwargs)
+        if not by_seed:
+            return bound(fn)(**kwargs)
         for seed in PROPERTY_SEEDS:
-            inner(seed=seed, **kwargs)
+            bound(inner)(seed=seed, **kwargs)
     finally:
-        for gen in reversed(teardowns):
-            next(gen, None)
+        for teardown in reversed(teardowns):
+            teardown()
 
 
 # --------------------------------------------------------------------------
@@ -391,7 +454,8 @@ def _records(platform: dict) -> dict:
             for job, (status, history, *rest) in platform["records"].items()}
 
 
-def mirror(scenario: str, monkeypatch, capsys=None, order: str = "strict", ticked=()):
+def mirror(scenario: str, monkeypatch, capsys=None, order: str = "strict", ticked=(),
+           tmp_path=None):
     """Run ``scenario`` on the reference, then on the port, each under a
     recorder, and hold the port's trace to the reference's.
 
@@ -417,16 +481,22 @@ def mirror(scenario: str, monkeypatch, capsys=None, order: str = "strict", ticke
     with the operator's tick count): outside ``"strict"`` they compare as
     the long-poll reads do.
 
-    ``capsys`` is pytest's, for a scenario that reads its own output."""
+    ``capsys`` is pytest's, for a scenario that reads its own output;
+    ``tmp_path`` is pytest's too, and each side gets a directory of its
+    own under it."""
     stem = _split(scenario)[0]
     traces = {}
     for side, pkg in (("reference", "repro"), ("port", "repro_torch")):
         mod, _ = load(stem, port=side == "port")
+        given = {"capsys": capsys}
+        if tmp_path is not None:
+            given["tmp_path"] = tmp_path / side
+            given["tmp_path"].mkdir()
         if capsys is not None:
             capsys.readouterr()
         with monkeypatch.context() as m:
             rec = Recorder(pkg, m)
-            run(mod, scenario, {"capsys": capsys})
+            run(mod, scenario, given)
             traces[side] = rec.observed()
     ref, port = traces["reference"], traces["port"]
     for key in ("platforms", "federations"):
@@ -459,5 +529,34 @@ def waiting(stem: str) -> list:
     define (the reference's static analyzers)."""
     mod, unbound = load(stem, port=True)
     return sorted(s for s in scenarios(stem)
-                  if reaches(getattr(mod, _split(s)[1]), unbound, mod))
+                  if reaches(_target(mod, _split(s)[1])[0], unbound, mod))
 
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op thread for a module's real jobs: their tiny steps are
+    many small ops, which a thread team per op slows many-fold when the
+    test workers already hold every core. A test file imports it to use
+    it."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def port_witness(request):
+    """The port's lock-order witness (``repro_torch.analysis.witness``) on
+    the port's ``RWLock`` for a parity module: a module that imports this
+    fixture has every acquisition of the port's shard locks recorded, and
+    the graph must be acyclic at the module's end (the reference's
+    conftest does the same for its own lock after test_federation,
+    test_admin_plane and test_faults)."""
+    from repro_torch.analysis.witness import witness
+    witness.install()
+    try:
+        yield witness
+        witness.assert_acyclic(context=request.module.__name__)
+    finally:
+        witness.uninstall()

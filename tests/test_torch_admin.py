@@ -19,11 +19,17 @@ assertions:
   * test_admin_plane::test_v2_unknown_keys_are_rate_limited_before_auth,
     as a set: a token bucket's refill on the wall clock decides how many
     calls pass.
+
+The port's lock-order witness (``_torch_mirror.port_witness``) records
+every acquisition of the port's shard locks in this module and must find
+the graph acyclic at its end, as the reference's conftest asserts of its
+own after the module this file mirrors.
 """
 
 import pytest
 
 import _torch_mirror as mirror
+from _torch_mirror import port_witness  # noqa: F401  (module fixture)
 
 MODULES = ("test_admin_plane", "test_ratelimit")
 ORDER = {"test_admin_plane::test_admin_plane_over_http": (

@@ -24,11 +24,17 @@ besides their own assertions:
 
 Then the port-side parameter: ``device`` reaches every shard, the ones
 the operator's scale-up mints included.
+
+The port's lock-order witness (``_torch_mirror.port_witness``) records
+every acquisition of the port's shard locks in this module and must find
+the graph acyclic at its end, as the reference's conftest asserts of its
+own after the module this file mirrors.
 """
 
 import pytest
 
 import _torch_mirror as mirror
+from _torch_mirror import port_witness  # noqa: F401  (module fixture)
 from repro_torch.api import Federation
 from repro_torch.api.ops import install_operator
 

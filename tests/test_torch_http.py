@@ -25,8 +25,9 @@ without their times), besides their own assertions on both sides:
   * ``set``: test_http_api's rate-limited flood (a token bucket's refill
     on the wall clock decides how many calls pass).
 
-Waiting for the port's static analyzers (ROADMAP A.20), and not run here:
-  * test_docs_api::test_invariants_section_in_architecture_md
+test_docs_api::test_invariants_section_in_architecture_md holds both
+packages' analyzers (``repro.analysis``, ``repro_torch.analysis``) to the
+same ``docs/architecture.md`` section, and no scenario waits.
 
 Then the port-side scenarios: test_hotpath's ``wait_ms`` watch over HTTP
 (its module imports the reference's benchmark oracles, which the mirror
@@ -43,6 +44,7 @@ import pytest
 import torch
 
 import _torch_mirror as mirror
+from _torch_mirror import one_thread  # noqa: F401 (a fixture)
 from repro_torch.api import (
     ApiClient,
     ApiError,
@@ -59,7 +61,7 @@ from repro_torch.core import FfDLPlatform, JobManifest, JobStatus
 from repro_torch.data.objectstore import MountedBucket
 
 MODULES = ("test_http_api", "test_sse_stream", "test_docs_api")
-WAITING = ["test_docs_api::test_invariants_section_in_architecture_md"]
+WAITING = []
 ORDER = {
     "test_http_api::test_concurrent_submits_same_idempotency_key_one_job": ("multiset", []),
     "test_http_api::test_rate_limited_flood_gets_429_with_retry_after": ("set", []),
@@ -147,15 +149,6 @@ REAL_JOB = {"n_learners": 1, "chips_per_learner": 1, "arch": "smollm-360m",
             "checkpoint_interval": 10,
             "train": {"steps": 20, "batch": 4, "seq": 64, "seed": 3}}
 
-
-@pytest.fixture(scope="module")
-def one_thread():
-    """One intra-op thread for the real jobs, as tests/test_torch_platform.py
-    gives its own."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def final_leaves(platform, job_id):

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_mirror import one_thread  # noqa: F401 (a fixture)
+
 from repro.api import ApiClient
 from repro.core import FfDLPlatform, JobManifest, JobStatus
 from repro.core import executor as jexecutor
@@ -32,10 +34,12 @@ from repro_torch.data.objectstore import DirBucket, MountedBucket
 from repro_torch.launch import train as train_cli
 
 
+
 @pytest.fixture
-def torch_learners(monkeypatch):
-    """Swap the port's learner into the guardian; yields a function that
-    sets the device and returns the list of learners built so far."""
+def torch_learners(monkeypatch, one_thread):
+    """Swap the port's learner into the guardian (its real jobs on one
+    intra-op thread); yields a function that sets the device and returns
+    the list of learners built so far."""
     built, device = [], {"name": "cpu"}
 
     def make_learner(ctx):
@@ -174,7 +178,7 @@ def test_learner_without_card_fails_the_job_cleanly():
     assert json.loads(ctx.volume.read("exit/learner-0"))["code"] == 1
 
 
-def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
+def test_train_cli_checkpoints_and_resumes(tmp_path, capsys, one_thread):
     """``python -m repro_torch.launch.train`` trains 6 steps with checkpoints
     every 3; a second call (in process, to read its state) resumes from
     step 6."""
@@ -210,7 +214,7 @@ def world_of_one():
 
 
 @pytest.mark.parametrize("extra", [[], ["--sp"], ["--batch-tp"]], ids=["mesh", "sp", "batch_tp"])
-def test_train_cli_sharding_options_run_on_a_1x1_mesh(world_of_one, capsys, extra):
+def test_train_cli_sharding_options_run_on_a_1x1_mesh(world_of_one, capsys, extra, one_thread):
     """``--mesh 1x1`` with each of the reference's sharding options trains
     on a one-process mesh (params and optimizer state as DTensors) and
     takes the unsharded run's steps: on one device every placement is whole."""

@@ -36,6 +36,8 @@ from types import SimpleNamespace
 import pytest
 import torch
 
+from _torch_mirror import one_thread  # noqa: F401 (a fixture)
+
 import repro.api as rapi
 import repro.core as rcore
 from repro.core import bsa as rbsa
@@ -564,16 +566,6 @@ def run_real_job(ns, crash_at_step=None, **platform_kw):
     assert json.loads(bucket.read(f"{j}/model/DONE")) == {"steps": 60}
     return leaves, [s[1] for s in c.status_history(j)], t, p.meta.get(j).restarts
 
-
-@pytest.fixture(scope="module")
-def one_thread():
-    """One intra-op thread for the real jobs: their tiny steps are many
-    small ops, which a thread team per op slows many-fold when the test
-    workers already hold every core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -33,6 +33,7 @@ import pytest
 import torch
 
 import _torch_mirror as mirror
+from _torch_mirror import one_thread  # noqa: F401 (a fixture)
 from repro import configs as rconfigs
 from repro.launch import serve as rserve
 from repro.utils.trees import tree_flatten_with_paths as jflatten
@@ -75,15 +76,6 @@ PIPELINE = {"kind": "Pipeline", "name": "lm", "tenant": "team-a",
                         "service": {"replicas": 1, "chips_per_replica": 1,
                                     "engine": "real", "arch": ARCH}}]}
 
-
-@pytest.fixture(scope="module")
-def one_thread():
-    """One intra-op thread for the real jobs, as tests/test_torch_platform.py
-    gives its own."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def final_leaves(platform, job_id):

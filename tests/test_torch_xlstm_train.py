@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_mirror import one_thread  # noqa: F401 (a fixture)
 from test_torch_learner import torch_learners  # noqa: F401 (a fixture)
 from test_torch_recurrent_train import _Crash, _jnp_bits, _np_bits, _np_tree, _rel_close
 from test_torch_recurrent_train import bucket  # noqa: F401 (a fixture)
@@ -393,7 +394,7 @@ def test_port_train_state_restores_in_the_reference_bit_for_bit(bucket):  # noqa
 # the train CLI's crash-resume, and the learner through the platform
 # --------------------------------------------------------------------------
 
-def test_train_cli_crash_resume_is_bit_equal(tmp_path, monkeypatch, capsys):
+def test_train_cli_crash_resume_is_bit_equal(tmp_path, monkeypatch, capsys, one_thread):  # noqa: F811
     """``launch.train --arch xlstm-125m --tiny --device cpu``, 8 steps with
     checkpoints every 4: a run that crashes in step 6 (after its step-4
     checkpoint is written) and is started again with the same arguments
