@@ -2,7 +2,7 @@
 """Tile-shape variants of the port's flash-attention backward on one NVIDIA
 H100, either route. Run from the root of a checkout:
 
-    python3 benchmarks/torch_flash_bwd_variants.py [bf16|fp32]
+    python3 benchmarks/torch_flash_bwd_variants.py [bf16|fp32] [VARIANT ...]
 
 Each variant is a route's source with some of its tile constants changed;
 ``base`` is the source as it ships. bf16 (the default,
@@ -15,17 +15,22 @@ D = 64 (``mb3``, which caps ptxas at 168 registers), 16-row streamed tiles
 at every head dim (``bs16``), their pairs, and the score products' K-major
 fragments by 4-byte loads instead of ``ldmatrix`` (``lds32``), and dV, dK
 and dQ summed in their long-running mma accumulators instead of a fresh
-accumulator a tile (``longacc``). All are
+accumulator a tile (``longacc``), and at D = 256 both warps of a slab
+computing both score tiles instead of one each, swapped through shared
+memory (``redundant``). Named variants after the route run those alone,
+beside ``base``. All are
 built at once by nvcc into ``build/kernels/variants/``, launched through the
 port's wrapper at the route's timed shapes (``chip_smoke.BWD_MAIN`` for
-bf16, ``chip_smoke.BWD_FP32`` for fp32: smollm, D64, causal) and timed as
+bf16, ``chip_smoke.BWD_FP32`` for fp32: smollm's D64 and recurrentgemma's
+D256, causal) and timed as
 ``chip_smoke.py`` times the backward (device time over a replayed CUDA
 graph), twice: in the list's order, then in reverse. Prints the card, each
 variant's ptxas spills and serialized-wgmma advisories, whether its
 gradients equal ``base``'s bit for bit, their largest error against the
 plain backward over the largest magnitude of each gradient, and its two
 times; then each variant's error so measured on every case of
-``chip_smoke.BWD_CASES`` in the route's dtype. Exits non-zero without a card or on a failed build.
+``chip_smoke.BWD_CASES`` and ``BWD_CASES_D256`` in the route's dtype.
+Exits non-zero without a card or on a failed build.
 """
 
 from __future__ import annotations
@@ -52,8 +57,8 @@ KVBN128 = ("static constexpr int KV_BN = D <= 64 ? 64 : 32;",
            "static constexpr int KV_BN = D <= 64 ? 128 : 32;")
 FOLD2 = ("static constexpr int FOLD = 4 < DT ? 4 : DT;",
          "static constexpr int FOLD = 2 < DT ? 2 : DT;")
-MB3 = ("static constexpr int MIN_BLOCKS = 2;",
-       "static constexpr int MIN_BLOCKS = D <= 64 ? 3 : 2;")
+MB3 = ("static constexpr int MIN_BLOCKS = SPLIT == 1 ? 2 : 1;",
+       "static constexpr int MIN_BLOCKS = D <= 64 ? 3 : SPLIT == 1 ? 2 : 1;")
 BS16 = ("static constexpr int BS = D <= 64 ? 32 : 16;", "static constexpr int BS = 16;")
 # the score products' K-major fragments by 4-byte loads, as before ldmatrix
 LDS32_ADDR = ("""  const float* ar = a + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 4;
@@ -87,7 +92,15 @@ LONGACC = ("""      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;""",
            """      for (int e = 0; e < 4; ++e) part[n][e] = sum[n0 + n][e];""")
 LONGACC_FOLD = ("""      for (int e = 0; e < 4; ++e) sum[n0 + n][e] += part[n][e];""",
                 """      for (int e = 0; e < 4; ++e) sum[n0 + n][e] = part[n][e];""")
-# route -> (dtype, source, {variant: edits}, {label: (B, H, KV, S, D)} timed)
+# at D = 256 each warp of a slab computes both score tiles itself (the
+# SPLIT == 1 path), in both tile kernels
+REDUNDANT_KV = ("""    if constexpr (C::SPLIT == 1) {
+      scores<D, NS>(st, kw, qs);""", """    if constexpr (true) {
+      scores<D, NS>(st, kw, qs);""")
+REDUNDANT_Q = ("""    if constexpr (C::SPLIT == 1) {
+      scores<D, NS>(s, qw, kst);""", """    if constexpr (true) {
+      scores<D, NS>(s, qw, kst);""")
+# route -> (dtype, source, {variant: edits}, {label: (B, H, KV, S, D, causal)} timed)
 ROUTES = {
     "bf16": (torch.bfloat16, "flash_attention_bwd_sm90",
              {"base": (), "st3": (STAGES3,), "qbn128": (QBN128,),
@@ -97,8 +110,8 @@ ROUTES = {
     "fp32": (torch.float32, "flash_attention_bwd",
              {"base": (), "fold2": (FOLD2,), "mb3": (MB3,), "fold2_mb3": (FOLD2, MB3),
               "bs16": (BS16,), "bs16_mb3": (BS16, MB3), "lds32": (LDS32_ADDR, LDS32_LOADS),
-              "longacc": (LONGACC, LONGACC_FOLD)},
-             {chip_smoke.BWD_FP32: chip_smoke.BWD_MAIN[chip_smoke.BWD_FP32]}),
+              "longacc": (LONGACC, LONGACC_FOLD), "redundant": (REDUNDANT_KV, REDUNDANT_Q)},
+             {label: chip_smoke.BWD_MAIN[label] for label in chip_smoke.BWD_FP32}),
 }
 
 
@@ -153,6 +166,8 @@ def main(argv) -> int:
               "a CUDA card", file=sys.stderr)
         return 1
     dtype, source, variants, shapes = ROUTES[route]
+    if argv[1:]:
+        variants = {name: variants[name] for name in ("base", *argv[1:])}
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"card: {chip_smoke.card_line()}; route {route}: {source}.cu")
     built = build_variants(source, variants)
@@ -162,20 +177,21 @@ def main(argv) -> int:
     shipped = fa._bwd
     gen = torch.Generator(device="cuda").manual_seed(2)
     try:
-        for label, (b, h, kv, s, d) in shapes.items():
+        for label, (b, h, kv, s, d, causal) in shapes.items():
             q, k, v, do = chip_smoke.grad_inputs(gen, b, h, kv, s, s, d, dtype)
-            o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, causal=True)
-            want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse)
+            o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, causal=causal)
+            want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal)
             grads, times = {}, {name: [] for name in fns}
             for name, fn in fns.items():
                 fa._bwd = lambda dtype, fn=fn: fn
-                grads[name] = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+                grads[name] = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal)
             iters = 10 if s > 1024 or dtype == torch.float32 else 50
             for order in (list(fns), list(reversed(fns))):
                 for name in order:
                     fa._bwd = lambda dtype, fn=fns[name]: fn
                     times[name].append(chip_smoke.device_ms(
-                        lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do, lse), iters=iters))
+                        lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal),
+                        iters=iters))
             for name in fns:
                 same = all(torch.equal(a, g) for a, g in zip(grads[name], grads["base"]))
                 rel = max((g.float() - w.float()).abs().max().item()
@@ -184,7 +200,8 @@ def main(argv) -> int:
                       f"bit for bit, max_abs_err/max|grad| against plain {rel:.2e}; device ms "
                       f"(in order, reversed) {times[name][0]:.4f}, {times[name][1]:.4f}")
         cases = []  # the same inputs for every variant
-        for b, h, kv, sq, skv, d, causal, window, q_offset in chip_smoke.BWD_CASES:
+        for b, h, kv, sq, skv, d, causal, window, q_offset in (chip_smoke.BWD_CASES
+                                                               + chip_smoke.BWD_CASES_D256):
             kw = dict(causal=causal, window=window, q_offset=q_offset)
             q, k, v, do = chip_smoke.grad_inputs(gen, b, h, kv, sq, skv, d, dtype)
             o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
@@ -196,7 +213,8 @@ def main(argv) -> int:
                         / w.float().abs().max().item()
                         for g, w in zip(fa.flash_attention_bwd_cuda(*args, **kw), want))
                     for args, kw, want in cases]
-            print(f"{name}: max_abs_err/max|grad| against plain on chip_smoke.BWD_CASES "
+            print(f"{name}: max_abs_err/max|grad| against plain on chip_smoke.BWD_CASES + "
+                  "BWD_CASES_D256 "
                   f"{', '.join(f'{r:.2e}' for r in rels)}")
     finally:
         fa._bwd = shipped

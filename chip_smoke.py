@@ -117,27 +117,28 @@ Phases; any failure makes the script exit non-zero:
 6. The flash backward (run right after phase 3), both routes on the tensor
    cores: bf16 on wgmma (csrc/flash_attention_bwd_sm90.cu), fp32 as
    split-TF32 mma.sync (csrc/flash_attention_bwd.cu). The kernel against
-   its plain version over a case list (fp32 and bf16, head_dim 16 to 128,
+   its plain version over a case list (fp32 and bf16, head_dim 16 to 256,
    GQA, MQA and MHA, causal, window and bidirectional, ragged lengths, Sq
    != Skv with an offset, qwen2.5's GQA 8:1 at head_dim 128 and granite's
-   3:1; bf16 at head_dim 256 too, with MQA, ragged
-   lengths, an offset and a 2048 window that masks at S3072), each
+   3:1; at head_dim 256 MQA, ragged lengths, an offset and a 2048 window
+   that masks at S3072), each
    gradient within 2e-5 (fp32) or 2e-2 (bf16) of the
    largest magnitude of that gradient, given the forward kernel's o and
    lse; the forward's lse within 1e-5 of the plain logsumexp; two launches
-   bit-equal; fp32 at head_dim 256 raises, and so does (ValueError, no
-   launch) a bf16 do that starts off 16 bytes. Times at the train paths'
+   bit-equal; a bf16 do that starts off 16 bytes raises ValueError with no
+   launch. Times at the train paths'
    shapes (B8 H15 KV5 S512 and S2048, D64, B8 H10 KV1 S512 D256, B8 H16
    KV2 S512 D128, B8 H24 KV8 S512 D64 and whisper's B8 H6 S448 D64, bf16,
    causal, and whisper's encoder, B8 H6 S1500 D64 bidirectional) and of
-   the fp32 route at
-   S512 beside SDPA's backward (fwd+bwd minus fwd, both over replayed
+   the fp32 route at smollm's S512 and recurrentgemma's B8 H10 KV1 S512
+   D256 beside SDPA's backward (fwd+bwd minus fwd, both over replayed
    graphs; fp32 with TF32 off), each split into its three kernels by the
    profiler over the replayed graph (a session that lost kernel records,
    each kernel seen at most once a call and some less, is taken again, up
    to SPLIT_SESSIONS; every session's counts are in the kernels line). Then, with grad on, a flash output's
    grad_fn must be FlashAttentionFn and a scan output's RGLRUScanFn, and
-   the fp32 backward at head_dim 256 must raise.
+   an fp32 flash output at head_dim 256 must launch the backward once,
+   its gradients within 2e-5 of the plain ones.
 7. Full-width training after the serving phases
    (``phase_train_full_width``): smollm-360m (32 layers),
    recurrentgemma-2b (26 layers: 18 rglru + 8 local attention, list
@@ -185,7 +186,16 @@ Phases; any failure makes the script exit non-zero:
    1500 frames) on the card against the CPU's: loss within 1e-6 and grad
    norm within 1e-5 relative (``phase_cpu_step``).
 8. The same smollm-360m step 0 in fp32 (the fp32 routes' train path: 64 +
-   32 launches, within TRAIN_TOL_FP32 = 5e-5 of the plain path's). Then a
+   32 launches, within TRAIN_TOL_FP32 = 5e-5 of the plain path's).
+   recurrentgemma-2b's fp32 training at full width
+   (``phase_train_fp32_d256``: 26 layers, the fp32 flash backward at
+   head_dim 256 and the scan's backward on its path, remat full,
+   true-fan-in weights, deterministic algorithms): the batch at S512 is
+   the largest whose dry-run peak (``launch.dryrun.run_cell``, this PR's
+   meta route) leaves 10% of the card's 80 GB free; step 0 against the
+   plain step within TRAIN_TOL_FP32 (16 + 8 flash and 36 + 18 scan
+   launches); 2 steps counted and timed, their peak within 10% of the
+   prediction; one profiled step for the busy share. Then a
    real job through the port's own ``FfDLPlatform`` on the card
    (``phase_crash_resume``): smollm-360m's tiny config, 60 steps,
    checkpoint every 20, submitted with ``ApiClient.for_platform`` through
@@ -196,6 +206,12 @@ Phases; any failure makes the script exit non-zero:
    status history through DEPLOYING, DOWNLOADING, PROCESSING and STORING,
    with exactly one restart, on the uninterrupted job's state bit for bit;
    the uninterrupted job's launches must equal ``step_launches(cfg, 60)``.
+   Then recurrentgemma-2b's tiny config in fp32 at head_dim 256 (a job
+   manifest's config overrides) as a job through the platform on the card
+   (``phase_platform_fp32``: 20 steps, a checkpoint at step 10): COMPLETED
+   with its status history, its launches ``step_launches(cfg, 20)``, and
+   its per-tick losses within FP32_JOB_TOL of the same job through the
+   port's platform on the CPU.
 8d. smollm-360m at full width and 4 of its 32 layers as a job through the
    platform (``phase_platform_full_width``): 6 steps at B8 x S512, bf16,
    remat full, checkpoint every 3, beside two SimLearner gang jobs of a tenant with a
@@ -342,7 +358,6 @@ from repro_torch.data.objectstore import MountedBucket, ObjectStore  # noqa: E40
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    BWD_HEAD_DIMS,
     BWD_ROUTES,
     HEAD_DIMS,
     ROUTES,
@@ -375,6 +390,7 @@ SCAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # The card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s of HBM3 and
 # FLOP/s by operand type (bf16 and TF32 on tensor cores, fp32 on CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
+BLOCK_SMEM_BYTES = 232_448  # dynamic shared memory a block may use on an H100
 PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 # The fp32 flash route does its fp32-accurate work as three TF32 products
 # (lo.hi' + hi.lo' + hi.hi', csrc/flash_attention.cu).
@@ -526,9 +542,9 @@ BWD_CASES = [
     (1, 16, 2, 600, 600, 128, True, 0, 0),  # qwen2.5's GQA 8:1 at head_dim 128, ragged
     (2, 24, 8, 300, 300, 64, True, 0, 0),   # granite's GQA 3:1, ragged
 ]
-# head_dim 256 (recurrentgemma's), the bf16 route only: MQA with its 10-head
-# group, ragged lengths, Sq != Skv with an offset, bidirectional, and its
-# 2048 window masking at S3072
+# head_dim 256 (recurrentgemma's), both routes: MQA with its 10-head group,
+# ragged lengths, Sq != Skv with an offset, bidirectional, and its 2048
+# window masking at S3072
 BWD_CASES_D256 = [
     (2, 10, 1, 512, 512, 256, True, 0, 0),
     (1, 10, 1, 1000, 1000, 256, True, 256, 0),
@@ -537,7 +553,7 @@ BWD_CASES_D256 = [
     (1, 10, 1, 3072, 3072, 256, True, 2048, 0),
 ]
 # The train paths' attention backward shapes (B, H, KV, S, D, causal), bf16,
-# and the one the fp32 route is timed at
+# and the ones the fp32 route is timed at (its kernels line reads the first)
 BWD_MAIN = {"smollm train B8 S512": (8, 15, 5, 512, 64, True),
             "smollm B8 S2048": (8, 15, 5, 2048, 64, True),
             "recurrentgemma train B8 S512": (8, 10, 1, 512, 256, True),
@@ -545,7 +561,7 @@ BWD_MAIN = {"smollm train B8 S512": (8, 15, 5, 512, 64, True),
             "granite train B8 S512": (8, 24, 8, 512, 64, True),
             "whisper enc train B8 S1500": (8, 6, 6, 1500, 64, False),
             "whisper dec train B8 S448": (8, 6, 6, 448, 64, True)}
-BWD_FP32 = "smollm train B8 S512"
+BWD_FP32 = ("smollm train B8 S512", "recurrentgemma train B8 S512")
 # The backward's kernels by their names in the sources (the profiler's names
 # carry template arguments): flash_bwd_{delta,dkdv,dq}, with _sm90 on the
 # bf16 route
@@ -598,6 +614,28 @@ TRAIN_TOL_FP32 = 5e-5
 # The RG-LRU scan's backward (csrc/rglru_bwd.cu) at recurrentgemma-2b's train
 # shape: (B, S, W), fp32, no h0 (the train path's)
 SCAN_BWD_MAIN = {"recurrentgemma train B8 S512": (8, 512, 2560)}
+# recurrentgemma-2b's fp32 training at full width (phase 8's
+# ``phase_train_fp32_d256``): the batch at TRAIN_SEQ is the largest whose
+# dry-run peak leaves TRAIN_FP32_FREE of the card (``dryrun.HBM_BYTES``)
+# free, searched from TRAIN_FP32_BATCH, the dry-run's answer on the CPU
+# under torch 2.13 (B10: 70.65 GB; B11 73.4 GB). Its 2 timed steps' peak
+# must be within DRYRUN_PEAK_TOL of the prediction.
+RG_ARCH = "recurrentgemma-2b"
+TRAIN_FP32_BATCH = 10
+TRAIN_FP32_FREE = 0.10
+# The same arch's tiny config in fp32 at head_dim 256 as a job through the
+# port's platform (``phase_platform_fp32``): a job manifest's config
+# overrides, the reference learner's too (src/repro/core/executor.py). Its
+# per-tick losses on the card against the same job on the CPU, relative. At
+# the learner's default lr of 3e-4 these 20 steps are chaotic: initial
+# params moved by 1e-7 (relative) move step 19's loss by 2.17e-5 on the
+# CPU, and the card read 3.27e-5 there; at 1e-4 a 1e-6 move shifts no tick
+# by more than 4.29e-7, and a 10% error in attention's output gradient
+# shifts step 14 by 1.50e-5 (benchmarks/torch_fp32_job_drift.py).
+FP32_JOB = {"tiny": True, "overrides": {"dtype": "float32", "head_dim": 256}, "steps": 20,
+            "batch": 4, "seq": 64, "seed": 3, "lr": 1e-4}
+FP32_JOB_CKPT = 10
+FP32_JOB_TOL = 1e-5
 
 
 def card_line() -> str:
@@ -801,7 +839,11 @@ def phase_build(failures):
     for dtype, (source, route) in BWD_ROUTES.items():
         print(f"  {source} ({route}, {str(dtype).split('.')[-1]}) dynamic shared memory per "
               "block (the larger tile kernel): "
-              + ", ".join(f"D={d}: {bwd_smem_bytes(d, dtype)} B" for d in BWD_HEAD_DIMS[dtype]))
+              + ", ".join(f"D={d}: {bwd_smem_bytes(d, dtype)} B" for d in HEAD_DIMS))
+        over = [d for d in HEAD_DIMS if not 0 < bwd_smem_bytes(d, dtype) <= BLOCK_SMEM_BYTES]
+        if over:
+            failures.append(f"{source}: shared memory a block past {BLOCK_SMEM_BYTES} B at "
+                            f"head_dim {over}")
 
 
 def flash_row(q, k, v, kw, err, library, route, shape):
@@ -981,11 +1023,11 @@ def device_split(fn, iters=10, replays=3) -> tuple[dict, dict]:
 
 def phase_flash_bwd(failures):
     """The attention backward kernel against its plain version (given the
-    same o and lse) on both routes (bf16 at head_dim 256 too), the
-    forward's lse against the plain forward's, two launches bit-equal;
-    head_dim 256 in fp32 and a misaligned bf16 view raise. Then times at
-    the train paths' shapes (smollm's D64, recurrentgemma's D256) beside
-    SDPA's backward, split by kernel, and the fp32 route's at smollm's S512.
+    same o and lse) on both routes, head_dim 16 to 256, the forward's lse
+    against the plain forward's, two launches bit-equal; a misaligned bf16
+    view raises. Then times at the train paths' shapes (smollm's D64,
+    recurrentgemma's D256) beside SDPA's backward, split by kernel, and the
+    fp32 route's at smollm's and recurrentgemma's S512.
     Returns ({dtype: {label: timed row}}, {dtype: worst max_abs_err})."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {dtype: {"abs": 0.0, "rel": 0.0} for dtype in BWD_ROUTES}
@@ -1017,24 +1059,10 @@ def phase_flash_bwd(failures):
 
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).split(".")[-1]
-        cases = BWD_CASES + (BWD_CASES_D256 if dtype == torch.bfloat16 else [])
-        for b, h, kv, sq, skv, d, causal, window, q_offset in cases:
+        for b, h, kv, sq, skv, d, causal, window, q_offset in BWD_CASES + BWD_CASES_D256:
             check(f"B{b} H{h} KV{kv} Sq{sq} Skv{skv} D{d} causal={causal} window={window} "
                   f"q_offset={q_offset} {dt}", *grad_inputs(gen, b, h, kv, sq, skv, d, dtype),
                   causal=causal, window=window, q_offset=q_offset)
-    # head_dim 256 on the fp32 route (ROADMAP B.3): it raises, launching nothing
-    q, k, v, do = grad_inputs(gen, 1, 2, 1, 64, 64, 256, torch.float32)
-    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
-    before = ops.launch_counts()["flash_attention_bwd"]
-    raised = True
-    with contextlib.suppress(NotImplementedError):  # the outcome this case wants
-        flash_attention_bwd_cuda(q, k, v, o, do, lse)
-        raised = False
-    ok = raised and ops.launch_counts()["flash_attention_bwd"] == before
-    print(f"case flash_bwd D256 fp32: {'NotImplementedError' if raised else 'no error'} "
-          f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        failures.append("flash_attention_bwd: head_dim 256 in fp32 did not raise")
     # the bf16 route's TMA loads need do (and o) 16-byte aligned: a contiguous
     # view 2 bytes past an aligned pointer raises and launches nothing
     q, k, v, do = grad_inputs(gen, 1, 2, 1, 128, 128, 64, torch.bfloat16)
@@ -1055,7 +1083,7 @@ def phase_flash_bwd(failures):
 
     timings = {torch.bfloat16: {}, torch.float32: {}}
     mains = [(label, shape, torch.bfloat16) for label, shape in BWD_MAIN.items()]
-    mains.append((BWD_FP32, BWD_MAIN[BWD_FP32], torch.float32))  # SDPA in fp32, TF32 off
+    mains += [(label, BWD_MAIN[label], torch.float32) for label in BWD_FP32]  # SDPA: TF32 off
     for label, (b, h, kv, s, d, causal), dtype in mains:
         dt = "bf16" if dtype == torch.bfloat16 else "fp32"
         q, k, v, do = grad_inputs(gen, b, h, kv, s, s, d, dtype)
@@ -1119,9 +1147,11 @@ def phase_flash_bwd(failures):
 
 def phase_grad_mode(failures):
     """With grad on: a flash output on the card carries FlashAttentionFn as
-    its grad_fn and a scan output RGLRUScanFn; the fp32 backward at head_dim
-    256 raises (ROADMAP B.3). Each kernel that encodes TMA descriptors
-    launches from a new thread with the main thread's bits."""
+    its grad_fn and a scan output RGLRUScanFn; an fp32 flash output at
+    head_dim 256 (recurrentgemma's) launches the fp32 backward once, its
+    gradients within BWD_TOL of the plain backward's. Each kernel that
+    encodes TMA descriptors launches from a new thread with the main
+    thread's bits."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     q, k, v = (t.requires_grad_(True) for t in qkv(gen, 1, 4, 2, 128, 64, torch.bfloat16))
     out = ops.flash_attention(q, k, v)
@@ -1138,17 +1168,24 @@ def phase_grad_mode(failures):
     print(f"case grad mode: rglru scan output grad_fn {name} {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"rglru_scan under grad: grad_fn {name}, want RGLRUScanFn")
-    q, k, v = (t.requires_grad_(True) for t in qkv(gen, 1, 2, 1, 64, 256, torch.float32))
+    q, k, v, do = grad_inputs(gen, 1, 2, 1, 64, 64, 256, torch.float32)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     before = ops.launch_counts()["flash_attention_bwd"]
-    raised = True
-    with contextlib.suppress(NotImplementedError):  # the outcome this case wants
-        ops.flash_attention(q, k, v).sum().backward()
-        raised = False
-    ok = raised and ops.launch_counts()["flash_attention_bwd"] == before
-    print(f"case grad mode: fp32 flash backward at head_dim 256: "
-          f"{'NotImplementedError' if raised else 'no error'} {'ok' if ok else 'FAIL'}")
+    out = ops.flash_attention(*leaves)
+    name = type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, leaves, do)
+    launched = ops.launch_counts()["flash_attention_bwd"] - before
+    o, lse = ref.flash_attention_ref(q, k, v, return_lse=True)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse)
+    rel = max((g - w).abs().max().item() / w.abs().max().item() for g, w in zip(got, want))
+    ok = name == "FlashAttentionFnBackward" and launched == 1 and \
+        rel <= BWD_TOL[torch.float32]
+    print(f"case grad mode: fp32 flash at head_dim 256: grad_fn {name}, {launched} backward "
+          f"launch(es), gradients within {rel:.2e} of max|grad| of the plain ones (tol "
+          f"{BWD_TOL[torch.float32]:g}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        failures.append("flash_attention under grad: the fp32 backward at D256 did not raise")
+        failures.append(f"flash_attention under grad, fp32 D256: grad_fn {name}, {launched} "
+                        f"backward launches, relative error {rel:.2e}")
     # a thread whose first CUDA call is a TMA kernel's launch (autograd's
     # device thread can be one): the same bits as on the main thread
     a, bb, _ = scan_inputs(gen, 2, 100, 64, torch.float32, False)
@@ -2558,6 +2595,105 @@ def phase_train_fp32(failures):
     return launches
 
 
+def fp32_batch():
+    """(the largest batch at TRAIN_SEQ whose dry-run peak for recurrentgemma-2b's
+    fp32 train step leaves TRAIN_FP32_FREE of the card free, {batch:
+    predicted peak bytes}), searched one batch at a time from
+    TRAIN_FP32_BATCH (``dryrun.run_cell``, meta tensors, no mesh)."""
+    limit = (1 - TRAIN_FP32_FREE) * dryrun.HBM_BYTES
+    peaks = {}
+
+    def fits(b):
+        peaks[b] = dryrun.run_cell(RG_ARCH, overrides={"dtype": "float32"}, mesh_shape=(),
+                                   shape=ShapeConfig("chip_train_fp32", TRAIN_SEQ, b,
+                                                     "train"))["peak_bytes"]
+        return peaks[b] <= limit
+
+    b = TRAIN_FP32_BATCH
+    if fits(b):
+        while fits(b + 1):
+            b += 1
+    else:
+        while b > 1 and not fits(b - 1):
+            b -= 1
+        b -= 1
+    return b, peaks
+
+
+def phase_train_fp32_d256(failures):
+    """recurrentgemma-2b's fp32 training at full width: the path of the fp32
+    flash backward at head_dim 256 and of the scan's backward (26 layers,
+    d_model 2560, 10 heads on 1 KV head, vocab 256,000, remat full, the
+    true-fan-in weights of ``fresh_states`` in fp32, deterministic
+    algorithms) through ``steps.make_train_step``, at the batch that
+    ``fp32_batch`` sizes with the dry-run. Step 0 against the plain step
+    (``step0``, within TRAIN_TOL_FP32: 16 + 8 flash and 36 + 18 scan
+    launches); 2 steps counted and timed, their peak device memory against
+    the dry-run's prediction (within DRYRUN_PEAK_TOL); one profiled step.
+    Returns (step 0's launches, the 2 steps' launches, metrics)."""
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    deterministic(device)
+    b, peaks = fp32_batch()
+    print(f"{RG_ARCH} fp32 train: batch {b} at S{TRAIN_SEQ}, the largest whose dry-run peak "
+          f"leaves {100 * TRAIN_FP32_FREE:.0f}% of {dryrun.HBM_BYTES / 1e9:.0f} GB free; "
+          "predicted peaks "
+          + ", ".join(f"B{k} {v / 1e9:.3f} GB" for k, v in sorted(peaks.items()))
+          + f" ({time.perf_counter() - t_phase:.1f} s)")
+    if b < 1:
+        failures.append(f"{RG_ARCH} fp32 train: no batch fits, dry-run peaks {peaks}")
+        none = {name: 0 for name in ops.launch_counts()}
+        return none, none, {"predicted_peak_bytes": peaks}
+    cfg = get_config(RG_ARCH).replace(dtype="float32")
+    opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
+    batches = [SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, b, seed=0)).batch_at(i)
+               for i in range(3)]
+    _, fresh = fresh_states(cfg, device)
+    label = f"{RG_ARCH} fp32 train step 0 B{b} S{TRAIN_SEQ} (the fp32 backward at head_dim 256)"
+    got, plain, launches0 = step0(cfg, opt_cfg, fresh, batches[0], label, failures)
+
+    step_fn = steps.make_train_step(cfg, opt_cfg)
+    state = fresh()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    step_s, losses = [], []
+    for batch in batches[:2]:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches(f"{RG_ARCH} fp32 train (2 steps, remat full)", launches,
+                    step_launches(cfg, 2), failures)
+    state, wall_ms, busy_ms, by_name, _ = profile_step(step_fn, state, batches[2])
+    del state
+    shares = kernel_shares(by_name)
+    peak_err = abs(peaks[b] - peak) / peak
+    out = {"batch": b, "predicted_peak_bytes": peaks, "peak_bytes": peak,
+           "peak_rel_err": peak_err, "step0": {k: got[k] for k in ("loss", "grad_norm")},
+           "plain_step0": {k: plain[k] for k in ("loss", "grad_norm")}, "losses": losses,
+           "step_ms": 1e3 * step_s[1], "first_step_ms": 1e3 * step_s[0],
+           "tokens_per_s": b * TRAIN_SEQ / step_s[1], "profiled_step_wall_ms": wall_ms,
+           "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms, "kernel_ms": shares}
+    ok = peak_err <= DRYRUN_PEAK_TOL
+    print(f"{RG_ARCH} fp32 train B{b} S{TRAIN_SEQ} remat full: step {out['step_ms']:.2f} ms "
+          f"(step 2; first {out['first_step_ms']:.2f} ms), {out['tokens_per_s']:,.0f} tok/s, "
+          f"peak device memory {peak / 1e9:.3f} GB ({peak / 2**30:.2f} GiB) against the "
+          f"dry-run's {peaks[b] / 1e9:.3f} GB ({100 * peak_err:.2f}%, tol "
+          f"{100 * DRYRUN_PEAK_TOL:.0f}% {'ok' if ok else 'FAIL'}); profiled step wall "
+          f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms ({100 * out['busy_share']:.1f}%); of it "
+          + ", ".join(f"{k} {t:.2f} ms" for k, t in shares.items()) + f"; losses {losses}; "
+          f"{card_line()}")
+    if not ok:
+        failures.append(f"{RG_ARCH} fp32 train peak {peak} vs the dry-run's {peaks[b]}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{RG_ARCH} fp32 train phase: {out['phase_s']:.1f} s")
+    return launches0, launches, out
+
+
 def kernel_shares(by_name):
     """Device ms of a profiled step's kernels by the port's kernel: the
     flash forward, the flash backward, the scan and the scan's backward."""
@@ -2810,10 +2946,12 @@ def phase_tiny_train(failures):
     return out
 
 
-def platform_job(train, checkpoint_interval, crash_at=None, sim_jobs=0):
-    """One real smollm-360m job through the port's own ``FfDLPlatform`` on
-    the card (its default device): submitted with ``ApiClient.for_platform``
-    (the v1 API tier, persisted before the ack), picked up by the LCM, its
+def platform_job(train, checkpoint_interval, crash_at=None, sim_jobs=0, arch=PLATFORM_ARCH,
+                 device=None):
+    """One real ``arch`` job through the port's own ``FfDLPlatform`` on
+    ``device`` (None: the card, the platform's default): submitted with
+    ``ApiClient.for_platform`` (the v1 API tier, persisted before the ack),
+    picked up by the LCM, its
     gang placed by the scheduler, deployed by the guardian, which builds a
     ``TorchLearner``, and ticked until it and ``sim_jobs`` SimLearner gang
     jobs of a second tenant (quota 4 chips, each job 2 x 2 chips) end. With
@@ -2822,10 +2960,11 @@ def platform_job(train, checkpoint_interval, crash_at=None, sim_jobs=0):
     once, and the guardian restarts it from its newest checkpoint. Each
     ``checkpoint.save`` is timed; so is each tick in which the learner
     stepped. Returns a dict: the job's status, status history, restarts,
-    the steps it resumed from, its final checkpoint's leaves (on the host),
+    the steps it resumed from, its learner's per-tick (step, loss) history
+    (the last learner's), its final checkpoint's leaves (on the host),
     the store's stats, the timings, the sim jobs' statuses, every pod bound
     to a host and the events' counts by kind."""
-    p = FfDLPlatform(n_hosts=4, chips_per_host=4)
+    p = FfDLPlatform(n_hosts=4, chips_per_host=4, device=device)
     sims = []
     if sim_jobs:
         p.admission.register_tenant("batch", quota_chips=4)
@@ -2834,7 +2973,7 @@ def platform_job(train, checkpoint_interval, crash_at=None, sim_jobs=0):
                                          chips_per_learner=2, sim_duration=60))
                 for i in range(sim_jobs)]
     c = ApiClient.for_platform(p, "train")
-    j = c.submit(JobManifest(name="smoke", tenant="train", arch=PLATFORM_ARCH, n_learners=1,
+    j = c.submit(JobManifest(name="smoke", tenant="train", arch=arch, n_learners=1,
                              chips_per_learner=2, checkpoint_interval=checkpoint_interval,
                              train=train))
     saves, stepped = [], []
@@ -2846,12 +2985,13 @@ def platform_job(train, checkpoint_interval, crash_at=None, sim_jobs=0):
         saves.append(time.perf_counter() - t0)
         return out
 
-    crashed = False
+    crashed, learner = False, None
     t_job = time.perf_counter()
     with patched({(ckpt, "save"): timed_save}):
         for _ in range(5000):
             g = p.guardians.get(j)
             rt = g.runtimes.get(0) if g is not None else None
+            learner = rt if rt is not None else learner
             before = rt.step if rt is not None and rt.phase == "PROCESSING" else None
             n_saves, t0 = len(saves), time.perf_counter()
             p.tick()
@@ -2877,6 +3017,7 @@ def platform_job(train, checkpoint_interval, crash_at=None, sim_jobs=0):
     return {"status": c.status(j).value, "history": [h[1] for h in c.status_history(j)],
             "restarts": rec.restarts, "crashed": crashed, "final_step": final,
             "resumed_from": [e.fields["step"] for e in p.events.of_kind("resume_from_checkpoint")],
+            "losses": list(learner.loss_history) if learner is not None else [],
             "leaves": leaves, "store": dataclasses.asdict(p.objstore.stats), "saves_s": saves,
             "stepped": stepped, "wall_s": wall_s,
             "sims": [p.meta.get(job).status.value for job in sims],
@@ -2931,6 +3072,45 @@ def phase_crash_resume(failures):
         failures.append(f"crash-resume through the platform: bit-equal {same}, final steps "
                         f"{straight['final_step']} / {resumed['final_step']}")
     return launches
+
+
+def phase_platform_fp32(failures):
+    """recurrentgemma-2b's tiny config in fp32 at head_dim 256 (FP32_JOB's
+    config overrides) as a job through the port's FfDLPlatform on the card:
+    20 steps, a checkpoint at step 10, COMPLETED with its status history,
+    its launches ``step_launches(cfg, 20)`` (the fp32 flash backward at
+    head_dim 256 and the scan's backward among them), its final
+    checkpoint at step 20; then the same job through the port's platform on
+    the CPU: the same status history, and the card's per-tick losses within
+    FP32_JOB_TOL (relative) of the CPU's. Returns (the card job's launches,
+    metrics)."""
+    cfg = get_tiny_config(RG_ARCH)
+    for k, v in FP32_JOB["overrides"].items():
+        cfg = cfg.replace(**{k: v})
+    ops.reset_launch_counts()
+    card = platform_job(FP32_JOB, FP32_JOB_CKPT, arch=RG_ARCH)
+    launches = ops.launch_counts()
+    cpu = platform_job(FP32_JOB, FP32_JOB_CKPT, arch=RG_ARCH, device="cpu")
+    label = f"{RG_ARCH} tiny fp32 head_dim 256 platform job"
+    check_platform_job(f"{label} on the card", card, 0, [], failures)
+    check_platform_job(f"{label} on the CPU", cpu, 0, [], failures)
+    expect_launches(f"{label} ({FP32_JOB['steps']} steps, remat full)", launches,
+                    step_launches(cfg, FP32_JOB["steps"]), failures)
+    rel = [abs(a - b) / abs(b) for (_, a), (_, b) in zip(card["losses"], cpu["losses"])]
+    ok = bool(rel) and [s for s, _ in card["losses"]] == [s for s, _ in cpu["losses"]] and \
+        max(rel) <= FP32_JOB_TOL and card["history"] == cpu["history"] and \
+        card["final_step"] == cpu["final_step"] == FP32_JOB["steps"]
+    print(f"{label}: per-tick losses card {card['losses']}, CPU {cpu['losses']}, relative "
+          f"differences {[f'{r:.2e}' for r in rel]} (tol {FP32_JOB_TOL:g}); status histories "
+          f"{'equal' if card['history'] == cpu['history'] else 'DIFFER'}; final checkpoint "
+          f"steps {card['final_step']} / {cpu['final_step']}; wall {card['wall_s']:.1f} s on "
+          f"the card, {cpu['wall_s']:.1f} s on the CPU {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{label}: card losses {card['losses']} vs CPU {cpu['losses']}, "
+                        f"histories {card['history']} / {cpu['history']}")
+    return launches, {"losses_card": card["losses"], "losses_cpu": cpu["losses"],
+                      "max_rel_diff": max(rel) if rel else None, "wall_s": card["wall_s"],
+                      "cpu_wall_s": cpu["wall_s"], "saves_s": card["saves_s"]}
 
 
 def bare_step_ms(cfg, train, n=4):
@@ -3821,9 +4001,12 @@ def main() -> int:
     wh_train_launches, wh_train = phase(f"{WHISPER} train", phase_train_full_width, WHISPER)
     wh_cpu = phase(f"{WHISPER} card against the CPU", phase_cpu_step, WHISPER)
     fp32_train_launches = phase("smollm-360m fp32 train step", phase_train_fp32)
+    rg_fp32_step0, rg_fp32_launches, rg_fp32_train = phase(f"{RG_ARCH} fp32 train",
+                                                           phase_train_fp32_d256)
     # the port's lock-order witness on the port's RWLock, phases 8 to 8g
     lock_witness.install()
     learner_launches = phase("platform job crash-resume", phase_crash_resume)
+    fp32_job_launches, fp32_job = phase(f"{RG_ARCH} fp32 platform job", phase_platform_fp32)
     platform_launches, platform_metrics = phase(
         "smollm-360m platform job", phase_platform_full_width,
         full_train["smollm-360m"][1]["step_ms"])
@@ -3847,11 +4030,15 @@ def main() -> int:
                    **{p: n for p, n in tiny_train.items() if p.endswith("bfloat16")},
                    **mesh["train"]}
     fp32_train_paths = {"smollm-360m fp32 train step": fp32_train_launches,
+                        f"{RG_ARCH} fp32 train step 0": rg_fp32_step0,
+                        f"{RG_ARCH} fp32 train (2 steps)": rg_fp32_launches,
+                        f"{RG_ARCH} tiny fp32 platform job": fp32_job_launches,
                         f"{WHISPER} fp32 train step": wh_cpu["launches"],
                         **{p: n for p, n in tiny_train.items() if p.endswith("float32")},
                         **mesh["train_fp32"]}
     mesh_scan = {p: n for p, n in {**mesh["train"], **mesh["train_fp32"]}.items()
                  if n["rglru_scan"]}
+    fp32_scan = {p: n for p, n in fp32_train_paths.items() if n["rglru_scan"]}
 
     kernels = [
         kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention_sm90.cu",
@@ -3885,6 +4072,7 @@ def main() -> int:
                      "src/repro/kernels/rglru.py:31",
                      {"recurrentgemma-2b": rg_launches["rglru_scan"],
                       "recurrentgemma-2b train": rg_train_launches["rglru_scan"],
+                      **{p: n["rglru_scan"] for p, n in fp32_scan.items()},
                       **{p: n["rglru_scan"] for p, n in mesh_scan.items()}},
                      scan_t, "recurrentgemma B8 S512", scan_worst),
         # the scan's backward (the JAX package trains through autodiff of its
@@ -3892,6 +4080,7 @@ def main() -> int:
         kernel_entry("rglru_scan_bwd", "src/repro_torch/csrc/rglru_bwd.cu",
                      "src/repro/kernels/rglru.py:31",
                      {"recurrentgemma-2b train": rg_train_launches["rglru_scan_bwd"],
+                      **{p: n["rglru_scan_bwd"] for p, n in fp32_scan.items()},
                       **{p: n["rglru_scan_bwd"] for p, n in mesh_scan.items()}},
                      scan_bwd_t, "recurrentgemma train B8 S512", scan_bwd_worst),
         # the backward of the flash forward (the JAX package trains through
@@ -3905,7 +4094,7 @@ def main() -> int:
         kernel_entry("flash_attention_bwd_fp32", "src/repro_torch/csrc/flash_attention_bwd.cu",
                      "src/repro/kernels/flash_attention.py:36",
                      {p: n["flash_attention_bwd"] for p, n in fp32_train_paths.items()},
-                     bwd_t[torch.float32], BWD_FP32, bwd_worst[torch.float32]),
+                     bwd_t[torch.float32], BWD_FP32[0], bwd_worst[torch.float32]),
     ]
     print(f"card: {card}; smollm-360m: {json.dumps(sm_metrics)}; "
           f"recurrentgemma-2b: {json.dumps(rg_metrics)}; "
@@ -3917,6 +4106,8 @@ def main() -> int:
           f"{WHISPER}: {json.dumps(wh_metrics)}; {WHISPER} train: {json.dumps(wh_train)}; "
           f"{WHISPER} card against the CPU: {json.dumps(wh_cpu)}; "
           f"the mesh: {json.dumps(mesh['metrics'])}; "
+          f"{RG_ARCH} fp32 train: {json.dumps(rg_fp32_train)}; "
+          f"{RG_ARCH} tiny fp32 platform job: {json.dumps(fp32_job)}; "
           f"smollm-360m platform job: {json.dumps(platform_metrics)}; "
           f"the serving tier: {json.dumps(serving_metrics)}; "
           f"the wire: {json.dumps(wire_metrics)}; "

@@ -10,9 +10,10 @@
 // FlashAttentionFn in kernels/flash_attention.py. Same function as the
 // forward: GQA over q (B, H, Sq, D) and k/v (B, KV, Skv, D), H % KV == 0,
 // causal, local-window (q_pos - k_pos < window) or bidirectional masks, an
-// absolute q_offset, any Sq and Skv, head_dim 16, 32, 64 or 128 (256 is
-// recurrentgemma's, whose training is ROADMAP A.9). Its plain version is
-// kernels/ref.py:flash_attention_bwd_ref, the explicit formulas below.
+// absolute q_offset, any Sq and Skv, head_dim 16, 32, 64, 128 or 256
+// (recurrentgemma's, whose fp32 training, a job manifest's dtype override,
+// runs here). Its plain version is kernels/ref.py:flash_attention_bwd_ref,
+// the explicit formulas below.
 //
 // What it computes, from q, k, v, the forward's output o, the output's
 // gradient do and the forward's fp32 row logsumexp lse (natural log):
@@ -26,8 +27,8 @@
 //
 // Deterministic, with no atomics: the FlashAttention-2 split into three
 // kernels, each output element summed by one thread in a fixed order.
-//   1. flash_bwd_delta: Δ, D/4 threads a row, 16 bytes each, summed over a
-//      fixed shuffle tree.
+//   1. flash_bwd_delta: Δ, D/4 threads a row (32 at D = 256, 32 bytes
+//      each), 16 bytes at a time, summed over a fixed shuffle tree.
 //   2. flash_bwd_dkdv: one block a (b, kv head, key tile of 64), key tile 0
 //      first (under a causal mask the heaviest). It keeps its K and V tiles
 //      in shared memory and the dK, dV sums in registers and walks the G
@@ -51,7 +52,9 @@
 // operations bound it: 30.26 GFLOP, 0.061 ms; on the fp32 CUDA cores (67
 // TFLOP/s) 0.151 ms. The split does seven products a pair, not five (S and
 // dP in both tile kernels: the price of no atomics), over whole 16 x 32
-// warp tiles: 44.92 TF32 GFLOP at that shape.
+// warp tiles: 44.92 TF32 GFLOP at that shape. At recurrentgemma's B8 H10
+// KV1 S512 D256 causal: 26.90 GFLOP (80.69 split-TF32 GFLOP, 0.163 ms),
+// 184.71 MB (0.055 ms), 0.401 ms on the CUDA cores.
 //
 // The split and its error: as the forward's (flash_attention.cu), each
 // operand x goes to the tensor cores as hi = tf32(x) and lo = x - hi, and
@@ -81,9 +84,10 @@
 // a tile serves both reads, and the split happens in registers.
 //
 // The design, against what bounds it:
-//   * both tile kernels have 4 warps, each owning 16 resident rows (the m16
-//     of the mma: keys in dK/dV, queries in dQ), and stream tiles of BS rows
-//     (32 up to D = 64, 16 at D = 128) through a two-stage cp.async ring
+//   * both tile kernels have 4 warps (8 at D = 256, below), each owning 16
+//     resident rows (the m16 of the mma: keys in dK/dV, queries in dQ), and
+//     stream tiles of BS rows (32 up to D = 64, 16 from D = 128) through a
+//     two-stage cp.async ring
 //     (16 bytes a thread, L2 only; lse and Δ by 4-byte copies, since a row
 //     of lse need not start on 16 bytes): the next tile's copy is in flight
 //     while the warps compute this one's, and each __syncthreads both
@@ -110,21 +114,38 @@
 //   * registers: dK and dV take D floats a thread, dQ D/2; the streamed tile
 //     is 16 rows at D = 128 so the scores (BS/2 floats each, with hi.hi'
 //     apart) and the split fragments of P and dS fit beside them, with no
-//     spill. Shared memory (Cfg::SMEM_KV, SMEM_Q): two resident 64-row tiles
-//     and two stages of two streamed tiles, 70,144 B a dK/dV block at D = 64,
+//     spill (252 and 189 registers a thread at D = 128, the cap 255).
+//     Shared memory (Cfg::SMEM_KV, SMEM_Q): two resident 64-row tiles and
+//     two stages of two streamed tiles, 70,144 B a dK/dV block at D = 64,
 //     101,632 B at D = 128; the registers (about 200 a thread) hold a SM to
 //     two blocks. Capping them at 168 for three blocks spills and runs
 //     slower, and so do 16-row streamed tiles at D = 64
-//     (benchmarks/torch_flash_bwd_variants.py fp32, PERF.md).
+//     (benchmarks/torch_flash_bwd_variants.py fp32, PERF.md);
+//   * head_dim 256 (Cfg::SPLIT = 2): dK and dV would take 256 floats a
+//     thread, past the cap before any score. So each 16-row slab has two
+//     warps (8 a block, 256 threads), each owning half of the output
+//     columns (dK and dV, or dQ: D = 128's accumulator load). The first
+//     computes the slab's full-D Sᵀ (S) and P, the second dPᵀ (dP); they
+//     swap them through 2 KB of shared memory a slab under a 64-thread
+//     named barrier, and each forms dS itself, the same bits in both. Both
+//     computing both score tiles, with no barrier, gives the same bits and
+//     took 3.04 ms against 2.36 at B8 H10 KV1 S512 causal
+//     (benchmarks/torch_flash_bwd_variants.py fp32 redundant, PERF.md). S
+//     and dP sum over 256 in one hi.hi' accumulator, as the forward's S
+//     does at D = 256. The split changes no sum: each output element is
+//     still one thread's, in the same order. 208,128 B of shared memory a
+//     dK/dV block and 207,872 B a dQ block: one block an SM. Under
+//     recurrentgemma's MQA the dK/dV kernel has B·KV·Skv/64 blocks, 64 for
+//     132 SMs at B8 S512, and the heaviest (the first key tile, causal)
+//     walks all 10 heads' 32 query tiles.
 // The kernels allocate nothing and launch on the caller's stream.
 
 #include "tf32.cuh"  // the TF32 split, mma.sync and cp.async helpers
 
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int BR = 16 * WARPS;  // resident rows a block: keys (dK/dV), queries (dQ)
+constexpr int SLABS = 4;        // 16-row slabs of resident rows a block
+constexpr int BR = 16 * SLABS;  // resident rows a block: keys (dK/dV), queries (dQ)
 constexpr int STAGES = 2;       // streamed-tile ring depth
 constexpr int DELTA_THREADS = 256;
 
@@ -133,14 +154,22 @@ struct Cfg {
   static constexpr int BS = D <= 64 ? 32 : 16;  // streamed rows a tile: queries (dK/dV), keys (dQ)
   static constexpr int LD = D + 4;              // row stride of every tile, floats
   static constexpr int NS = BS / 8;             // 8-wide column tiles of a warp's score tile
-  static constexpr int DT = D / 8;              // 8-wide column tiles of a D-wide product
+  // warps a slab: each owns D / SPLIT of the output columns (dK and dV, or dQ)
+  static constexpr int SPLIT = D > 128 ? 2 : 1;
+  static constexpr int THREADS = 32 * SLABS * SPLIT;
+  static constexpr int DT = D / 8 / SPLIT;      // 8-wide column tiles of a warp's output
   static constexpr int FOLD = 4 < DT ? 4 : DT;  // D tiles summed in fresh accumulators at once
-  static constexpr int MIN_BLOCKS = 2;
+  static constexpr int MIN_BLOCKS = SPLIT == 1 ? 2 : 1;
   static constexpr int RES = BR * LD;           // floats of a resident tile
   static constexpr int TILE = BS * LD;          // floats of a streamed tile
   static constexpr int KV_STAGE = 2 * TILE + 2 * BS;  // Q, dO, the rows' lse and Δ
-  static constexpr size_t SMEM_KV = (size_t)(2 * RES + STAGES * KV_STAGE) * sizeof(float);
-  static constexpr size_t SMEM_Q = (size_t)(2 * RES + STAGES * 2 * TILE) * sizeof(float);
+  // a slab's two warps swap a score tile each (SPLIT = 2): P, then dP, NS x 4
+  // floats a thread
+  static constexpr int XT = NS * 4 * 32;
+  static constexpr int XCH = SPLIT == 2 ? SLABS * 2 * XT : 0;
+  static constexpr size_t SMEM_KV =
+      (size_t)(2 * RES + STAGES * KV_STAGE + XCH) * sizeof(float);
+  static constexpr size_t SMEM_Q = (size_t)(2 * RES + STAGES * 2 * TILE + XCH) * sizeof(float);
 };
 
 // 4 bytes global -> shared; src_bytes 0 writes a zero.
@@ -167,7 +196,7 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
 template <int D, int ROWS>
 __device__ __forceinline__ void load_rows(float* dst, const float* src, int r0, int S, int tid) {
   constexpr int CPR = D / 4;  // 16-byte chunks a row
-  for (int c = tid; c < ROWS * CPR; c += THREADS) {
+  for (int c = tid; c < ROWS * CPR; c += Cfg<D>::THREADS) {
     const int r = c / CPR, col = (c % CPR) * 4;
     const bool in = r0 + r < S;
     cp_async16(dst + r * Cfg<D>::LD + col, src + (in ? (size_t)(r0 + r) * D + col : 0),
@@ -178,6 +207,30 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int r0, 
 // Whether the query at absolute position qpos sees the key at kpos.
 __device__ __forceinline__ bool visible(int qpos, int kpos, int causal, int window) {
   return (!causal || qpos >= kpos) && (window <= 0 || qpos - kpos < window);
+}
+
+// A warp's score tile (the m16n8 accumulator layout) into shared memory and
+// back, element (j, e) of lane l at (4j + e)·32 + l: conflict-free 4-byte
+// accesses, and a lane of the other warp of the slab reads the same element.
+template <int NS>
+__device__ __forceinline__ void put_tile(float* x, const float (&v)[NS][4], int lane) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[(4 * j + e) * 32 + lane] = v[j][e];
+}
+template <int NS>
+__device__ __forceinline__ void get_tile(float (&v)[NS][4], const float* x, int lane) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[j][e] = x[(4 * j + e) * 32 + lane];
+}
+
+// The two warps of slab `slab` (64 threads) meet: named barrier 1 + slab
+// (0 is __syncthreads'); orders their shared-memory writes before the reads.
+__device__ __forceinline__ void pair_sync(int slab) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + slab) : "memory");
 }
 
 // acc (16 x 8NS, the m16n8 accumulator layout) = A·Bᵀ over D, both K-major
@@ -243,18 +296,20 @@ __device__ __forceinline__ void to_a(const float (&x)[NS][4], uint32_t (&hi)[NS]
   }
 }
 
-// sum (16 x D) += A·B over the 8NS rows of a streamed tile: A split in
-// registers (to_a), B the tile read MN-major, `b` at row 2t, column g (rows
-// of D + 4 floats): k-step j reads rows 8j + 2t and 8j + 2t + 1. FOLD D
-// tiles at a time, the tile's product goes into fresh mma accumulators (each
-// k-step's lo.hi', hi.lo', then hi.hi') and is then added into the fp32 sums
-// with round-to-nearest adds, so no mma accumulator runs longer than one tile.
+// sum (16 x D / SPLIT, the warp's output columns) += A·B over the 8NS rows
+// of a streamed tile: A split in registers (to_a), B the tile read MN-major,
+// `b` at row 2t and the warp's first column plus g (rows of D + 4 floats):
+// k-step j reads rows 8j + 2t and 8j + 2t + 1. FOLD D tiles at a time, the
+// tile's product goes into fresh mma accumulators (each k-step's lo.hi',
+// hi.lo', then hi.hi') and is then added into the fp32 sums with
+// round-to-nearest adds, so no mma accumulator runs longer than one tile.
 template <int D, int NS>
-__device__ __forceinline__ void accumulate(float (&sum)[D / 8][4], const uint32_t (&ah)[NS][4],
+__device__ __forceinline__ void accumulate(float (&sum)[Cfg<D>::DT][4],
+                                           const uint32_t (&ah)[NS][4],
                                            const uint32_t (&al)[NS][4], const float* b) {
   constexpr int LD = D + 4, FOLD = Cfg<D>::FOLD;
 #pragma unroll
-  for (int n0 = 0; n0 < D / 8; n0 += FOLD) {
+  for (int n0 = 0; n0 < Cfg<D>::DT; n0 += FOLD) {
     float part[FOLD][4];
 #pragma unroll
     for (int n = 0; n < FOLD; ++n)
@@ -283,18 +338,19 @@ __device__ __forceinline__ void accumulate(float (&sum)[D / 8][4], const uint32_
   }
 }
 
-// Rows row and row + 8 of a warp's 16 x D sums, times mul, into a (S, D)
-// matrix; rows at or past S are not written.
+// Rows row and row + 8 of a warp's 16 x D / SPLIT sums, times mul, into
+// columns col0 on of a (S, D) matrix; rows at or past S are not written.
 template <int D>
-__device__ __forceinline__ void store_rows(float* __restrict__ out, const float (&sum)[D / 8][4],
-                                           int row, int S, int t, float mul) {
+__device__ __forceinline__ void store_rows(float* __restrict__ out,
+                                           const float (&sum)[Cfg<D>::DT][4], int row, int S,
+                                           int col0, int t, float mul) {
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = row + 8 * hh;
     if (r < S) {
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<float2*>(out + (size_t)r * D + 8 * n + 2 * t) =
+      for (int n = 0; n < Cfg<D>::DT; ++n)
+        *reinterpret_cast<float2*>(out + (size_t)r * D + col0 + 8 * n + 2 * t) =
             make_float2(sum[n][2 * hh] * mul, sum[n][2 * hh + 1] * mul);
     }
   }
@@ -302,22 +358,26 @@ __device__ __forceinline__ void store_rows(float* __restrict__ out, const float 
 
 // ---- the kernels -------------------------------------------------------------
 
-// Δ = rowsum(dO∘O) in fp32: D/4 threads a row, 16 bytes each.
+// Δ = rowsum(dO∘O) in fp32: TPR threads a row (D/4, at most a warp), 16
+// bytes at a time, columns 4 part + 4 TPR i for i = 0, 1, ... in order.
 template <int D>
 __global__ void __launch_bounds__(DELTA_THREADS)
 flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
                 float* __restrict__ delta, long long rows) {
-  constexpr int TPR = D / 4;
+  constexpr int TPR = D / 4 < 32 ? D / 4 : 32;
   const long long row = (long long)blockIdx.x * (DELTA_THREADS / TPR) + threadIdx.x / TPR;
   const int part = threadIdx.x % TPR;
   float acc = 0.f;
   if (row < rows) {
-    const float4 a = *reinterpret_cast<const float4*>(o + row * D + 4 * part);
-    const float4 b = *reinterpret_cast<const float4*>(dout + row * D + 4 * part);
-    acc = fmaf(b.x, a.x, acc);
-    acc = fmaf(b.y, a.y, acc);
-    acc = fmaf(b.z, a.z, acc);
-    acc = fmaf(b.w, a.w, acc);
+#pragma unroll
+    for (int c = 4 * part; c < D; c += 4 * TPR) {
+      const float4 a = *reinterpret_cast<const float4*>(o + row * D + c);
+      const float4 b = *reinterpret_cast<const float4*>(dout + row * D + c);
+      acc = fmaf(b.x, a.x, acc);
+      acc = fmaf(b.y, a.y, acc);
+      acc = fmaf(b.z, a.z, acc);
+      acc = fmaf(b.w, a.w, acc);
+    }
   }
 #pragma unroll
   for (int off = TPR / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -345,7 +405,7 @@ __device__ __forceinline__ void load_query_stage(float* st, const float* __restr
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, Cfg<D>::MIN_BLOCKS)
+__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
 flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
@@ -357,8 +417,12 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   float* ks = smem;           // BR x LD
   float* vs = ks + C::RES;    // BR x LD
   float* ring = vs + C::RES;  // STAGES x KV_STAGE
+  float* xs = ring + STAGES * C::KV_STAGE;  // SLABS x (P, dP) exchange tiles (SPLIT = 2)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the warp's slab of 16 keys, its half of the slab (SPLIT = 2) and its
+  // first column of dK and dV
+  const int slab = warp / C::SPLIT, half = warp % C::SPLIT, col0 = half * (D / C::SPLIT);
   const int g = lane >> 2, t = lane & 3;  // the mma fragment's row group and column pair
   const int bkv = blockIdx.x, G = H / KV;
   const int n0 = blockIdx.y * BR;  // the block's first key
@@ -376,9 +440,9 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   cp_async_commit();
   if (n_iter > 0) load_query_stage<D>(ring, q, dout, lse, delta, bh0, t_lo * BS, Sq, tid);
 
-  const int kw0 = n0 + 16 * warp;  // the warp's first key
-  const float* kw = ks + 16 * warp * LD;  // the warp's rows of K and V
-  const float* vw = vs + 16 * warp * LD;
+  const int kw0 = n0 + 16 * slab;  // the warp's first key
+  const float* kw = ks + 16 * slab * LD;  // the warp's rows of K and V
+  const float* vw = vs + 16 * slab * LD;
   float dka[DT][4], dva[DT][4];
 #pragma unroll
   for (int n = 0; n < DT; ++n)
@@ -401,36 +465,70 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
     const float* stat = dos + C::TILE;  // the rows' lse, then their Δ
 
     float st[NS][4], dpt[NS][4];  // Sᵀ, then Pᵀ; dPᵀ, then dSᵀ: rows keys, columns queries
-    scores<D, NS>(st, kw, qs);
-    scores<D, NS>(dpt, vw, dos);
     // Element e of column tile j: key kw0 + g + 8(e >> 1), query m0 + 8j + 2t + (e & 1).
     const bool need_mask = m0 + BS > Sq || (causal && qpos0 < kw0 + 15) ||
                            (window > 0 && qpos0 + BS - 1 - kw0 >= window);
+    if constexpr (C::SPLIT == 1) {
+      scores<D, NS>(st, kw, qs);
+      scores<D, NS>(dpt, vw, dos);
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const float2 l = *reinterpret_cast<const float2*>(stat + 8 * j + 2 * t);
-      const float2 d = *reinterpret_cast<const float2*>(stat + BS + 8 * j + 2 * t);
+      for (int j = 0; j < NS; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(stat + 8 * j + 2 * t);
+        const float2 d = *reinterpret_cast<const float2*>(stat + BS + 8 * j + 2 * t);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e & 1);
-        float p = expf(fmaf(st[j][e], scale, -((e & 1) ? l.y : l.x)));
-        if (need_mask && !(m0 + col < Sq &&
-                           visible(qpos0 + col, kw0 + g + 8 * (e >> 1), causal, window)))
-          p = 0.f;
-        dpt[j][e] = p * (dpt[j][e] - ((e & 1) ? d.y : d.x));
-        st[j][e] = p;
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          float p = expf(fmaf(st[j][e], scale, -((e & 1) ? l.y : l.x)));
+          if (need_mask && !(m0 + col < Sq &&
+                             visible(qpos0 + col, kw0 + g + 8 * (e >> 1), causal, window)))
+            p = 0.f;
+          dpt[j][e] = p * (dpt[j][e] - ((e & 1) ? d.y : d.x));
+          st[j][e] = p;
+        }
       }
+    } else {
+      // The slab's first warp computes Sᵀ and Pᵀ, its second dPᵀ; they swap
+      // them through shared memory and each forms dSᵀ, the same bits in both.
+      float* xw = xs + slab * 2 * C::XT;  // the slab's Pᵀ, then its dPᵀ
+      if (half == 0) {
+        scores<D, NS>(st, kw, qs);
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * t + (e & 1);
+            float p = expf(fmaf(st[j][e], scale, -stat[col]));
+            if (need_mask && !(m0 + col < Sq &&
+                               visible(qpos0 + col, kw0 + g + 8 * (e >> 1), causal, window)))
+              p = 0.f;
+            st[j][e] = p;
+          }
+        put_tile<NS>(xw, st, lane);
+      } else {
+        scores<D, NS>(dpt, vw, dos);
+        put_tile<NS>(xw + C::XT, dpt, lane);
+      }
+      pair_sync(slab);
+      if (half == 0)
+        get_tile<NS>(dpt, xw + C::XT, lane);
+      else
+        get_tile<NS>(st, xw, lane);
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dpt[j][e] = st[j][e] * (dpt[j][e] - stat[BS + 8 * j + 2 * t + (e & 1)]);
     }
     uint32_t ph[NS][4], pl[NS][4], dh[NS][4], dl[NS][4];
     to_a<NS>(st, ph, pl);
     to_a<NS>(dpt, dh, dl);
-    accumulate<D, NS>(dva, ph, pl, dos + 2 * t * LD + g);  // dV += Pᵀ dO
-    accumulate<D, NS>(dka, dh, dl, qs + 2 * t * LD + g);   // dK += dSᵀ Q
+    accumulate<D, NS>(dva, ph, pl, dos + 2 * t * LD + col0 + g);  // dV += Pᵀ dO
+    accumulate<D, NS>(dka, dh, dl, qs + 2 * t * LD + col0 + g);   // dK += dSᵀ Q
   }
   cp_async_wait_all();
 
-  store_rows<D>(dk + (size_t)bkv * Skv * D, dka, kw0 + g, Skv, t, scale);
-  store_rows<D>(dv + (size_t)bkv * Skv * D, dva, kw0 + g, Skv, t, 1.f);
+  store_rows<D>(dk + (size_t)bkv * Skv * D, dka, kw0 + g, Skv, col0, t, scale);
+  store_rows<D>(dv + (size_t)bkv * Skv * D, dva, kw0 + g, Skv, col0, t, 1.f);
 }
 
 // Stage of the dQ ring: keys [k0, k0 + BS) of K and V (zeros past Skv).
@@ -445,7 +543,7 @@ __device__ __forceinline__ void load_key_stage(float* st, const float* __restric
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, Cfg<D>::MIN_BLOCKS)
+__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
 flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
@@ -457,8 +555,12 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   float* qs = smem;            // BR x LD
   float* dos = qs + C::RES;    // BR x LD
   float* ring = dos + C::RES;  // STAGES x (K, V: BS x LD each)
+  float* xs = ring + STAGES * 2 * C::TILE;  // SLABS x (P, dP) exchange tiles (SPLIT = 2)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the warp's slab of 16 query rows, its half of the slab (SPLIT = 2) and
+  // its first column of dQ
+  const int slab = warp / C::SPLIT, half = warp % C::SPLIT, col0 = half * (D / C::SPLIT);
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const size_t bkv = (size_t)b * KV + h / (H / KV);
@@ -477,8 +579,8 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   cp_async_commit();
   if (t_lo < t_hi) load_key_stage<D>(ring, kp, vp, t_lo * BS, Skv, tid);
 
-  const int row0 = m0 + 16 * warp + g;  // this thread's rows: row0 and row0 + 8
-  const int wq0 = q_offset + m0 + 16 * warp;  // absolute position of the warp's row 0
+  const int row0 = m0 + 16 * slab + g;  // this thread's rows: row0 and row0 + 8
+  const int wq0 = q_offset + m0 + 16 * slab;  // absolute position of the warp's row 0
   float ls[2], dl[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -486,8 +588,8 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     ls[hh] = r < Sq ? lse[(size_t)bh * Sq + r] : __int_as_float(0x7f800000);  // P = 0 past Sq
     dl[hh] = r < Sq ? delta[(size_t)bh * Sq + r] : 0.f;
   }
-  const float* qw = qs + 16 * warp * LD;  // the warp's rows of Q and dO
-  const float* dw = dos + 16 * warp * LD;
+  const float* qw = qs + 16 * slab * LD;  // the warp's rows of Q and dO
+  const float* dw = dos + 16 * slab * LD;
   float dqa[DT][4];
 #pragma unroll
   for (int n = 0; n < DT; ++n)
@@ -508,28 +610,62 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     const float* vst = kst + C::TILE;
 
     float s[NS][4], dp[NS][4];  // S, then P; dP, then dS: rows queries, columns keys
-    scores<D, NS>(s, qw, kst);
-    scores<D, NS>(dp, dw, vst);
     // Element e of column tile j: query row0 + 8(e >> 1), key k0 + 8j + 2t + (e & 1).
     const bool need_mask = k0 + BS > Skv || (causal && k0 + BS - 1 > wq0) ||
                            (window > 0 && k0 <= wq0 + 15 - window);
+    if constexpr (C::SPLIT == 1) {
+      scores<D, NS>(s, qw, kst);
+      scores<D, NS>(dp, dw, vst);
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
+      for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + 8 * j + 2 * t + (e & 1);
-        float p = expf(fmaf(s[j][e], scale, -ls[e >> 1]));
-        if (need_mask && !(kpos < Skv && visible(wq0 + g + 8 * (e >> 1), kpos, causal, window)))
-          p = 0.f;
-        dp[j][e] = p * (dp[j][e] - dl[e >> 1]);
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+          float p = expf(fmaf(s[j][e], scale, -ls[e >> 1]));
+          if (need_mask &&
+              !(kpos < Skv && visible(wq0 + g + 8 * (e >> 1), kpos, causal, window)))
+            p = 0.f;
+          dp[j][e] = p * (dp[j][e] - dl[e >> 1]);
+        }
+    } else {
+      // The slab's first warp computes S and P, its second dP; they swap
+      // them through shared memory and each forms dS, the same bits in both.
+      float* xw = xs + slab * 2 * C::XT;  // the slab's P, then its dP
+      if (half == 0) {
+        scores<D, NS>(s, qw, kst);
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+            float p = expf(fmaf(s[j][e], scale, -ls[e >> 1]));
+            if (need_mask &&
+                !(kpos < Skv && visible(wq0 + g + 8 * (e >> 1), kpos, causal, window)))
+              p = 0.f;
+            s[j][e] = p;
+          }
+        put_tile<NS>(xw, s, lane);
+      } else {
+        scores<D, NS>(dp, dw, vst);
+        put_tile<NS>(xw + C::XT, dp, lane);
       }
+      pair_sync(slab);
+      if (half == 0)
+        get_tile<NS>(dp, xw + C::XT, lane);
+      else
+        get_tile<NS>(s, xw, lane);
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[j][e] = s[j][e] * (dp[j][e] - dl[e >> 1]);
+    }
     uint32_t dh[NS][4], dlo[NS][4];
     to_a<NS>(dp, dh, dlo);
-    accumulate<D, NS>(dqa, dh, dlo, kst + 2 * t * LD + g);  // dQ += dS K
+    accumulate<D, NS>(dqa, dh, dlo, kst + 2 * t * LD + col0 + g);  // dQ += dS K
   }
   cp_async_wait_all();
 
-  store_rows<D>(dq + (size_t)bh * Sq * D, dqa, row0, Sq, t, scale);
+  store_rows<D>(dq + (size_t)bh * Sq * D, dqa, row0, Sq, col0, t, scale);
 }
 
 // ---- host side -------------------------------------------------------------
@@ -541,7 +677,8 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
                    int q_offset, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   const long long rows = (long long)B * H * Sq;
-  const long long delta_blocks = (rows * (D / 4) + DELTA_THREADS - 1) / DELTA_THREADS;
+  constexpr int TPR = D / 4 < 32 ? D / 4 : 32;  // flash_bwd_delta's threads a row
+  const long long delta_blocks = (rows * TPR + DELTA_THREADS - 1) / DELTA_THREADS;
   const int q_tiles = (Sq + BR - 1) / BR, k_tiles = (Skv + BR - 1) / BR;
   if (delta_blocks > 0x7fffffffLL || q_tiles > 65535 || k_tiles > 65535)
     return cudaErrorInvalidValue;
@@ -557,11 +694,11 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   if (err != cudaSuccess) return err;
   // key tile on the slowest axis, tile 0 first: under a causal mask the
   // heaviest blocks start first and the light ones fill the last wave
-  flash_bwd_dkdv<D><<<dim3(B * KV, k_tiles), THREADS, C::SMEM_KV, stream>>>(
+  flash_bwd_dkdv<D><<<dim3(B * KV, k_tiles), C::THREADS, C::SMEM_KV, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, H, KV, Sq, Skv, causal, window, q_offset, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq<D><<<dim3(B * H, q_tiles), THREADS, C::SMEM_Q, stream>>>(
+  flash_bwd_dq<D><<<dim3(B * H, q_tiles), C::THREADS, C::SMEM_Q, stream>>>(
       q, k, v, dout, lse, delta, dq, H, KV, Sq, Skv, causal, window, q_offset, scale);
   return cudaGetLastError();
 }
@@ -581,6 +718,7 @@ extern "C" int flash_attention_bwd_smem_bytes(int D) {
     case 32: return smem_bytes<32>();
     case 64: return smem_bytes<64>();
     case 128: return smem_bytes<128>();
+    case 256: return smem_bytes<256>();
     default: return -1;
   }
 }
@@ -614,6 +752,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     case 32: return (int)launch<32>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
     case 64: return (int)launch<64>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
     case 128: return (int)launch<128>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 256: return (int)launch<256>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -16,17 +16,18 @@ what bounds it on the card and what its design does about it. Their plain
 version is ``repro_torch.kernels.ref.flash_attention_ref``.
 
 The backward has no TPU counterpart: the JAX package trains through
-autodiff of its jnp twin. It takes one of two routes too (``BWD_ROUTES``,
-head dims by route in ``BWD_HEAD_DIMS``):
+autodiff of its jnp twin. It takes one of two routes too (``BWD_ROUTES``),
+at the forward's head dims:
 
 - bf16 takes ``csrc/flash_attention_bwd_sm90.cu`` (head_dim 16 to 256): all
   seven products on wgmma, Q/K/V/dO tiles loaded by TMA into swizzled
   shared memory, a ring of streamed tiles on mbarriers; at head_dim 256 two
   consumer warpgroups split dK and dV by columns;
-- fp32 takes ``csrc/flash_attention_bwd.cu`` (head_dim 16 to 128): mma.sync
+- fp32 takes ``csrc/flash_attention_bwd.cu`` (head_dim 16 to 256): mma.sync
   on the tensor cores, each fp32 product as three TF32 products of split operands (P and
-  dS kept fp32), a two-stage cp.async ring of streamed tiles; the forward's
-  TF32 helpers are shared through ``csrc/tf32.cuh``.
+  dS kept fp32), a two-stage cp.async ring of streamed tiles; at head_dim
+  256 two warps share each 16-row slab, splitting dK, dV and dQ by columns;
+  the forward's TF32 helpers are shared through ``csrc/tf32.cuh``.
 
 Both are deterministic (the FlashAttention-2 split into a Δ pass, a dK/dV
 kernel and a dQ kernel, no atomics) and recompute the probabilities from
@@ -49,9 +50,7 @@ import torch
 
 from repro_torch.kernels import _build, cost
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
-# the backward's head dims by route (dtype)
-BWD_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128, 256), torch.float32: (16, 32, 64, 128)}
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the forward's and, on both routes, the backward's
 # dtype -> (source in csrc/, which is also its C entry points' prefix; route name)
 ROUTES = {torch.bfloat16: ("flash_attention_sm90", "cuda-wgmma"),
           torch.float32: ("flash_attention", "cuda-fp32")}
@@ -189,8 +188,8 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=0,
     16-byte aligned too, fp32 the split-TF32 one, whose cp.async loads need
     the same and whose launch fails with cudaErrorMisalignedAddress
     otherwise) and the forward's fp32 ``lse`` (B, H, Sq). head_dim 16 to
-    256 in bf16, 16 to 128 in fp32 (``BWD_HEAD_DIMS``). Two launches on the
-    same inputs give the same bits."""
+    256 on both routes. Two launches on the same inputs give the same
+    bits."""
     dq, dk, dv, delta = _bwd_outputs(q, k, v, o, do, lse, window, q_offset, "cuda")
     b, h, sq, d = q.shape
     n_kv, skv = k.shape[1], k.shape[2]
@@ -226,12 +225,7 @@ def _bwd_outputs(q, k, v, o, do, lse, window, q_offset, device):
     """The backward's checks on ``device``'s tensors, and its outputs and
     scratch, allocated: (dq, dk, dv, the fp32 Δ)."""
     _check(q, k, v, device)
-    b, h, sq, d = q.shape
-    if d not in BWD_HEAD_DIMS[q.dtype]:
-        raise NotImplementedError(
-            f"flash_attention_bwd_cuda: head_dim {d} not in {BWD_HEAD_DIMS[q.dtype]} on the "
-            f"{q.dtype} route; the fp32 backward at head_dim 256 is ROADMAP B.3 "
-            "(recurrentgemma, the arch with head_dim 256, trains in bf16)")
+    b, h, sq, _ = q.shape
     if window < 0 or q_offset < 0:
         raise ValueError("flash_attention_bwd_cuda: window and q_offset must be >= 0")
     for name, t in (("o", o), ("do", do)):

@@ -21,8 +21,8 @@ from repro.kernels.ops import rglru_scan as jax_rglru_scan
 from repro.nn.attention import flash_attention as jax_chunked_twin
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import (
-    BWD_HEAD_DIMS,
     BWD_ROUTES,
+    HEAD_DIMS,
     ROUTES,
     bwd_smem_bytes,
     flash_attention_bwd_cuda,
@@ -176,6 +176,37 @@ def test_dispatcher_force_kernel_on_cpu_raises():
     with pytest.raises(ValueError, match="force"):
         ops.flash_attention(q, k, v, force="interpret")
     assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("d,dtype", [(256, torch.float32), (256, torch.bfloat16),
+                                     (128, torch.float32)])
+def test_bwd_meta_route_takes_every_head_dim_on_both_routes(d, dtype):
+    """The backward's shape function on meta tensors (the dry-run's) takes
+    head_dim 256 on the fp32 route as on the bf16 one: (dq, dk, dv) shaped
+    and typed as q, k, v on meta, no launch, and one kernel call reported
+    with its cost: 10·D FLOP a kept (query, key) pair and head, each input
+    and output once (q, k, v, o, do, the fp32 lse, dq, dk, dv and the fp32
+    Δ scratch)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_meta
+    from repro_torch.launch.op_cost import OpCost
+
+    b, h, kv, sq, skv, window, q_offset = 2, 10, 1, 100, 300, 96, 200
+    q, o, do = (torch.empty((b, h, sq, d), dtype=dtype, device="meta") for _ in range(3))
+    k, v = (torch.empty((b, kv, skv, d), dtype=dtype, device="meta") for _ in range(2))
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device="meta")
+    before = ops.launch_counts()
+    counter = OpCost()
+    with counter:
+        dq, dk, dv = flash_attention_bwd_meta(q, k, v, o, do, lse, causal=True, window=window,
+                                              q_offset=q_offset)
+    assert ops.launch_counts() == before
+    for got, like in ((dq, q), (dk, k), (dv, v)):
+        assert got.device.type == "meta" and got.shape == like.shape and got.dtype == dtype
+    pairs = chip_smoke.unmasked_pairs(sq, skv, True, window, q_offset)
+    isz = torch.empty((), dtype=dtype).element_size()
+    assert counter.kernels["flash_attention_bwd"] == {
+        "calls": 1, "flops": 10 * d * pairs * b * h,
+        "bytes": (4 * b * h * sq * d + 4 * b * kv * skv * d) * isz + 2 * 4 * b * h * sq}
 
 
 def test_reset_launch_counts():
@@ -351,11 +382,63 @@ def _tf32_backward(q, k, v, o, do, lse, *, causal, window, q_offset=0, products=
                            causal=causal, window=window, q_offset=q_offset)
 
 
+def _tf32_backward_d256(q, k, v, o, do, lse, *, causal, window, q_offset=0):
+    """A model of the fp32 route's order of sums at head_dim 256 (Cfg::SPLIT
+    = 2): S, dP, P and dS as ``_tf32_backward`` (each score product over all
+    of D in one sum, as the slab's two warps compute and swap them); dV and
+    dK summed head by head of the group, then 16-query tile by tile, and dQ
+    16-key tile by tile, each tile's product (three TF32 products) added
+    into fp32 sums in that order, each 128-column half of an output (one
+    warp's) apart. Returns fp32 (dq, dk, dv)."""
+    b, h, sq, d = q.shape
+    n_kv, skv = k.shape[1], k.shape[2]
+    g, scale, tile, half = h // n_kv, d ** -0.5, 16, d // 2
+    qg, og, dog = (t.reshape(b, n_kv, g, sq, d).float() for t in (q, o, do))
+    kf, vf = k.float(), v.float()
+    q_pos = q_offset + torch.arange(sq)
+    k_pos = torch.arange(skv)
+    keep = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        keep &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        keep &= q_pos[:, None] - k_pos[None, :] < window
+    s = _tf32_product("bkgsd,bkcd->bkgsc", qg, kf, 3)
+    p = torch.exp(s * scale - lse.reshape(b, n_kv, g, sq, 1)) * keep
+    delta = (dog * og).sum(-1, keepdim=True)
+    ds = p * (_tf32_product("bkgsd,bkcd->bkgsc", dog, vf, 3) - delta)
+
+    def tiled(eq, x, y, n, axis_x, axis_y):
+        """sum over tiles of ``n`` rows (x's axis_x, y's axis_y) of x.y, a
+        column half of y at a time."""
+        halves = []
+        for c0 in range(0, d, half):
+            acc = None
+            for r0 in range(0, n, tile):
+                part = _tf32_product(eq, x.narrow(axis_x, r0, min(tile, n - r0)),
+                                     y[..., c0:c0 + half].narrow(axis_y, r0, min(tile, n - r0)), 3)
+                acc = part if acc is None else acc + part
+            halves.append(acc)
+        return torch.cat(halves, -1)
+
+    dv = dk = None
+    for j in range(g):  # the group's heads in order, each walking its query tiles
+        pv = tiled("bksc,bksd->bkcd", p[:, :, j], dog[:, :, j], sq, 2, 2)
+        pk = tiled("bksc,bksd->bkcd", ds[:, :, j], qg[:, :, j], sq, 2, 2)
+        dv, dk = (pv, pk) if dv is None else (dv + pv, dk + pk)
+    dq = tiled("bkgsc,bkcd->bkgsd", ds, kf, skv, 4, 2)
+    return (dq * scale).reshape(b, h, sq, d), dk * scale, dv
+
+
 # chip_smoke.BWD_CASES at a quarter of their lengths, windows and offsets
-# (still ragged: 250, 75, 25), so the CPU runs them in seconds
+# (still ragged: 250, 75, 25), so the CPU runs them in seconds; head_dim 256
+# (chip_smoke.BWD_CASES_D256, quartered too) on the fp32 route, modelled in
+# its own order of sums
 BWD_MODEL_CASES = [(b, h, kv, sq // 4, skv // 4, d, causal, window // 4, q_offset // 4)
                    for b, h, kv, sq, skv, d, causal, window, q_offset
                    in chip_smoke.BWD_CASES]
+BWD_MODEL_CASES_D256 = [(b, h, kv, sq // 4, skv // 4, d, causal, window // 4, q_offset // 4)
+                        for b, h, kv, sq, skv, d, causal, window, q_offset
+                        in chip_smoke.BWD_CASES_D256]
 
 
 def _bwd_inputs(b, h, kv, sq, skv, d, seed=5):
@@ -404,7 +487,8 @@ def test_bf16_backward_rounding_holds_bf16_tolerance(b, h, kv, sq, skv, d, causa
         assert err <= tol * scale, (name, err, scale)
 
 
-@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal,window,q_offset", BWD_MODEL_CASES)
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal,window,q_offset",
+                         BWD_MODEL_CASES + BWD_MODEL_CASES_D256)
 @pytest.mark.parametrize("against", ["plain backward", "jax.vjp of the reference twin"])
 def test_split_tf32_backward_holds_fp32_tolerance(b, h, kv, sq, skv, d, causal, window,
                                                   q_offset, against):
@@ -412,11 +496,15 @@ def test_split_tf32_backward_holds_fp32_tolerance(b, h, kv, sq, skv, d, causal, 
     kept fp32 and split, stay within half of chip_smoke's fp32 backward
     tolerance of the plain backward, relative to each gradient's largest
     magnitude, and within 2e-5 of autodiff of the reference model's chunked
-    twin in fp32: why the fp32 backward may run on the tensor cores."""
+    twin in fp32: why the fp32 backward may run on the tensor cores. At
+    head_dim 256 the model keeps the route's order of sums there
+    (``_tf32_backward_d256``: tile by tile, each warp's half of the columns
+    apart)."""
     tol = chip_smoke.BWD_TOL[torch.float32] / 2 if against == "plain backward" else 2e-5
     case = (b, h, kv, sq, skv, d, causal, window, q_offset)
+    model = _tf32_backward_d256 if d == 256 else _tf32_backward
     for name, (err, scale) in zip(("dq", "dk", "dv"),
-                                  _model_errors(_tf32_backward, "float32", case, against)):
+                                  _model_errors(model, "float32", case, against)):
         assert err <= tol * scale, (name, err, scale)
 
 
@@ -578,10 +666,12 @@ def test_rglru_kernel_matches_plain_on_card():
 # --------------------------------------------------------------------------
 
 # (B, H, KV, Sq, Skv, D, causal, window, q_offset): GQA, MQA, MHA; causal,
-# window, bidirectional; a suffix q; head_dim 16 to 128; smollm's shape
+# window, bidirectional; a suffix q; head_dim 16 to 256 (recurrentgemma's MQA
+# with a window, ragged); smollm's shape
 BWD_CARD_CASES = [(2, 4, 2, 256, 256, 64, True, 0, 0), (1, 8, 8, 128, 128, 128, True, 0, 0),
                   (2, 4, 1, 200, 200, 32, True, 64, 0), (1, 2, 2, 130, 130, 16, False, 0, 0),
-                  (2, 6, 2, 100, 300, 64, True, 96, 200), (8, 15, 5, 512, 512, 64, True, 0, 0)]
+                  (2, 6, 2, 100, 300, 64, True, 96, 200), (8, 15, 5, 512, 512, 64, True, 0, 0),
+                  (2, 10, 1, 200, 200, 256, True, 96, 0)]
 
 
 def _card():
@@ -741,7 +831,7 @@ def test_flash_bwd_shared_memory_fits_a_block_at_every_head_dim():
     bytes) a block may use, at every head dim the backward takes."""
     _card()
     for dtype in BWD_ROUTES:
-        for d in BWD_HEAD_DIMS[dtype]:
+        for d in HEAD_DIMS:
             assert 0 < bwd_smem_bytes(d, dtype) <= 232_448, (dtype, d)
 
 
@@ -793,12 +883,17 @@ def test_checkpoint_recompute_reproduces_the_forward_on_card(monkeypatch):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    # head_dim 256 (recurrentgemma's): bf16 has a backward, fp32 raises
+    # head_dim 256 (recurrentgemma's): both routes have a backward; the fp32
+    # one's gradients within 2e-5 of the plain backward's largest magnitude
     d256 = [torch.randn((1, 2, 8, 256), device="cuda").to(torch.bfloat16).requires_grad_(True)
             for _ in range(3)]
     ops.flash_attention(*d256).float().sum().backward()
     assert all(t.grad is not None and bool(torch.isfinite(t.grad.float()).all()) for t in d256)
-    with pytest.raises(NotImplementedError, match="B.3"):
-        d256 = [torch.randn((1, 2, 8, 256), device="cuda", requires_grad=True)
-                for _ in range(3)]
-        ops.flash_attention(*d256).sum().backward()
+    q, k, v = (torch.randn((1, 2, 8, 256), device="cuda") for _ in range(3))
+    d256 = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = ops.launch_counts()["flash_attention_bwd"]
+    ops.flash_attention(*d256).sum().backward()
+    assert ops.launch_counts()["flash_attention_bwd"] - before == 1
+    o, lse = ref.flash_attention_ref(q, k, v, return_lse=True)
+    for t, want in zip(d256, ref.flash_attention_bwd_ref(q, k, v, o, torch.ones_like(o), lse)):
+        assert (t.grad - want).abs().max().item() <= 2e-5 * max(want.abs().max().item(), 1.0)

@@ -23,9 +23,13 @@ issue agree in number and string.
 Then real jobs through the port's platform: smollm-360m's tiny config on
 ``device="cpu"`` crashed at step 30 of 60 resumes to the uninterrupted
 job's final state bit for bit, which is also the state of the same job run
-through the reference's platform with the port's learner; and a real job
-on a platform whose device is the default (the card) fails where there is
-no card, without training on the CPU.
+through the reference's platform with the port's learner; a real job on a
+platform whose device is the default (the card) fails where there is no
+card, without training on the CPU; and recurrentgemma-2b's tiny config in
+fp32 at head_dim 256 (a manifest's config overrides,
+``chip_smoke.FP32_JOB``) through each package's platform and learner, from
+the reference's initial weights, ends on the same status history and
+per-tick losses within 1e-5.
 """
 
 import dataclasses
@@ -33,10 +37,14 @@ import enum
 import json
 from types import SimpleNamespace
 
+import jax
+import numpy as np
 import pytest
 import torch
 
 from _torch_mirror import one_thread  # noqa: F401 (a fixture)
+
+import chip_smoke
 
 import repro.api as rapi
 import repro.core as rcore
@@ -47,10 +55,14 @@ from repro.core import kvstore as rkv
 from repro.core import metastore as rmeta
 from repro.core import scheduler as rsched
 from repro.core import types as rtypes
+from repro.configs import base as rbase
+from repro.models import steps as jsteps
+from repro.utils import tree_flatten_with_paths as jflatten
 
 import repro_torch.api as tapi
 import repro_torch.core as tcore
 from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.convert import train_state_from_numpy
 from repro_torch.core import bsa as tbsa
 from repro_torch.core import cluster as tcluster
 from repro_torch.core import executor as texecutor
@@ -60,6 +72,7 @@ from repro_torch.core import metastore as tmeta
 from repro_torch.core import scheduler as tsched
 from repro_torch.core import types as ttypes
 from repro_torch.data.objectstore import MountedBucket, ObjectStore
+from repro_torch.models import steps as tsteps
 
 
 def _ns(api, core, meta, types, kv, cluster, sched, bsa, **platform_kw):
@@ -633,3 +646,54 @@ def test_real_job_without_a_card_fails_and_never_trains(monkeypatch):
     assert learners and all(isinstance(lr, texecutor.TorchLearner) and lr.step == 0
                             and not lr.loss_history for lr in learners)
     assert not p.objstore.list("results")
+
+
+def reference_init(cfg, seed, device="cpu"):
+    """The reference's ``init_train_state`` of the port's config and seed,
+    as a port train state."""
+    jcfg = rbase.ModelConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+    state = jsteps.init_train_state(jcfg, jax.random.key(seed))
+    return train_state_from_numpy({p: np.asarray(x) for p, x in jflatten(state)}, cfg, device)
+
+
+def run_fp32_job(ns, guardian_module, monkeypatch):
+    """chip_smoke.FP32_JOB (recurrentgemma-2b, tiny, fp32, head_dim 256, 20
+    steps, a checkpoint at step 10) through ``ns``'s platform and its own
+    learner: (status, status history, the learner's per-tick losses, the
+    final checkpoint's step)."""
+    learners = []
+    make = guardian_module.make_learner
+
+    def spy(ctx):
+        learners.append(make(ctx))
+        return learners[-1]
+
+    monkeypatch.setattr(guardian_module, "make_learner", spy)
+    p = ns.FfDLPlatform(n_hosts=2, chips_per_host=4, **ns.platform_kw)
+    c = ns.ApiClient.for_platform(p)
+    j = c.submit(ns.JobManifest(name="fp32", arch="recurrentgemma-2b", n_learners=1,
+                                chips_per_learner=2,
+                                checkpoint_interval=chip_smoke.FP32_JOB_CKPT,
+                                train=chip_smoke.FP32_JOB))
+    assert p.run_until_terminal([j], max_sim_s=5000)
+    (learner,) = learners
+    return (c.status(j), [s[1] for s in c.status_history(j)], learner.loss_history,
+            learner.step)
+
+
+def test_fp32_head_dim_256_job_holds_to_the_reference_platform(one_thread, monkeypatch):
+    """The fp32 job at head_dim 256 (the manifest phase 8 of chip_smoke.py
+    runs on the card) on the CPU: the reference's platform with the
+    reference's learner (JAX) and the port's with ``TorchLearner``, both
+    from the reference's initial weights (the port's init draws other
+    numbers): both COMPLETED after 20 steps with equal status histories,
+    their per-tick losses at the same steps and within 1e-5 (relative)."""
+    monkeypatch.setattr(tsteps, "init_train_state", reference_init)
+    ref_status, ref_hist, ref_losses, ref_step = run_fp32_job(REF, rguardian, monkeypatch)
+    status, hist, losses, step = run_fp32_job(PORT, tguardian, monkeypatch)
+    assert ref_status == rcore.JobStatus.COMPLETED and status == tcore.JobStatus.COMPLETED
+    assert ref_step == step == chip_smoke.FP32_JOB["steps"]
+    assert hist == ref_hist and "STORING" in hist
+    assert [s for s, _ in losses] == [s for s, _ in ref_losses] == [4, 9, 14, 19]
+    for (_, got), (_, want) in zip(losses, ref_losses):
+        assert abs(got - want) <= 1e-5 * abs(want), (losses, ref_losses)

@@ -460,6 +460,42 @@ def test_loss_and_grads_match_jax(jax_loss_grads, remat):
                                    err_msg=path)
 
 
+@pytest.fixture(scope="module")
+def jax_loss_grads_d256():
+    """As ``jax_loss_grads``, for the tiny config at head_dim 256 (the
+    fp32 job manifest's overrides, chip_smoke.FP32_JOB): the reference's
+    loss and gradients of one fp32 train step, on a batch that crosses the
+    32-token window."""
+    jcfg, _ = _cfgs(dtype="float32", head_dim=256)
+    jparams = _true_fan_in(jsteps.init_params(jcfg, jax.random.key(3)), jcfg)
+    batch = _batch(8, s=40)
+    (loss, parts), grads = jax.jit(jax.value_and_grad(
+        lambda p, b: jsteps.loss_fn(p, b, jcfg), has_aux=True))(
+            jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    return _np_tree(jparams), batch, float(loss), float(parts["ce"]), _np_tree(grads)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_head_dim_256_fp32_loss_and_grads_match_jax(jax_loss_grads_d256, remat):
+    """fp32 tiny recurrentgemma at head_dim 256 (225,792 params; the path
+    of the fp32 flash backward at head_dim 256 and the scan's backward on
+    the card): the loss and every gradient leaf within 1e-5 of
+    jax.value_and_grad of the reference's loss_fn, from the reference's
+    weights carried by ``convert.params_from_numpy``."""
+    flat, batch, jloss, jce, jgrads = jax_loss_grads_d256
+    _, cfg = _cfgs(dtype="float32", head_dim=256, remat=remat)
+    assert cfg.param_count() == 225_792
+    loss, parts, grads = _port_loss_grads(cfg, flat, batch)
+    np.testing.assert_allclose(loss.item(), jloss, rtol=1e-5)
+    np.testing.assert_allclose(parts["ce"].item(), jce, rtol=1e-5)
+    assert set(grads) == set(jgrads)
+    assert any(p.endswith("attn/wq") and grads[p].shape[-1] == 256 for p in grads)
+    for path, g in grads.items():
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), jgrads[path], atol=1e-5, rtol=1e-5,
+                                   err_msg=path)
+
+
 def test_remat_does_not_change_gradients():
     """remat none, full and dots give bit-identical gradients in the port's
     hybrid list layout (bf16, the training dtype): the recompute repeats
