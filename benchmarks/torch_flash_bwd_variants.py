@@ -17,8 +17,12 @@ fragments by 4-byte loads instead of ``ldmatrix`` (``lds32``), and dV, dK
 and dQ summed in their long-running mma accumulators instead of a fresh
 accumulator a tile (``longacc``), and at D = 256 both warps of a slab
 computing both score tiles instead of one each, swapped through shared
-memory (``redundant``). Named variants after the route run those alone,
-beside ``base``. All are
+memory (``redundant``). On both routes ``nosplit`` is ``base`` with the
+dK/dV walk unsplit at every shape (P = 1, one dK/dV block a key tile: the
+grid before the split), where ``base`` runs the planner's P
+(``flash_attention.bwd_plan``, printed), and ``p2``, ``p3`` and ``p6`` are
+``base`` at that P forced (skipped where a walk is shorter). Named variants
+after the route run those alone, beside ``base``. All are
 built at once by nvcc into ``build/kernels/variants/``, launched through the
 port's wrapper at the route's timed shapes (``chip_smoke.BWD_MAIN`` for
 bf16, ``chip_smoke.BWD_FP32`` for fp32: smollm's D64 and recurrentgemma's
@@ -57,7 +61,7 @@ KVBN128 = ("static constexpr int KV_BN = D <= 64 ? 64 : 32;",
            "static constexpr int KV_BN = D <= 64 ? 128 : 32;")
 FOLD2 = ("static constexpr int FOLD = 4 < DT ? 4 : DT;",
          "static constexpr int FOLD = 2 < DT ? 2 : DT;")
-MB3 = ("static constexpr int MIN_BLOCKS = SPLIT == 1 ? 2 : 1;",
+MB3 = ("static constexpr int MIN_BLOCKS = D == 16 ? 3 : SPLIT == 1 ? 2 : 1;",
        "static constexpr int MIN_BLOCKS = D <= 64 ? 3 : SPLIT == 1 ? 2 : 1;")
 BS16 = ("static constexpr int BS = D <= 64 ? 32 : 16;", "static constexpr int BS = 16;")
 # the score products' K-major fragments by 4-byte loads, as before ldmatrix
@@ -100,15 +104,18 @@ REDUNDANT_KV = ("""    if constexpr (C::SPLIT == 1) {
 REDUNDANT_Q = ("""    if constexpr (C::SPLIT == 1) {
       scores<D, NS>(s, qw, kst);""", """    if constexpr (true) {
       scores<D, NS>(s, qw, kst);""")
+# variants launched with the dK/dV walk's split forced (P = 1: unsplit)
+FORCED = {"nosplit": 1, "p2": 2, "p3": 3, "p6": 6}
 # route -> (dtype, source, {variant: edits}, {label: (B, H, KV, S, D, causal)} timed)
 ROUTES = {
     "bf16": (torch.bfloat16, "flash_attention_bwd_sm90",
-             {"base": (), "st3": (STAGES3,), "qbn128": (QBN128,),
+             {"base": (), **dict.fromkeys(FORCED, ()), "st3": (STAGES3,), "qbn128": (QBN128,),
               "st3_qbn128": (STAGES3, QBN128), "kvbn128": (KVBN128,),
               "kvbn128_qbn128": (KVBN128, QBN128)},
              chip_smoke.BWD_MAIN),
     "fp32": (torch.float32, "flash_attention_bwd",
-             {"base": (), "fold2": (FOLD2,), "mb3": (MB3,), "fold2_mb3": (FOLD2, MB3),
+             {"base": (), **dict.fromkeys(FORCED, ()), "fold2": (FOLD2,), "mb3": (MB3,),
+              "fold2_mb3": (FOLD2, MB3),
               "bs16": (BS16,), "bs16_mb3": (BS16, MB3), "lds32": (LDS32_ADDR, LDS32_LOADS),
               "longacc": (LONGACC, LONGACC_FOLD), "redundant": (REDUNDANT_KV, REDUNDANT_Q)},
              {label: chip_smoke.BWD_MAIN[label] for label in chip_smoke.BWD_FP32}),
@@ -151,7 +158,7 @@ def entry_point(lib: Path, source: str):
     """The variant's C entry point, typed as the wrapper types the shipped one."""
     fn = getattr(ctypes.CDLL(str(lib)), source)
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -170,10 +177,12 @@ def main(argv) -> int:
         variants = {name: variants[name] for name in ("base", *argv[1:])}
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"card: {chip_smoke.card_line()}; route {route}: {source}.cu")
-    built = build_variants(source, variants)
+    # the forced splits launch base's library
+    built = build_variants(source, {n: e for n, e in variants.items() if n not in FORCED})
     for name, (_, problems) in built.items():
         print(f"{name}: ptxas spills / serialized wgmma: {problems or 'none'}")
-    fns = {name: entry_point(lib, source) for name, (lib, _) in built.items()}
+    fns = {name: entry_point(built[name if name in built else "base"][0], source)
+           for name in variants}
     shipped = fa._bwd
     gen = torch.Generator(device="cuda").manual_seed(2)
     try:
@@ -182,17 +191,24 @@ def main(argv) -> int:
             o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, causal=causal)
             want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal)
             grads, times = {}, {name: [] for name in fns}
+            split = {name: FORCED.get(name) for name in fns}
             for name, fn in fns.items():
                 fa._bwd = lambda dtype, fn=fn: fn
-                grads[name] = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal)
+                try:
+                    grads[name] = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                                              split=split[name])
+                except ValueError as e:  # a forced P past this shape's walks
+                    print(f"{label} {name}: skipped ({e})")
             iters = 10 if s > 1024 or dtype == torch.float32 else 50
-            for order in (list(fns), list(reversed(fns))):
+            for order in (list(grads), list(reversed(grads))):
                 for name in order:
                     fa._bwd = lambda dtype, fn=fns[name]: fn
                     times[name].append(chip_smoke.device_ms(
-                        lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal),
+                        lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                                            split=split[name]),
                         iters=iters))
-            for name in fns:
+            print(f"{label}: planned P={fa.bwd_plan(q, k, causal=causal)}")
+            for name in grads:
                 same = all(torch.equal(a, g) for a, g in zip(grads[name], grads["base"]))
                 rel = max((g.float() - w.float()).abs().max().item()
                           / w.float().abs().max().item() for g, w in zip(grads[name], want))
@@ -209,13 +225,18 @@ def main(argv) -> int:
                           ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)))
         for name, fn in fns.items():
             fa._bwd = lambda dtype, fn=fn: fn
-            rels = [max((g.float() - w.float()).abs().max().item()
-                        / w.float().abs().max().item()
-                        for g, w in zip(fa.flash_attention_bwd_cuda(*args, **kw), want))
-                    for args, kw, want in cases]
+            rels = []
+            for args, kw, want in cases:
+                try:
+                    got = fa.flash_attention_bwd_cuda(*args, split=FORCED.get(name), **kw)
+                except ValueError:  # a forced P past this case's walks
+                    rels.append("n/a")
+                    continue
+                rel = max((g.float() - w.float()).abs().max().item()
+                          / w.float().abs().max().item() for g, w in zip(got, want))
+                rels.append(f"{rel:.2e}")
             print(f"{name}: max_abs_err/max|grad| against plain on chip_smoke.BWD_CASES + "
-                  "BWD_CASES_D256 "
-                  f"{', '.join(f'{r:.2e}' for r in rels)}")
+                  f"BWD_CASES_D256 {', '.join(rels)}")
     finally:
         fa._bwd = shipped
     return 0

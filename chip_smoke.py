@@ -361,9 +361,13 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     BWD_ROUTES,
     HEAD_DIMS,
     ROUTES,
+    bwd_plan,
     bwd_smem_bytes,
+    card_slots,
+    dkdv_walks,
     flash_attention_bwd_cuda,
     flash_attention_cuda,
+    meta_slots,
     smem_bytes,
 )
 from repro_torch.kernels.rglru import bwd_smem_bytes as scan_bwd_smem_bytes  # noqa: E402
@@ -563,8 +567,8 @@ BWD_MAIN = {"smollm train B8 S512": (8, 15, 5, 512, 64, True),
             "whisper dec train B8 S448": (8, 6, 6, 448, 64, True)}
 BWD_FP32 = ("smollm train B8 S512", "recurrentgemma train B8 S512")
 # The backward's kernels by their names in the sources (the profiler's names
-# carry template arguments): flash_bwd_{delta,dkdv,dq}, with _sm90 on the
-# bf16 route
+# carry template arguments): flash_bwd_{delta,dkdv,dq}, and flash_bwd_reduce
+# where the dK/dV walk is split (P > 1), with _sm90 on the bf16 route
 SPLIT_SESSIONS = 3  # profiler sessions for a complete split of the backward
 BWD_KERNEL = re.compile(r"flash_bwd_[a-z0-9]+(?:_sm90)?")
 # Full-width training: B x S tokens a step, the steps of each run, and the
@@ -974,6 +978,21 @@ def grad_inputs(gen, b, h, kv, sq, skv, d, dtype):
     return q, k, v, randn(gen, (b, h, sq, d), dtype)
 
 
+def bwd_kernels(dtype, split) -> set:
+    """The backward's kernels a call at the dK/dV walk's split ``split``."""
+    tail = "_sm90" if dtype == torch.bfloat16 else ""
+    return {f"flash_bwd_{n}{tail}" for n in ("delta", "dkdv", "dq")
+            + (("reduce",) if split > 1 else ())}
+
+
+def uneven_split(h, kv, steps) -> int:
+    """A forced split that cuts a walk of the group's G heads unevenly (3,
+    or the least of 2, 4, 5 that G is not a multiple of), at most the
+    heaviest walk's steps."""
+    g = h // kv
+    return min(next(p for p in (3, 2, 4, 5) if g % p), max(1, *steps))
+
+
 def device_split(fn, iters=10, replays=3) -> tuple[dict, dict]:
     """Device time of one call of ``fn`` by kernel, from the profiler:
     ``iters`` calls captured in a CUDA graph and replayed ``replays`` times
@@ -1023,39 +1042,63 @@ def device_split(fn, iters=10, replays=3) -> tuple[dict, dict]:
 
 def phase_flash_bwd(failures):
     """The attention backward kernel against its plain version (given the
-    same o and lse) on both routes, head_dim 16 to 256, the forward's lse
-    against the plain forward's, two launches bit-equal; a misaligned bf16
-    view raises. Then times at the train paths' shapes (smollm's D64,
-    recurrentgemma's D256) beside SDPA's backward, split by kernel, and the
-    fp32 route's at smollm's and recurrentgemma's S512.
+    same o and lse) on both routes, head_dim 16 to 256, each case with the
+    dK/dV walk unsplit (P = 1), split unevenly and split as planned, the
+    forward's lse against the plain forward's, two launches bit-equal; a
+    misaligned bf16 view raises. Then times at the train paths' shapes
+    (smollm's D64, recurrentgemma's D256, ...) at the planner's P beside
+    SDPA's backward, split by kernel, and the fp32 route's at smollm's and
+    recurrentgemma's S512.
     Returns ({dtype: {label: timed row}}, {dtype: worst max_abs_err})."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {dtype: {"abs": 0.0, "rel": 0.0} for dtype in BWD_ROUTES}
+    # the planner's slots are the card's; the meta route (the dry-run's)
+    # plans for an H100's, and must plan the same splits here
+    for dtype, (source, _) in BWD_ROUTES.items():
+        slots = {d: (card_slots(dtype, d, torch.cuda.current_device()), meta_slots(d, dtype))
+                 for d in HEAD_DIMS}
+        print(f"  {source} dK/dV slots (card's SMs x blocks a SM, occupancy calculator; the "
+              f"meta route's): " + ", ".join(f"D={d}: {c} ({m})" for d, (c, m) in slots.items()))
+        if any(c != m for c, m in slots.values()):
+            failures.append(f"{source}: the card's dK/dV slots {slots} differ from the meta "
+                            "route's, whose workspace then differs from the card's")
 
     def check(label, q, k, v, do, **kw):
+        """The case at P = 1, an uneven forced P and the planner's P."""
+        kw = {"causal": True, "window": 0, "q_offset": 0, **kw}
         o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
         _, want_lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
-        got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
-        again = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
         want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
-        torch.cuda.synchronize()
         lse_err, lse_ok = max_err(lse, want_lse, LSE_TOL)
-        err = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
-        rel = [e / max(w.float().abs().max().item(), 1e-30) for e, w in zip(err, want)]
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        ok = lse_ok and max(rel) <= BWD_TOL[q.dtype] and same and \
-            all(g.dtype == q.dtype for g in got)
-        w = worst[q.dtype]
-        w["abs"], w["rel"] = max(w["abs"], *err), max(w["rel"], *rel)
-        print(f"case flash_bwd {label} [{BWD_ROUTES[q.dtype][1]}]: dq/dk/dv max_abs_err "
-              f"{err[0]:.2e}/{err[1]:.2e}/{err[2]:.2e}, over max|grad| {rel[0]:.2e}/"
-              f"{rel[1]:.2e}/{rel[2]:.2e} tol={BWD_TOL[q.dtype]:g}, lse "
-              f"max_abs_err={lse_err:.2e} tol={LSE_TOL:g}, two launches "
-              f"{'equal bit for bit' if same else 'DIFFER'} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(f"flash_attention_bwd {label}: relative errors {rel}, lse "
-                            f"{lse_err:.2e}, bit-equal {same}")
-        return max(err)
+        b, h, sq, d = q.shape
+        steps = dkdv_walks(h, k.shape[1], sq, k.shape[2], d, q.dtype, bool(kw["causal"]),
+                           kw["window"], kw["q_offset"])
+        planned = bwd_plan(q, k, **kw)
+        worst_err = 0.0
+        for split in dict.fromkeys((1, uneven_split(h, k.shape[1], steps), planned)):
+            got = flash_attention_bwd_cuda(q, k, v, o, do, lse, split=split, **kw)
+            again = flash_attention_bwd_cuda(q, k, v, o, do, lse, split=split, **kw)
+            torch.cuda.synchronize()
+            err = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+            rel = [e / max(w.float().abs().max().item(), 1e-30) for e, w in zip(err, want)]
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            ok = lse_ok and max(rel) <= BWD_TOL[q.dtype] and same and \
+                all(g.dtype == q.dtype for g in got)
+            w = worst[q.dtype]
+            w["abs"], w["rel"] = max(w["abs"], *err), max(w["rel"], *rel)
+            which = "planned" if split == planned else "forced"
+            print(f"case flash_bwd {label} P={split} ({which}) [{BWD_ROUTES[q.dtype][1]}]: "
+                  f"dq/dk/dv max_abs_err {err[0]:.2e}/{err[1]:.2e}/{err[2]:.2e}, over "
+                  f"max|grad| {rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e} "
+                  f"tol={BWD_TOL[q.dtype]:g}, lse max_abs_err={lse_err:.2e} tol={LSE_TOL:g}, "
+                  f"two launches {'equal bit for bit' if same else 'DIFFER'} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"flash_attention_bwd {label} P={split}: relative errors "
+                                f"{rel}, lse {lse_err:.2e}, bit-equal {same}")
+            if split == planned:
+                worst_err = max(err)
+        return worst_err
 
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).split(".")[-1]
@@ -1106,24 +1149,27 @@ def phase_flash_bwd(failures):
                "sdpa_fwd_bwd_ms": device_ms(sdpa_fwd_bwd, iters=iters),
                **attention_bwd_bound(b, h, kv, s, d, causal, 0, dtype)}
         row["library_ms"] = row["sdpa_fwd_bwd_ms"] - row["sdpa_fwd_ms"]
+        row["split"] = bwd_plan(q, k, causal=causal)
         # Kineto now and then drops kernel records inside a session too
-        # (ROADMAP C.12): a session in which each of the 3 kernels shows up
-        # and none more than once a call, but some less, lost records and is
-        # taken again, up to SPLIT_SESSIONS. A kernel missing from a session
-        # or seen more than once a call fails at once. Every session's
-        # counts go into the kernels line.
+        # (ROADMAP C.12): a session in which each of the call's kernels
+        # (bwd_kernels: 3, or 4 with the split's reduction) shows up and none
+        # more than once a call, but some less, lost records and is taken
+        # again, up to SPLIT_SESSIONS. A kernel missing from a session, one
+        # that is not the call's, or one seen more than once a call fails at
+        # once. Every session's counts go into the kernels line.
+        want_kernels = bwd_kernels(dtype, row["split"])
         row["split_sessions"] = []
         for _ in range(SPLIT_SESSIONS):
             row["kernel_split_ms"], runs = device_split(kernel)
             row["split_sessions"].append(runs)
-            if len(runs) != 3 or max(runs.values()) > 1 or min(runs.values()) == 1:
+            if set(runs) != want_kernels or max(runs.values()) > 1 or min(runs.values()) == 1:
                 break
-        if len(runs) != 3 or set(runs.values()) != {1}:
+        if set(runs) != want_kernels or set(runs.values()) != {1}:
             failures.append(f"flash_attention_bwd {label}: the profiler saw "
                             f"{row['split_sessions']} executions of each kernel a call, "
-                            "session by session, want 3 kernels once each")
+                            f"session by session, want {sorted(want_kernels)} once each")
         ops_kind = "split-TF32 " if "cuda_core_bound_ms" in row else ""
-        print(f"flash_bwd {label} ({row['shape']}, {BWD_ROUTES[dtype][0]}): kernel "
+        print(f"flash_bwd {label} P={row['split']} ({row['shape']}, {BWD_ROUTES[dtype][0]}): kernel "
               f"{row['ms']:.4f} ms (eager {row['eager_ms']:.4f}), plain {row['plain_ms']:.4f} "
               f"ms, sdpa backward {row['library_ms']:.4f} ms (fwd+bwd "
               f"{row['sdpa_fwd_bwd_ms']:.4f} - fwd {row['sdpa_fwd_ms']:.4f}), {ops_kind}bound "
@@ -3941,7 +3987,7 @@ def kernel_entry(name, source, replaces, launches, timings, primary, worst):
     extra = ("eager_ms", "eager_library_ms", "same_bytes_add_ms", "yardstick_addcmul_ms",
              "gb_s", "share_of_bound",
              "cuda_core_bound_ms", "cuda_core_bound_by", "sdpa_fwd_ms", "sdpa_fwd_bwd_ms",
-             "kernel_split_ms", "split_sessions")
+             "kernel_split_ms", "split_sessions", "split")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.values()), "launches_by_path": launches,
             "max_abs_err": row["max_abs_err"], "worst_case_max_abs_err": worst,

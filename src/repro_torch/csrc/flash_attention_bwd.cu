@@ -26,17 +26,40 @@
 // exponent of P, and to dQ and dK as they are stored.
 //
 // Deterministic, with no atomics: the FlashAttention-2 split into three
-// kernels, each output element summed by one thread in a fixed order.
+// kernels, each output element summed by one thread in a fixed order, and
+// a fourth where the dK/dV walk is split (below).
 //   1. flash_bwd_delta: Δ, D/4 threads a row (32 at D = 256, 32 bytes
 //      each), 16 bytes at a time, summed over a fixed shuffle tree.
-//   2. flash_bwd_dkdv: one block a (b, kv head, key tile of 64), key tile 0
-//      first (under a causal mask the heaviest). It keeps its K and V tiles
-//      in shared memory and the dK, dV sums in registers and walks the G
-//      query heads of its group, then the query tiles that see any of its
-//      keys, in that order, streaming Q, dO and the rows' lse and Δ.
-//   3. flash_bwd_dq: one block a (b, q head, query tile of 64), heaviest
+//   2. flash_bwd_dkdv: one block a (b, kv head, key tile of 64, slice of the
+//      walk), key tile 0 first (under a causal mask the heaviest). It keeps
+//      its K and V tiles in shared memory and the dK, dV sums in registers
+//      and walks its slice of the key tile's walk: the G query heads of its
+//      group, then the query tiles that see any of its keys, in that order,
+//      streaming Q, dO and the rows' lse and Δ.
+//   3. flash_bwd_reduce (split > 1 only): dK = scale·Σ parts, dV = Σ parts.
+//   4. flash_bwd_dq: one block a (b, q head, query tile of 64), heaviest
 //      tiles first. It keeps Q and dO in shared memory and the rows' lse and
 //      Δ in registers and walks the key tiles its rows see, streaming K and V.
+// The split of the dK/dV walk (the caller's `split`, P; the plan is
+// kernels/flash_attention.py:bwd_split). Under GQA and MQA one key tile's
+// walk is G heads long, and under a causal mask key tile 0's is the longest:
+// at recurrentgemma's B8 H10 KV1 S512 D256 the grid had 64 blocks for the
+// card's 132 slots (one block a SM), the first walking 10 x 32 (head, query
+// tile) steps, 3.7 times an even share of the launch's 11,520. So each key
+// tile's walk is cut into P contiguous slices, [p·n/P, (p+1)·n/P) of its n
+// steps, one block each, with key tile on the grid's slowest axis (y = tile·P
+// + p): every tile's slices are about n/P, so the launch order stays the
+// heaviest first. P is one number for the launch, not one a tile that grows
+// with the tile's weight: blocks are dispatched in launch order, and a
+// weight-proportional split makes slices of about one even share each in
+// every tile, in tile order, past the slots, which leaves a tail of a partial
+// second wave as long as a slice; one P keeps the slices ordered by weight so
+// that the light ones fill the gaps. A block with P > 1 writes its unscaled
+// fp32 sums to its part of the caller's workspace, (2, P, B, KV, Skv, D) fp32
+// (dK's parts, then dV's); flash_bwd_reduce adds the parts in slice order,
+// p = 0 first, with round-to-nearest adds, scales dK and stores each element
+// once. With P = 1 the block stores its sums scaled, as before the split:
+// the same code path and bits. No long sum is an mma accumulator either way.
 // Two launches on the same inputs give the same bits. The masks skip tiles as
 // the forward's do: a warp visits no streamed tile wholly above the causal
 // diagonal or wholly past the window for its 16 rows, and masks per element
@@ -114,7 +137,7 @@
 //   * registers: dK and dV take D floats a thread, dQ D/2; the streamed tile
 //     is 16 rows at D = 128 so the scores (BS/2 floats each, with hi.hi'
 //     apart) and the split fragments of P and dS fit beside them, with no
-//     spill (252 and 189 registers a thread at D = 128, the cap 255).
+//     spill (255 and 189 registers a thread at D = 128, the cap 255).
 //     Shared memory (Cfg::SMEM_KV, SMEM_Q): two resident 64-row tiles and
 //     two stages of two streamed tiles, 70,144 B a dK/dV block at D = 64,
 //     101,632 B at D = 128; the registers (about 200 a thread) hold a SM to
@@ -135,9 +158,10 @@
 //     does at D = 256. The split changes no sum: each output element is
 //     still one thread's, in the same order. 208,128 B of shared memory a
 //     dK/dV block and 207,872 B a dQ block: one block an SM. Under
-//     recurrentgemma's MQA the dK/dV kernel has B·KV·Skv/64 blocks, 64 for
-//     132 SMs at B8 S512, and the heaviest (the first key tile, causal)
-//     walks all 10 heads' 32 query tiles.
+//     recurrentgemma's MQA the dK/dV kernel has B·KV·Skv/64 key tiles, 64
+//     for 132 SMs at B8 S512, and the heaviest (the first key tile, causal)
+//     walks all 10 heads' 32 query tiles: the walk's split (above) is for
+//     this.
 // The kernels allocate nothing and launch on the caller's stream.
 
 #include "tf32.cuh"  // the TF32 split, mma.sync and cp.async helpers
@@ -148,6 +172,7 @@ constexpr int SLABS = 4;        // 16-row slabs of resident rows a block
 constexpr int BR = 16 * SLABS;  // resident rows a block: keys (dK/dV), queries (dQ)
 constexpr int STAGES = 2;       // streamed-tile ring depth
 constexpr int DELTA_THREADS = 256;
+constexpr int REDUCE_THREADS = 256;
 
 template <int D>
 struct Cfg {
@@ -159,7 +184,9 @@ struct Cfg {
   static constexpr int THREADS = 32 * SLABS * SPLIT;
   static constexpr int DT = D / 8 / SPLIT;      // 8-wide column tiles of a warp's output
   static constexpr int FOLD = 4 < DT ? 4 : DT;  // D tiles summed in fresh accumulators at once
-  static constexpr int MIN_BLOCKS = SPLIT == 1 ? 2 : 1;
+  // blocks a SM: three at D = 16 (166 registers a thread), which the dK/dV
+  // walk's planner counts on (kernels/flash_attention.py:meta_slots)
+  static constexpr int MIN_BLOCKS = D == 16 ? 3 : SPLIT == 1 ? 2 : 1;
   static constexpr int RES = BR * LD;           // floats of a resident tile
   static constexpr int TILE = BS * LD;          // floats of a streamed tile
   static constexpr int KV_STAGE = 2 * TILE + 2 * BS;  // Q, dO, the rows' lse and Δ
@@ -202,6 +229,14 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int r0, 
     cp_async16(dst + r * Cfg<D>::LD + col, src + (in ? (size_t)(r0 + r) * D + col : 0),
                in ? 16 : 0);
   }
+}
+
+// Step p·n/P of a walk of n steps cut into P slices (floor), in 32-bit
+// arithmetic: (n / P)·p + (n % P)·p / P, exact while P² fits 32 bits (the
+// grid holds P under 65536).
+__device__ __forceinline__ int slice_start(int p, int n, int P) {
+  const unsigned q = (unsigned)n / P, r = (unsigned)n % P;
+  return (int)(q * p + r * p / P);
 }
 
 // Whether the query at absolute position qpos sees the key at kpos.
@@ -409,8 +444,9 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
 flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dk, float* __restrict__ dv, int H, int KV, int Sq, int Skv,
-               int causal, int window, int q_offset, float scale) {
+               float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ parts,
+               int split, int H, int KV, int Sq, int Skv, int causal, int window, int q_offset,
+               float scale) {
   using C = Cfg<D>;
   constexpr int BS = C::BS, LD = C::LD, NS = C::NS, DT = C::DT;
   extern __shared__ __align__(16) float smem[];
@@ -425,7 +461,8 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   const int slab = warp / C::SPLIT, half = warp % C::SPLIT, col0 = half * (D / C::SPLIT);
   const int g = lane >> 2, t = lane & 3;  // the mma fragment's row group and column pair
   const int bkv = blockIdx.x, G = H / KV;
-  const int n0 = blockIdx.y * BR;  // the block's first key
+  const int part = blockIdx.y % split;  // the block's slice of its key tile's walk
+  const int n0 = (blockIdx.y / split) * BR;  // the block's first key
   const size_t bh0 = (size_t)bkv * G;  // the group's first q head: b H + kv_head G
   // Query rows that see any key of the tile: at or past its first key
   // (causal), before its last key's window ends.
@@ -434,11 +471,15 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   const int m_hi = window > 0 ? min(Sq, n_last + window - q_offset) : Sq;
   const int t_lo = m_lo / BS, t_hi = m_hi > m_lo ? (m_hi + BS - 1) / BS : t_lo;
   const int per_head = t_hi - t_lo, n_iter = G * per_head;
+  // the slice: steps [it0, it1) of the walk (all of it when split = 1)
+  const int it0 = slice_start(part, n_iter, split), it1 = slice_start(part + 1, n_iter, split);
 
   load_rows<D, BR>(ks, k + (size_t)bkv * Skv * D, n0, Skv, tid);
   load_rows<D, BR>(vs, v + (size_t)bkv * Skv * D, n0, Skv, tid);
   cp_async_commit();
-  if (n_iter > 0) load_query_stage<D>(ring, q, dout, lse, delta, bh0, t_lo * BS, Sq, tid);
+  if (it0 < it1)
+    load_query_stage<D>(ring + (it0 % STAGES) * C::KV_STAGE, q, dout, lse, delta,
+                        bh0 + it0 / per_head, (t_lo + it0 % per_head) * BS, Sq, tid);
 
   const int kw0 = n0 + 16 * slab;  // the warp's first key
   const float* kw = ks + 16 * slab * LD;  // the warp's rows of K and V
@@ -449,10 +490,10 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
 
-  for (int it = 0; it < n_iter; ++it) {
+  for (int it = it0; it < it1; ++it) {
     cp_async_wait_all();
     __syncthreads();  // stage it landed; every warp is done with the stage the next copy overwrites
-    if (it + 1 < n_iter)
+    if (it + 1 < it1)
       load_query_stage<D>(ring + ((it + 1) % STAGES) * C::KV_STAGE, q, dout, lse, delta,
                           bh0 + (it + 1) / per_head, (t_lo + (it + 1) % per_head) * BS, Sq, tid);
     const int m0 = (t_lo + it % per_head) * BS, qpos0 = q_offset + m0;
@@ -527,8 +568,38 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   }
   cp_async_wait_all();
 
-  store_rows<D>(dk + (size_t)bkv * Skv * D, dka, kw0 + g, Skv, col0, t, scale);
-  store_rows<D>(dv + (size_t)bkv * Skv * D, dva, kw0 + g, Skv, col0, t, 1.f);
+  // P = 1: the sums, dK's scaled, into dK and dV; P > 1: this slice's
+  // unscaled sums into its parts, which flash_bwd_reduce adds. (One store
+  // for both: two spilled a register at D = 256.)
+  const size_t n = (size_t)gridDim.x * Skv * D, at = (size_t)bkv * Skv * D;
+  float* out_k = split == 1 ? dk + at : parts + (size_t)part * n + at;
+  float* out_v = split == 1 ? dv + at : out_k + (size_t)split * n;
+  store_rows<D>(out_k, dka, kw0 + g, Skv, col0, t, split == 1 ? scale : 1.f);
+  store_rows<D>(out_v, dva, kw0 + g, Skv, col0, t, 1.f);
+}
+
+// dK = scale·(part 0 + part 1 + ...), dV = part 0 + part 1 + ..., the parts
+// of `parts` ((2, split, n) fp32: dK's, then dV's) added in slice order with
+// round-to-nearest adds, 4 elements a thread; n4 = n / 4.
+__global__ void __launch_bounds__(REDUCE_THREADS)
+flash_bwd_reduce(const float* __restrict__ parts, float* __restrict__ dk, float* __restrict__ dv,
+                 long long n4, int split, float scale) {
+  const long long i = (long long)blockIdx.x * REDUCE_THREADS + threadIdx.x;  // dK's, then dV's
+  if (i >= 2 * n4) return;
+  const bool is_v = i >= n4;
+  const long long j = is_v ? i - n4 : i;
+  const float4* src = reinterpret_cast<const float4*>(parts) + (is_v ? split * n4 : 0) + j;
+  float4 acc = src[0];
+  for (int p = 1; p < split; ++p) {
+    const float4 x = src[p * n4];
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  const float mul = is_v ? 1.f : scale;
+  reinterpret_cast<float4*>(is_v ? dv : dk)[j] =
+      make_float4(acc.x * mul, acc.y * mul, acc.z * mul, acc.w * mul);
 }
 
 // Stage of the dQ ring: keys [k0, k0 + BS) of K and V (zeros past Skv).
@@ -673,14 +744,17 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* o,
                    const float* dout, const float* lse, float* delta, float* dq, float* dk,
-                   float* dv, int B, int H, int KV, int Sq, int Skv, int causal, int window,
-                   int q_offset, float scale, cudaStream_t stream) {
+                   float* dv, float* parts, int split, int B, int H, int KV, int Sq, int Skv,
+                   int causal, int window, int q_offset, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   const long long rows = (long long)B * H * Sq;
   constexpr int TPR = D / 4 < 32 ? D / 4 : 32;  // flash_bwd_delta's threads a row
   const long long delta_blocks = (rows * TPR + DELTA_THREADS - 1) / DELTA_THREADS;
   const int q_tiles = (Sq + BR - 1) / BR, k_tiles = (Skv + BR - 1) / BR;
-  if (delta_blocks > 0x7fffffffLL || q_tiles > 65535 || k_tiles > 65535)
+  const long long n4 = (long long)B * KV * Skv * D / 4;  // float4s of dK
+  const long long reduce_blocks = (2 * n4 + REDUCE_THREADS - 1) / REDUCE_THREADS;
+  if (delta_blocks > 0x7fffffffLL || reduce_blocks > 0x7fffffffLL || q_tiles > 65535 ||
+      (long long)k_tiles * split > 65535)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -692,12 +766,20 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   flash_bwd_delta<D><<<(unsigned)delta_blocks, DELTA_THREADS, 0, stream>>>(o, dout, delta, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // key tile on the slowest axis, tile 0 first: under a causal mask the
-  // heaviest blocks start first and the light ones fill the last wave
-  flash_bwd_dkdv<D><<<dim3(B * KV, k_tiles), C::THREADS, C::SMEM_KV, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, H, KV, Sq, Skv, causal, window, q_offset, scale);
+  // key tile on the slowest axis, then its slices, tile 0 first: under a
+  // causal mask the heaviest blocks start first and the light ones fill the
+  // last wave
+  flash_bwd_dkdv<D><<<dim3(B * KV, k_tiles * split), C::THREADS, C::SMEM_KV, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, parts, split, H, KV, Sq, Skv, causal, window,
+      q_offset, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (split > 1) {  // right after the parts are written, while L2 holds them
+    flash_bwd_reduce<<<(unsigned)reduce_blocks, REDUCE_THREADS, 0, stream>>>(parts, dk, dv, n4,
+                                                                            split, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   flash_bwd_dq<D><<<dim3(B * H, q_tiles), C::THREADS, C::SMEM_Q, stream>>>(
       q, k, v, dout, lse, delta, dq, H, KV, Sq, Skv, causal, window, q_offset, scale);
   return cudaGetLastError();
@@ -708,7 +790,35 @@ constexpr int smem_bytes() {
   return (int)(Cfg<D>::SMEM_KV > Cfg<D>::SMEM_Q ? Cfg<D>::SMEM_KV : Cfg<D>::SMEM_Q);
 }
 
+// dK/dV blocks the current device holds at once: its SMs times the blocks a
+// SM the kernel's registers and shared memory allow.
+template <int D>
+int dkdv_slots() {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaFuncSetAttribute(flash_bwd_dkdv<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)Cfg<D>::SMEM_KV) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_bwd_dkdv<D>, Cfg<D>::THREADS,
+                                                    Cfg<D>::SMEM_KV) != cudaSuccess)
+    return -1;
+  return sms * per_sm;
+}
+
 }  // namespace
+
+// The dK/dV kernel's slots on the current device at head dim D: SMs x blocks
+// a SM (-1 if D is not supported or a query fails).
+extern "C" int flash_attention_bwd_slots(int D) {
+  switch (D) {
+    case 16: return dkdv_slots<16>();
+    case 32: return dkdv_slots<32>();
+    case 64: return dkdv_slots<64>();
+    case 128: return dkdv_slots<128>();
+    case 256: return dkdv_slots<256>();
+    default: return -1;
+  }
+}
 
 // Dynamic shared memory of the larger of the two tile kernels' blocks at
 // head dim D, in bytes (-1 if D is not supported).
@@ -726,33 +836,39 @@ extern "C" int flash_attention_bwd_smem_bytes(int D) {
 // q, o, do, dq (B, H, Sq, D); k, v, dk, dv (B, KV, Skv, D): fp32,
 // contiguous, 16-byte aligned (the cp.async copies and the Δ pass read 16
 // bytes at a time; cudaErrorMisalignedAddress otherwise, with no launch).
-// lse and the scratch delta: (B, H, Sq) fp32. Three launches on `stream`;
-// returns cudaGetLastError() after the last (0 on success).
+// lse and the scratch delta: (B, H, Sq) fp32. split: the slices of each key
+// tile's dK/dV walk (>= 1); with split > 1, parts is the workspace (2, split,
+// B, KV, Skv, D) fp32, 16-byte aligned (unused at split = 1). Three launches
+// on `stream` (four with split > 1); returns cudaGetLastError() after the
+// last (0 on success).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, int B, int H, int KV, int Sq, int Skv,
                                    int D, int causal, int window, int q_offset, float scale,
-                                   void* stream) {
+                                   int split, void* parts, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Skv <= 0 || q_offset < 0 ||
-      window < 0 || (long long)B * H > 0x7fffffffLL)
+      window < 0 || (long long)B * H > 0x7fffffffLL || split < 1 ||
+      (split > 1 && parts == nullptr))
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
        reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
-       reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) % 16)
+       reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv) |
+       reinterpret_cast<uintptr_t>(parts)) % 16)
     return (int)cudaErrorMisalignedAddress;
   const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
               *vf = static_cast<const float*>(v), *of = static_cast<const float*>(o),
               *df = static_cast<const float*>(dout), *lf = static_cast<const float*>(lse);
   float *dl = static_cast<float*>(delta), *dqf = static_cast<float*>(dq),
-        *dkf = static_cast<float*>(dk), *dvf = static_cast<float*>(dv);
+        *dkf = static_cast<float*>(dk), *dvf = static_cast<float*>(dv),
+        *pf = static_cast<float*>(parts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return (int)launch<16>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 32: return (int)launch<32>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 64: return (int)launch<64>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 128: return (int)launch<128>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 256: return (int)launch<256>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 16: return (int)launch<16>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, pf, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 32: return (int)launch<32>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, pf, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 64: return (int)launch<64>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, pf, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 128: return (int)launch<128>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, pf, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 256: return (int)launch<256>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, pf, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

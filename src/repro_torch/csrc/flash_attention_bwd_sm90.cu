@@ -30,17 +30,36 @@
 // fp32 sums of dQ and dK before they are rounded to bf16.
 //
 // Deterministic, with no atomics: the FlashAttention-2 split into three
-// kernels, each output element summed by one thread in a fixed order.
+// kernels, each output element summed by one thread in a fixed order, and
+// a fourth where the dK/dV walk is split (below).
 //   1. flash_bwd_delta_sm90: Δ, D/8 threads a row, 16 bytes each, summed
 //      over a fixed shuffle tree.
-//   2. flash_bwd_dkdv_sm90: one block a (b, kv head, key tile of 64). It
-//      keeps its K and V tiles and the dK, dV accumulators (registers) and
-//      walks the G query heads of its group, then the query tiles that see
-//      any of its keys, in that order, streaming Q, dO and the rows' lse and
-//      Δ through the ring.
-//   3. flash_bwd_dq_sm90: one block a (b, q head, query tile of 64). It keeps
+//   2. flash_bwd_dkdv_sm90: one block a (b, kv head, key tile of 64, slice
+//      of the walk). It keeps its K and V tiles and the dK, dV accumulators
+//      (registers) and walks its slice of the key tile's walk: the G query
+//      heads of its group, then the query tiles that see any of its keys,
+//      in that order, streaming Q, dO and the rows' lse and Δ through the
+//      ring.
+//   3. flash_bwd_reduce_sm90 (split > 1 only): dK = scale·Σ parts, dV = Σ
+//      parts, in fp32, each rounded to bf16 once.
+//   4. flash_bwd_dq_sm90: one block a (b, q head, query tile of 64). It keeps
 //      Q, dO, the rows' lse and Δ and walks the key tiles its rows see,
 //      streaming K and V through the ring.
+// The split of the dK/dV walk (the caller's `split`, P; the plan is
+// kernels/flash_attention.py:bwd_split), as in flash_attention_bwd.cu: under
+// MQA (recurrentgemma, G = 10) and GQA 8:1 (qwen2.5) the grid had 64 and 128
+// blocks for the card's 132 and 264 slots, key tile 0's block walking 3.7
+// times an even share of the launch's (head, query tile) steps. Each key
+// tile's walk is cut into P contiguous slices, [p·n/P, (p+1)·n/P) of its n
+// steps, one block each, key tile on the grid's slowest axis (y = tile·P +
+// p), so the heaviest slices still start first; one P for the launch, not
+// one a tile, for the reason that source gives. A block with P > 1 writes
+// its fp32 accumulators, unscaled and unrounded, to its part of the
+// caller's workspace, (2, P, B, KV, Skv, D) fp32 (dK's parts, then dV's);
+// flash_bwd_reduce_sm90 adds the parts in slice order, p = 0 first, scales
+// dK and rounds each sum to bf16 once: no partial is rounded to bf16. With P
+// = 1 the block rounds its accumulators to bf16 itself, as before the
+// split: the same code path and bits.
 // Two launches on the same inputs give the same bits. The masks skip tiles as
 // the forward's do; partial tiles are masked per element. Rows past Sq and
 // keys past Skv load as zeros (TMA fills them) and get probability 0.
@@ -126,6 +145,7 @@
 namespace {
 
 constexpr int STAGES = 2;  // streamed-tile ring depth
+constexpr int REDUCE_THREADS = 256;
 
 template <int D>
 struct Cfg {
@@ -172,6 +192,14 @@ struct Cfg {
 };
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
+
+// Step p·n/P of a walk of n steps cut into P slices (floor), in 32-bit
+// arithmetic: (n / P)·p + (n % P)·p / P, exact while P² fits 32 bits (the
+// grid holds P under 65536).
+__device__ __forceinline__ int slice_start(int p, int n, int P) {
+  const unsigned q = (unsigned)n / P, r = (unsigned)n % P;
+  return (int)(q * p + r * p / P);
+}
 
 // Whether a query at absolute position qpos sees the key at kpos.
 __device__ __forceinline__ bool visible(int qpos, int kpos, int causal, int window) {
@@ -276,6 +304,24 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out,
   }
 }
 
+// Rows row and row + 8 of a 64 x N accumulator, unscaled fp32, into N
+// columns of a (S, D) fp32 matrix from `out`; rows at or past S are not
+// written.
+template <int D, int N>
+__device__ __forceinline__ void store_part(float* __restrict__ out, const float (&acc)[N / 2],
+                                           int row, int S, int quad) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row + 8 * hh;
+    if (r < S) {
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+        *reinterpret_cast<float2*>(out + (size_t)r * D + 8 * j + 2 * quad) =
+            make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+    }
+  }
+}
+
 // ---- the kernels -------------------------------------------------------------
 
 // Δ = rowsum(dO∘O) in fp32: D/8 threads a row, 8 elements (16 bytes) each.
@@ -311,8 +357,9 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_v,
                     const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
                     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                    __nv_bfloat16* __restrict__ dv, int H, int KV, int Sq, int Skv, int causal,
-                    int window, int q_offset, float scale, float scale_log2) {
+                    __nv_bfloat16* __restrict__ dv, float* __restrict__ parts, int split, int H,
+                    int KV, int Sq, int Skv, int causal, int window, int q_offset, float scale,
+                    float scale_log2) {
   using C = Cfg<D>;
   constexpr int BM = C::BM, BN = C::KV_BN, SPAN = C::SPAN, PW = C::PW, DC = C::DC;
   extern __shared__ uint8_t smem_raw[];
@@ -327,7 +374,8 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t kv_full = bars, full = bars + 8, empty = full + 8 * STAGES;
 
   const int bkv = blockIdx.x, G = H / KV;
-  const int n0 = blockIdx.y * BM;  // the block's first key: tile 0 first (causal: heaviest)
+  const int part = blockIdx.y % split;  // the block's slice of its key tile's walk
+  const int n0 = (blockIdx.y / split) * BM;  // the block's first key: tile 0 first (causal: heaviest)
   // Query rows that see any key of the tile: at or past its first key
   // (causal), before its last key's window ends.
   const int n_last = min(n0 + BM, Skv) - 1;
@@ -335,6 +383,9 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
   const int m_hi = window > 0 ? min(Sq, n_last + window - q_offset) : Sq;
   const int t_lo = m_lo / BN, t_hi = m_hi > m_lo ? (m_hi + BN - 1) / BN : t_lo;
   const int per_head = t_hi - t_lo, n_iter = G * per_head;
+  // the slice: steps [it0, it0 + n_steps) of the walk (all of it when split = 1)
+  const int it0 = slice_start(part, n_iter, split);
+  const int n_steps = slice_start(part + 1, n_iter, split) - it0;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -359,12 +410,12 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
           tma_load(s_v + p * BM * SPAN, &tm_v, kv_full, p * PW, n0, bkv);
         }
       }
-      for (int it = 0; it < n_iter; ++it) {
-        const int s = it % STAGES;
+      for (int step = 0; step < n_steps; ++step) {
+        const int s = step % STAGES, it = it0 + step;
         const int bh = bkv * G + it / per_head;  // = b H + kv_head G + g
         const int m0 = (t_lo + it % per_head) * BN;
         const uint32_t q_st = s_q + s * C::KV_STREAM, do_st = s_do + s * C::KV_STREAM;
-        mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);  // first round passes
+        mbar_wait(empty + 8 * s, ((step / STAGES) & 1) ^ 1);  // first round passes
         if (lane == 0) {
           mbar_expect_tx(full + 8 * s, 2 * C::KV_STREAM);
 #pragma unroll
@@ -399,13 +450,13 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < DC / 2; ++i) dka[i] = dva[i] = 0.f;
     mbar_wait(kv_full, 0);
 
-    for (int it = 0; it < n_iter; ++it) {
-      const int s = it % STAGES;
-      const int qpos0 = q_offset + (t_lo + it % per_head) * BN;  // the tile's first query
+    for (int step = 0; step < n_steps; ++step) {
+      const int s = step % STAGES;
+      const int qpos0 = q_offset + (t_lo + (it0 + step) % per_head) * BN;  // the tile's first query
       const uint32_t q_st = s_q + s * C::KV_STREAM, do_st = s_do + s * C::KV_STREAM;
       float sc[BN / 2], dp[BN / 2];
       uint32_t pa[BN / 16][4], da[BN / 16][4];
-      mbar_wait(full + 8 * s, (it / STAGES) & 1);
+      mbar_wait(full + 8 * s, (step / STAGES) & 1);
       wgmma_fence();
       issue_ss<D, BN>(sc, s_k, BM, q_st);   // Sᵀ = K Qᵀ
       issue_ss<D, BN>(dp, s_v, BM, do_st);  // dPᵀ = V dOᵀ
@@ -426,9 +477,41 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(dka);
       if (lane == 0) mbar_arrive(empty + 8 * s);
     }
-    store_rows<D, DC>(dk + (size_t)bkv * Skv * D + col0, dka, key0, Skv, quad, scale);
-    store_rows<D, DC>(dv + (size_t)bkv * Skv * D + col0, dva, key0, Skv, quad, 1.f);
+    if (split == 1) {
+      store_rows<D, DC>(dk + (size_t)bkv * Skv * D + col0, dka, key0, Skv, quad, scale);
+      store_rows<D, DC>(dv + (size_t)bkv * Skv * D + col0, dva, key0, Skv, quad, 1.f);
+    } else {  // this slice's fp32 sums into its parts; flash_bwd_reduce_sm90 adds them
+      const size_t n = (size_t)gridDim.x * Skv * D;  // elements of dK
+      float* pk = parts + (size_t)part * n + (size_t)bkv * Skv * D + col0;
+      store_part<D, DC>(pk, dka, key0, Skv, quad);
+      store_part<D, DC>(pk + (size_t)split * n, dva, key0, Skv, quad);
+    }
   }
+}
+
+// dK = scale·(part 0 + part 1 + ...), dV = part 0 + part 1 + ..., the parts
+// of `parts` ((2, split, n) fp32: dK's, then dV's) added in slice order in
+// fp32, each sum rounded to bf16 once; 4 elements a thread, n4 = n / 4.
+__global__ void __launch_bounds__(REDUCE_THREADS)
+flash_bwd_reduce_sm90(const float* __restrict__ parts, __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, long long n4, int split, float scale) {
+  const long long i = (long long)blockIdx.x * REDUCE_THREADS + threadIdx.x;  // dK's, then dV's
+  if (i >= 2 * n4) return;
+  const bool is_v = i >= n4;
+  const long long j = is_v ? i - n4 : i;
+  const float4* src = reinterpret_cast<const float4*>(parts) + (is_v ? split * n4 : 0) + j;
+  float4 acc = src[0];
+  for (int p = 1; p < split; ++p) {
+    const float4 x = src[p * n4];
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  const float mul = is_v ? 1.f : scale;
+  __nv_bfloat162 out[2] = {__floats2bfloat162_rn(acc.x * mul, acc.y * mul),
+                           __floats2bfloat162_rn(acc.z * mul, acc.w * mul)};
+  reinterpret_cast<uint2*>(is_v ? dv : dk)[j] = *reinterpret_cast<const uint2*>(out);
 }
 
 template <int D>
@@ -551,14 +634,17 @@ bool make_map(CUtensorMap* map, const void* ptr, int S, int BH, int rows) {
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
-                   int KV, int Sq, int Skv, int causal, int window, int q_offset, float scale,
-                   cudaStream_t stream) {
+                   const float* lse, float* delta, void* dq, void* dk, void* dv, float* parts,
+                   int split, int B, int H, int KV, int Sq, int Skv, int causal, int window,
+                   int q_offset, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   const long long rows = (long long)B * H * Sq;
   const long long delta_blocks = (rows * (D / 8) + 255) / 256;
   const int q_tiles = (Sq + C::BM - 1) / C::BM, k_tiles = (Skv + C::BM - 1) / C::BM;
-  if (delta_blocks > 0x7fffffffLL || q_tiles > 65535 || k_tiles > 65535)
+  const long long n4 = (long long)B * KV * Skv * D / 4;  // 4-element groups of dK
+  const long long reduce_blocks = (2 * n4 + REDUCE_THREADS - 1) / REDUCE_THREADS;
+  if (delta_blocks > 0x7fffffffLL || reduce_blocks > 0x7fffffffLL || q_tiles > 65535 ||
+      (long long)k_tiles * split > 65535)
     return cudaErrorInvalidValue;
   // Resident tiles of BM rows; streamed tiles of KV_BN queries and Q_BN keys.
   CUtensorMap q_res, do_res, k_res, v_res, q_kv, do_kv, k_q, v_q;
@@ -579,12 +665,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const float scale_log2 = scale * LOG2E;
-  flash_bwd_dkdv_sm90<D><<<dim3(B * KV, k_tiles), C::KV_THREADS, C::SMEM_KV, stream>>>(
+  // key tile on the slowest axis, then its slices: tile 0's first
+  flash_bwd_dkdv_sm90<D><<<dim3(B * KV, k_tiles * split), C::KV_THREADS, C::SMEM_KV, stream>>>(
       q_kv, k_res, v_res, do_kv, lse, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, KV, Sq, Skv, causal, window, q_offset, scale,
-      scale_log2);
+      static_cast<__nv_bfloat16*>(dv), parts, split, H, KV, Sq, Skv, causal, window, q_offset,
+      scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (split > 1) {  // right after the parts are written, while L2 holds them
+    flash_bwd_reduce_sm90<<<(unsigned)reduce_blocks, REDUCE_THREADS, 0, stream>>>(
+        parts, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), n4, split,
+        scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   flash_bwd_dq_sm90<D><<<dim3(B * H, q_tiles), C::Q_THREADS, C::SMEM_Q, stream>>>(
       q_res, k_q, v_q, do_res, lse, delta, static_cast<__nv_bfloat16*>(dq), H, KV, Sq, Skv,
       causal, window, q_offset, scale, scale_log2);
@@ -596,7 +690,36 @@ constexpr int smem_bytes() {
   return Cfg<D>::SMEM_KV > Cfg<D>::SMEM_Q ? Cfg<D>::SMEM_KV : Cfg<D>::SMEM_Q;
 }
 
+// dK/dV blocks the current device holds at once: its SMs times the blocks a
+// SM the kernel's registers and shared memory allow.
+template <int D>
+int dkdv_slots() {
+  static unsigned long long kv_set = 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      allow_smem(flash_bwd_dkdv_sm90<D>, Cfg<D>::SMEM_KV, kv_set) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_bwd_dkdv_sm90<D>,
+                                                    Cfg<D>::KV_THREADS, Cfg<D>::SMEM_KV) !=
+          cudaSuccess)
+    return -1;
+  return sms * per_sm;
+}
+
 }  // namespace
+
+// The dK/dV kernel's slots on the current device at head dim D: SMs x blocks
+// a SM (-1 if D is not supported or a query fails).
+extern "C" int flash_attention_bwd_sm90_slots(int D) {
+  switch (D) {
+    case 16: return dkdv_slots<16>();
+    case 32: return dkdv_slots<32>();
+    case 64: return dkdv_slots<64>();
+    case 128: return dkdv_slots<128>();
+    case 256: return dkdv_slots<256>();
+    default: return -1;
+  }
+}
 
 // Dynamic shared memory of the larger of the two tile kernels' blocks at
 // head dim D, in bytes (-1 if D is not supported).
@@ -613,30 +736,36 @@ extern "C" int flash_attention_bwd_sm90_smem_bytes(int D) {
 
 // q, o, do, dq (B, H, Sq, D); k, v, dk, dv (B, KV, Skv, D): bf16,
 // contiguous, 16-byte aligned. lse and the scratch delta: (B, H, Sq) fp32.
-// Three launches on `stream`; returns cudaGetLastError() after the last (0
-// on success).
+// split: the slices of each key tile's dK/dV walk (>= 1); with split > 1,
+// parts is the workspace (2, split, B, KV, Skv, D) fp32, 16-byte aligned
+// (unused at split = 1). Three launches on `stream` (four with split > 1);
+// returns cudaGetLastError() after the last (0 on success).
 extern "C" int flash_attention_bwd_sm90(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, const void* lse,
                                         void* delta, void* dq, void* dk, void* dv, int B, int H,
                                         int KV, int Sq, int Skv, int D, int causal, int window,
-                                        int q_offset, float scale, void* stream) {
+                                        int q_offset, float scale, int split, void* parts,
+                                        void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Skv <= 0 || q_offset < 0 ||
-      window < 0 || (long long)B * H > 0x7fffffffLL)
+      window < 0 || (long long)B * H > 0x7fffffffLL || split < 1 ||
+      (split > 1 && parts == nullptr))
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
        reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
-       reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) % 16)
+       reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv) |
+       reinterpret_cast<uintptr_t>(parts)) % 16)
     return (int)cudaErrorMisalignedAddress;
   const float* lf = static_cast<const float*>(lse);
   float* df = static_cast<float*>(delta);
+  float* pf = static_cast<float*>(parts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return (int)launch<16>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 32: return (int)launch<32>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 64: return (int)launch<64>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 128: return (int)launch<128>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 256: return (int)launch<256>(q, k, v, o, dout, lf, df, dq, dk, dv, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 16: return (int)launch<16>(q, k, v, o, dout, lf, df, dq, dk, dv, pf, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 32: return (int)launch<32>(q, k, v, o, dout, lf, df, dq, dk, dv, pf, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 64: return (int)launch<64>(q, k, v, o, dout, lf, df, dq, dk, dv, pf, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 128: return (int)launch<128>(q, k, v, o, dout, lf, df, dq, dk, dv, pf, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 256: return (int)launch<256>(q, k, v, o, dout, lf, df, dq, dk, dv, pf, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -35,6 +35,17 @@ the forward's fp32 logsumexp, which the forward writes when asked
 (``return_lse``). ``FlashAttentionFn`` binds forward and backward for
 autograd; the backward's plain version is ``ref.flash_attention_bwd_ref``.
 
+The dK/dV kernel walks, for each (batch, kv head, key tile of 64 keys), the
+G query heads of the group and then the query tiles that see the tile
+(``dkdv_walks``). Under GQA and MQA, and under a causal mask for key tile 0,
+that walk can be several times an even share of the launch's steps over the
+card's slots (its SMs times the kernel's blocks a SM), and the card idles
+behind the heaviest blocks. ``bwd_split`` cuts each walk into P slices, one
+block each, whose fp32 parts a fourth kernel adds in slice order; P = 1
+(no parts, the unsplit kernel's bits) wherever the heaviest walk is within
+``SPLIT_AT`` even shares. A caller may force P (``split``); an invalid P
+raises.
+
 A library is built at its first launch (``_build``). The wrappers check
 what the kernels take (among it a 16-byte-aligned pointer, which TMA
 needs) and raise on anything else; they never fall back to the other route
@@ -45,6 +56,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -56,6 +68,26 @@ ROUTES = {torch.bfloat16: ("flash_attention_sm90", "cuda-wgmma"),
           torch.float32: ("flash_attention", "cuda-fp32")}
 BWD_ROUTES = {torch.bfloat16: ("flash_attention_bwd_sm90", "cuda-wgmma"),
               torch.float32: ("flash_attention_bwd", "cuda-fp32")}
+# The dK/dV walk: keys a block (both routes' BR / BM), and queries a step
+# (the fp32 route's Cfg::BS, the bf16 route's Cfg::KV_BN)
+BWD_KEYS = 64
+# The split's threshold: the heaviest walk in even shares (its steps over
+# all steps / slots) up to which P stays 1. Below about two the balance can
+# gain at most half of the dK/dV kernel, which the parts' traffic and the
+# reduction take back: at smollm's train shape (1.47 even shares) P = 2 made
+# the bf16 backward 11% slower and the fp32 one 8% faster, at whisper's
+# decoder's (1.38) the bf16 one 46% slower (benchmarks/
+# torch_flash_bwd_variants.py, PERF.md); MQA's and GQA 8:1's walks are 3.7.
+SPLIT_AT = 2.0
+# The fewest steps a planned slice walks: a slice's block also loads its K
+# and V tiles and stores its parts (each as many bytes as one to four steps
+# stream), so on a launch smaller than the card, where an even share is a
+# few steps or less, slices stay this long.
+MIN_SLICE = 16
+# What the meta route plans for, having no card: one H100's SMs
+# (``meta_slots``). The card route asks the card
+# (``flash_attention_bwd*_slots``); chip_smoke.py checks the two agree.
+H100_SMS = 132
 
 
 @functools.cache
@@ -166,9 +198,91 @@ def _bwd(dtype):
     source, _ = BWD_ROUTES[dtype]
     fn = getattr(_build.load(source), source)
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def bwd_query_tile(d: int, dtype: torch.dtype) -> int:
+    """Queries a step of ``dtype``'s dK/dV walk streams at head_dim ``d``."""
+    if dtype == torch.float32:
+        return 32 if d <= 64 else 16
+    return 64 if d <= 64 else 32
+
+
+def meta_slots(d: int, dtype: torch.dtype) -> int:
+    """The dK/dV kernel's slots the meta route plans for: one H100's SMs
+    times the blocks a SM that ``dtype``'s kernel at head_dim ``d`` takes
+    there, as its source's launch bounds set them: one at 256, where a
+    block takes 132 KB (bf16) or 208 KB (fp32) of shared memory; three on
+    the fp32 route at 16; two elsewhere, where registers allow two."""
+    per_sm = 1 if d == 256 else 3 if dtype == torch.float32 and d == 16 else 2
+    return H100_SMS * per_sm
+
+
+@functools.cache
+def card_slots(dtype: torch.dtype, d: int, index: int) -> int:
+    """The dK/dV kernel's slots on card ``index``: its SMs times the
+    kernel's blocks a SM, as the CUDA occupancy calculator gives them."""
+    source, _ = BWD_ROUTES[dtype]
+    fn = getattr(_build.load(source), f"{source}_slots")
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    with torch.cuda.device(index):
+        slots = fn(d)
+    if slots <= 0:
+        raise RuntimeError(f"{source}_slots({d}) failed: {slots}")
+    return slots
+
+
+@functools.cache
+def dkdv_walks(h, kv, sq, skv, d, dtype, causal, window, q_offset) -> tuple[int, ...]:
+    """Steps of each key tile's dK/dV walk, key tile 0 first: the G query
+    heads of the group times the query tiles of ``bwd_query_tile`` rows that
+    see any key of the tile (the kernels' t_lo, t_hi)."""
+    bs, steps = bwd_query_tile(d, dtype), []
+    for n0 in range(0, skv, BWD_KEYS):
+        n_last = min(n0 + BWD_KEYS, skv) - 1
+        m_lo = max(0, n0 - q_offset) if causal else 0
+        m_hi = min(sq, n_last + window - q_offset) if window > 0 else sq
+        t_lo = m_lo // bs
+        t_hi = -(-m_hi // bs) if m_hi > m_lo else t_lo
+        steps.append(h // kv * (t_hi - t_lo))
+    return tuple(steps)
+
+
+@functools.cache
+def bwd_split(b, h, kv, sq, skv, d, dtype, causal, window, q_offset, slots) -> int:
+    """The dK/dV walk's split P for these shapes, masks and ``slots``: 1
+    where the heaviest key tile's walk is within SPLIT_AT even shares (all
+    steps of the launch over the slots), else the least P whose slices of
+    the heaviest walk are each within one even share, or within MIN_SLICE
+    steps where an even share is shorter."""
+    steps = dkdv_walks(h, kv, sq, skv, d, dtype, causal, window, q_offset)
+    heaviest, even = max(steps), b * kv * sum(steps) / slots
+    if heaviest <= SPLIT_AT * even:
+        return 1
+    return math.ceil(heaviest / max(even, MIN_SLICE))
+
+
+def bwd_plan(q, k, *, causal=True, window=0, q_offset=0, split=None) -> int:
+    """The split P the backward of q (B, H, Sq, D) against k (B, KV, Skv, D)
+    runs at: ``bwd_split`` with the slots of q's card (a meta q: an
+    H100's), or ``split`` if given, which must be an int from 1 to the
+    heaviest walk's steps (1 where no query sees a key), with the key tiles
+    times P within the grid's 65535."""
+    b, h, sq, d = q.shape
+    n_kv, skv = k.shape[1], k.shape[2]
+    args = (h, n_kv, sq, skv, d, q.dtype, bool(causal), int(window), int(q_offset))
+    if split is None:
+        slots = card_slots(q.dtype, d, q.device.index) if q.is_cuda else meta_slots(d, q.dtype)
+        return bwd_split(b, *args, slots)
+    steps = dkdv_walks(*args)
+    if isinstance(split, bool) or not isinstance(split, int) or \
+            not 1 <= split <= max(1, *steps) or len(steps) * split > 65535:
+        raise ValueError(f"flash_attention_bwd: split {split!r} must be an int from 1 to the "
+                         f"heaviest key tile's {max(steps)} steps, with {len(steps)} key tiles "
+                         "times it within 65535")
+    return split
 
 
 def bwd_smem_bytes(head_dim: int, dtype: torch.dtype) -> int:
@@ -181,16 +295,17 @@ def bwd_smem_bytes(head_dim: int, dtype: torch.dtype) -> int:
 
 
 def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=0,
-                             q_offset=0):
+                             q_offset=0, split=None):
     """The attention backward on the card: (dq, dk, dv) in the inputs' dtype
     from q, k, v, the forward's o, its gradient ``do`` (all contiguous,
     one dtype: bf16 takes the wgmma route, whose TMA loads need o and do
     16-byte aligned too, fp32 the split-TF32 one, whose cp.async loads need
     the same and whose launch fails with cudaErrorMisalignedAddress
     otherwise) and the forward's fp32 ``lse`` (B, H, Sq). head_dim 16 to
-    256 on both routes. Two launches on the same inputs give the same
-    bits."""
-    dq, dk, dv, delta = _bwd_outputs(q, k, v, o, do, lse, window, q_offset, "cuda")
+    256 on both routes. ``split``: the dK/dV walk's P (``bwd_plan``; None:
+    the planner's). Two launches on the same inputs give the same bits."""
+    dq, dk, dv, delta, parts, split = _bwd_outputs(q, k, v, o, do, lse, causal, window,
+                                                   q_offset, "cuda", split)
     b, h, sq, d = q.shape
     n_kv, skv = k.shape[1], k.shape[2]
     with torch.cuda.device(q.device):
@@ -198,32 +313,39 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=0,
                             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                             dk.data_ptr(), dv.data_ptr(), b, h, n_kv, sq, skv, d,
                             int(bool(causal)), int(window), int(q_offset), float(d ** -0.5),
+                            split, None if parts is None else parts.data_ptr(),
                             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{BWD_ROUTES[q.dtype][0]} launch failed: cudaError {err}")
+        raise RuntimeError(f"{BWD_ROUTES[q.dtype][0]} launch failed (split {split}): "
+                           f"cudaError {err}")
     flash_attention_bwd_cuda.launches += 1
     cost.report_attention(q, k, v, (dq, dk, dv, delta), (o, do, lse), causal=causal,
                           window=window, q_offset=q_offset, backward=True)
     return dq, dk, dv
 
 
-flash_attention_bwd_cuda.launches = 0  # backward calls (three kernels each) since the last reset
+# backward calls (three kernels each, four with a split walk) since the last reset
+flash_attention_bwd_cuda.launches = 0
 
 
 def flash_attention_bwd_meta(q, k, v, o, do, lse, *, causal=True, window=0,
-                             q_offset=0):
+                             q_offset=0, split=None):
     """The backward's shape function on meta tensors (the dry-run's): the
-    checks and allocations of ``flash_attention_bwd_cuda`` (dq, dk, dv and
-    the fp32 Δ scratch), its cost reported (``cost``), no launch."""
-    dq, dk, dv, delta = _bwd_outputs(q, k, v, o, do, lse, window, q_offset, "meta")
+    checks and allocations of ``flash_attention_bwd_cuda`` (dq, dk, dv, the
+    fp32 Δ scratch and, with a split walk, the fp32 parts, planned for an
+    H100's slots), its cost reported (``cost``: what the kernels must do,
+    the parts not counted), no launch."""
+    dq, dk, dv, delta, _, _ = _bwd_outputs(q, k, v, o, do, lse, causal, window, q_offset,
+                                           "meta", split)
     cost.report_attention(q, k, v, (dq, dk, dv, delta), (o, do, lse), causal=causal,
                           window=window, q_offset=q_offset, backward=True)
     return dq, dk, dv
 
 
-def _bwd_outputs(q, k, v, o, do, lse, window, q_offset, device):
+def _bwd_outputs(q, k, v, o, do, lse, causal, window, q_offset, device, split):
     """The backward's checks on ``device``'s tensors, and its outputs and
-    scratch, allocated: (dq, dk, dv, the fp32 Δ)."""
+    scratch, allocated: (dq, dk, dv, the fp32 Δ, the fp32 parts (2, P, B,
+    KV, Skv, D) of dK and dV or None at P = 1, P)."""
     _check(q, k, v, device)
     b, h, sq, _ = q.shape
     if window < 0 or q_offset < 0:
@@ -242,8 +364,12 @@ def _bwd_outputs(q, k, v, o, do, lse, window, q_offset, device):
             or not lse.is_contiguous():
         raise ValueError(f"flash_attention_bwd_cuda: lse must be contiguous fp32 "
                          f"{(b, h, sq)} on {q.device}, got {tuple(lse.shape)} {lse.dtype}")
+    split = bwd_plan(q, k, causal=causal, window=window, q_offset=q_offset, split=split)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    return dq, dk, dv, torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    parts = (torch.empty((2, split, *k.shape), dtype=torch.float32, device=q.device)
+             if split > 1 else None)
+    return dq, dk, dv, delta, parts, split
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -24,7 +24,9 @@ from repro_torch.kernels.flash_attention import (
     BWD_ROUTES,
     HEAD_DIMS,
     ROUTES,
+    bwd_query_tile,
     bwd_smem_bytes,
+    dkdv_walks,
     flash_attention_bwd_cuda,
     flash_attention_cuda,
 )
@@ -209,6 +211,119 @@ def test_bwd_meta_route_takes_every_head_dim_on_both_routes(d, dtype):
         "bytes": (4 * b * h * sq * d + 4 * b * kv * skv * d) * isz + 2 * 4 * b * h * sq}
 
 
+# Every backward shape chip_smoke.py runs: its cases and its timed shapes,
+# (B, H, KV, Sq, Skv, D, causal, window, q_offset)
+BWD_PLAN_SHAPES = chip_smoke.BWD_CASES + chip_smoke.BWD_CASES_D256 + [
+    (b, h, kv, s, s, d, causal, 0, 0) for b, h, kv, s, d, causal in chip_smoke.BWD_MAIN.values()]
+
+
+@pytest.mark.parametrize("shape", BWD_PLAN_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_bwd_split_plan_covers_each_walk_once_and_balances_the_card(shape, dtype):
+    """The dK/dV walk's planner (``flash_attention.bwd_split``) on an H100's
+    132 SMs: each (head, query tile) that sees a key tile (found from the
+    masks, position by position) lands in exactly one slice of that tile's
+    walk, in walk order; where it splits, the heaviest slice is within 1.2
+    even shares (the launch's steps over its slots), or MIN_SLICE steps on a
+    launch smaller than that; it keeps P = 1 wherever the heaviest walk is
+    within 1.2 even shares, and at whisper's and smollm's D64 train shapes;
+    it splits recurrentgemma's MQA and qwen2.5's GQA 8:1; a forced P past
+    the heaviest walk's steps, or not a positive int, raises."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, kv, sq, skv, d, causal, window, q_offset = shape
+    g, tile, slots = h // kv, bwd_query_tile(d, dtype), fa.meta_slots(d, dtype)
+    assert slots % 132 == 0
+    steps = dkdv_walks(h, kv, sq, skv, d, dtype, causal, window, q_offset)
+    split = fa.bwd_split(b, h, kv, sq, skv, d, dtype, causal, window, q_offset, slots)
+    q_pos = q_offset + np.arange(sq)
+    k_pos = np.arange(skv)
+    keep = np.ones((sq, skv), bool)
+    if causal:
+        keep &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        keep &= q_pos[:, None] - k_pos[None, :] < window
+    for t, n0 in enumerate(range(0, skv, 64)):
+        seen = [m // tile for m in range(0, sq, tile) if keep[m:m + tile, n0:n0 + 64].any()]
+        assert seen == list(range(seen[0], seen[0] + len(seen))) if seen else True, seen
+        assert steps[t] == g * len(seen), (t, steps[t], seen)
+        per_head = len(seen)
+        walk = [(it // per_head, seen[it % per_head]) for it in range(steps[t])]  # the kernels'
+        assert walk == [(j, m) for j in range(g) for m in seen]
+        visited = []
+        for part in range(split):  # the kernels' it0, it1: step p·n/P, floor
+            start, stop = part * steps[t] // split, (part + 1) * steps[t] // split
+            assert start <= stop
+            visited += walk[start:stop]
+        assert visited == walk  # each step once, slices in walk order
+    heaviest, even = max(steps), b * kv * sum(steps) / slots
+    assert 1 <= split <= max(1, heaviest)
+    if split > 1:
+        assert heaviest > fa.SPLIT_AT * even
+        assert -(-heaviest // split) <= max(1.2 * even, fa.MIN_SLICE), (split, heaviest, even)
+    if heaviest <= 1.2 * even:
+        assert split == 1
+    label = next((k for k, v in chip_smoke.BWD_MAIN.items()
+                  if (v[0], v[1], v[2], v[3], v[4]) == (b, h, kv, sq, d) and sq == skv
+                  and (v[5], window, q_offset) == (causal, 0, 0)), "")
+    if label.startswith(("whisper", "smollm")):
+        assert split == 1, label
+    if label.startswith(("recurrentgemma", "qwen2.5")):
+        assert split > 1, label
+    q = torch.empty((b, h, sq, d), dtype=dtype, device="meta")
+    k = torch.empty((b, kv, skv, d), dtype=dtype, device="meta")
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    assert fa.bwd_plan(q, k, **mask) == split
+    assert fa.bwd_plan(q, k, split=max(1, heaviest), **mask) == max(1, heaviest)
+    for bad in (max(1, heaviest) + 1, 0, -1, True, 2.0):
+        with pytest.raises(ValueError, match="split"):
+            fa.bwd_plan(q, k, split=bad, **mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_bwd_meta_route_allocates_the_split_workspace_and_reports_the_same_cost(dtype):
+    """The meta shape function allocates what the card route allocates
+    (``_bwd_outputs``: dq, dk, dv, the fp32 Δ and, where the dK/dV walk is
+    split, the fp32 parts (2, P, B, KV, Skv, D)), with P planned for an
+    H100's slots as on the card: recurrentgemma's MQA at P = 4, a forced P =
+    3, and smollm's shape unsplit with no parts. Its reported cost stays
+    what the kernels must do, the parts not counted."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.op_cost import OpCost
+
+    class Allocations(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.made = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in (torch.ops.aten.empty.memory_format, torch.ops.aten.empty_like.default):
+                self.made.append((tuple(out.shape), out.dtype))
+            return out
+
+    for (b, h, kv, s, d), split, want in (((8, 10, 1, 512, 256), None, 4),
+                                          ((8, 10, 1, 512, 256), 3, 3),
+                                          ((8, 15, 5, 512, 64), None, 1)):
+        q, o, do = (torch.empty((b, h, s, d), dtype=dtype, device="meta") for _ in range(3))
+        k, v = (torch.empty((b, kv, s, d), dtype=dtype, device="meta") for _ in range(2))
+        lse = torch.empty((b, h, s), dtype=torch.float32, device="meta")
+        assert fa.bwd_plan(q, k, split=split) == want
+        seen, counter = Allocations(), OpCost()
+        with counter, seen:
+            fa.flash_attention_bwd_meta(q, k, v, o, do, lse, causal=True, split=split)
+        parts = [((2, want, b, kv, s, d), torch.float32)] if want > 1 else []
+        assert seen.made == [((b, h, s, d), dtype), ((b, kv, s, d), dtype),
+                             ((b, kv, s, d), dtype), ((b, h, s), torch.float32), *parts]
+        pairs = chip_smoke.unmasked_pairs(s, s, True, 0)
+        isz = torch.empty((), dtype=dtype).element_size()
+        assert counter.kernels["flash_attention_bwd"] == {
+            "calls": 1, "flops": 10 * d * pairs * b * h,
+            "bytes": (4 * b * h * s * d + 4 * b * kv * s * d) * isz + 2 * 4 * b * h * s}
+
+
 def test_reset_launch_counts():
     flash_attention_cuda.launches = 5
     flash_attention_bwd_cuda.launches = 4
@@ -332,13 +447,40 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
+def _walk_slices(g, sq, skv, causal, window, q_offset, tile, split):
+    """The dK/dV walk's slices as masks (split, G, Sq, Skv): True where the
+    (head, query row) of a key's column lies in slice p of its key tile's
+    walk. A key tile's walk (64 keys) is the group's G heads, then, for each,
+    the query tiles of ``tile`` rows that see any of the tile's keys; slice p
+    of its n steps is [p·n/split, (p+1)·n/split)."""
+    q_pos = q_offset + torch.arange(sq)
+    k_pos = torch.arange(skv)
+    keep = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        keep &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        keep &= q_pos[:, None] - k_pos[None, :] < window
+    sel = torch.zeros(split, g, sq, skv, dtype=torch.bool)
+    for n0 in range(0, skv, 64):
+        cols = slice(n0, min(n0 + 64, skv))
+        seen = [m for m in range(0, sq, tile) if keep[m:m + tile, cols].any()]
+        steps = [(j, m) for j in range(g) for m in seen]
+        for p in range(split):
+            for j, m in steps[p * len(steps) // split:(p + 1) * len(steps) // split]:
+                sel[p, j, m:m + tile, cols] = True
+    return sel
+
+
 def _model_backward(q, k, v, o, do, lse, product, *, causal, window, q_offset=0,
-                    round_p=lambda x: x, round_ds=lambda x: x):
+                    round_p=lambda x: x, round_ds=lambda x: x, split=1, tile=None):
     """A backward route's arithmetic (not its tile schedule), fp32 inside:
     every product is ``product(eq, x, y)``; P = exp(S·scale − lse) in fp32,
     ``round_p`` applied to it for dV = Pᵀ·dO; dS = P∘(dP − Δ), ``round_ds``
     applied to it for dQ = dS·K and dK = dSᵀ·Q, whose fp32 sums take the
-    scale. Returns fp32 (dq, dk, dv)."""
+    scale. With ``split`` > 1 the dK/dV walk (query tiles of ``tile`` rows)
+    is cut into slices (``_walk_slices``): each slice's dK and dV sum in
+    fp32, and the slices are added in order before dK takes the scale.
+    Returns fp32 (dq, dk, dv)."""
     b, h, sq, d = q.shape
     n_kv, skv = k.shape[1], k.shape[2]
     g, scale = h // n_kv, d ** -0.5
@@ -355,41 +497,55 @@ def _model_backward(q, k, v, o, do, lse, product, *, causal, window, q_offset=0,
     s = product("bkgsd,bkcd->bkgsc", qg, kf)
     p = torch.exp(s * scale - lse.reshape(b, n_kv, g, sq, 1)) * keep
     delta = (dog * og).sum(-1, keepdim=True)
-    dv = product("bkgsc,bkgsd->bkcd", round_p(p), dog)
     ds = round_ds(p * (product("bkgsd,bkcd->bkgsc", dog, vf) - delta))
     dq = product("bkgsc,bkcd->bkgsd", ds, kf) * scale
-    dk = product("bkgsc,bkgsd->bkcd", ds, qg) * scale
-    return dq.reshape(b, h, sq, d), dk, dv
+    if split == 1:
+        dv = product("bkgsc,bkgsd->bkcd", round_p(p), dog)
+        dk = product("bkgsc,bkgsd->bkcd", ds, qg) * scale
+        return dq.reshape(b, h, sq, d), dk, dv
+    dv = dk = None
+    for part in _walk_slices(g, sq, skv, causal, window, q_offset, tile, split):
+        pv = product("bkgsc,bkgsd->bkcd", round_p(p) * part, dog)
+        pk = product("bkgsc,bkgsd->bkcd", ds * part, qg)
+        dv, dk = (pv, pk) if dv is None else (dv + pv, dk + pk)
+    return dq.reshape(b, h, sq, d), dk * scale, dv
 
 
-def _bf16_backward(q, k, v, o, do, lse, *, causal, window, q_offset=0):
+def _bf16_backward(q, k, v, o, do, lse, *, causal, window, q_offset=0, split=1):
     """A model of the bf16 backward route's arithmetic: every product takes
     bf16 operands and sums in fp32; P rounded to bf16 for dV, dS rounded to
     bf16 for dQ and dK, whose fp32 sums take the scale before they are
-    rounded to bf16. Returns bf16 (dq, dk, dv)."""
+    rounded to bf16; with ``split`` > 1 the dK/dV walk's slices sum apart
+    in fp32 and are added in order, dK and dV rounded once, after the sum.
+    Returns bf16 (dq, dk, dv)."""
     grads = _model_backward(q, k, v, o, do, lse, torch.einsum, causal=causal, window=window,
-                            q_offset=q_offset, round_p=_bf16, round_ds=_bf16)
+                            q_offset=q_offset, round_p=_bf16, round_ds=_bf16, split=split,
+                            tile=bwd_query_tile(q.shape[-1], torch.bfloat16))
     return tuple(t.to(torch.bfloat16) for t in grads)
 
 
-def _tf32_backward(q, k, v, o, do, lse, *, causal, window, q_offset=0, products=3):
+def _tf32_backward(q, k, v, o, do, lse, *, causal, window, q_offset=0, products=3, split=1):
     """A model of the fp32 backward route's arithmetic: every product as
     ``_tf32_product`` (three TF32 products of split operands, small terms
     first; with ``products=1``, hi·hi' alone), P and dS kept fp32 and split
-    like any operand. Returns fp32 (dq, dk, dv)."""
+    like any operand; with ``split`` > 1 the dK/dV walk's slices sum apart
+    and are added in order. Returns fp32 (dq, dk, dv)."""
     return _model_backward(q, k, v, o, do, lse,
                            lambda eq, x, y: _tf32_product(eq, x, y, products),
-                           causal=causal, window=window, q_offset=q_offset)
+                           causal=causal, window=window, q_offset=q_offset, split=split,
+                           tile=bwd_query_tile(q.shape[-1], torch.float32))
 
 
-def _tf32_backward_d256(q, k, v, o, do, lse, *, causal, window, q_offset=0):
+def _tf32_backward_d256(q, k, v, o, do, lse, *, causal, window, q_offset=0, split=1):
     """A model of the fp32 route's order of sums at head_dim 256 (Cfg::SPLIT
     = 2): S, dP, P and dS as ``_tf32_backward`` (each score product over all
     of D in one sum, as the slab's two warps compute and swap them); dV and
     dK summed head by head of the group, then 16-query tile by tile, and dQ
     16-key tile by tile, each tile's product (three TF32 products) added
     into fp32 sums in that order, each 128-column half of an output (one
-    warp's) apart. Returns fp32 (dq, dk, dv)."""
+    warp's) apart. With ``split`` > 1 each slice of a key tile's walk
+    (``_walk_slices``) sums so apart, and the slices' sums are added in
+    order. Returns fp32 (dq, dk, dv)."""
     b, h, sq, d = q.shape
     n_kv, skv = k.shape[1], k.shape[2]
     g, scale, tile, half = h // n_kv, d ** -0.5, 16, d // 2
@@ -407,24 +563,40 @@ def _tf32_backward_d256(q, k, v, o, do, lse, *, causal, window, q_offset=0):
     delta = (dog * og).sum(-1, keepdim=True)
     ds = p * (_tf32_product("bkgsd,bkcd->bkgsc", dog, vf, 3) - delta)
 
-    def tiled(eq, x, y, n, axis_x, axis_y):
+    def tiled(eq, x, y, n, axis_x, axis_y, used=None):
         """sum over tiles of ``n`` rows (x's axis_x, y's axis_y) of x.y, a
-        column half of y at a time."""
+        column half of y at a time; with ``used``, only the tiles it marks
+        (the others' products are exact zeros). None if it marks none."""
         halves = []
         for c0 in range(0, d, half):
             acc = None
             for r0 in range(0, n, tile):
+                if used is not None and not used[r0 // tile]:
+                    continue
                 part = _tf32_product(eq, x.narrow(axis_x, r0, min(tile, n - r0)),
                                      y[..., c0:c0 + half].narrow(axis_y, r0, min(tile, n - r0)), 3)
                 acc = part if acc is None else acc + part
             halves.append(acc)
-        return torch.cat(halves, -1)
+        return None if halves[0] is None else torch.cat(halves, -1)
 
     dv = dk = None
-    for j in range(g):  # the group's heads in order, each walking its query tiles
-        pv = tiled("bksc,bksd->bkcd", p[:, :, j], dog[:, :, j], sq, 2, 2)
-        pk = tiled("bksc,bksd->bkcd", ds[:, :, j], qg[:, :, j], sq, 2, 2)
-        dv, dk = (pv, pk) if dv is None else (dv + pv, dk + pk)
+    slices = (None if split == 1 else
+              _walk_slices(g, sq, skv, causal, window, q_offset, tile, split))
+    for s_ in range(split):  # the walk's slices in order, each summed apart
+        sv = sk = None
+        for j in range(g):  # the group's heads in order, each walking its query tiles
+            pj, dsj, used = p[:, :, j], ds[:, :, j], None
+            if slices is not None:
+                sel = slices[s_, j]
+                pj, dsj = pj * sel, dsj * sel
+                used = [bool(sel[r0:r0 + tile].any()) for r0 in range(0, sq, tile)]
+            pv = tiled("bksc,bksd->bkcd", pj, dog[:, :, j], sq, 2, 2, used)
+            pk = tiled("bksc,bksd->bkcd", dsj, qg[:, :, j], sq, 2, 2, used)
+            if pv is not None:
+                sv, sk = (pv, pk) if sv is None else (sv + pv, sk + pk)
+        if sv is None:
+            sv, sk = torch.zeros_like(kf), torch.zeros_like(kf)
+        dv, dk = (sv, sk) if dv is None else (dv + sv, dk + sk)
     dq = tiled("bkgsc,bkcd->bkgsd", ds, kf, skv, 4, 2)
     return (dq * scale).reshape(b, h, sq, d), dk * scale, dv
 
@@ -506,6 +678,58 @@ def test_split_tf32_backward_holds_fp32_tolerance(b, h, kv, sq, skv, d, causal, 
     for name, (err, scale) in zip(("dq", "dk", "dv"),
                                   _model_errors(model, "float32", case, against)):
         assert err <= tol * scale, (name, err, scale)
+
+
+# the cases whose group has 3 or more q heads, with a forced split of the
+# dK/dV walk that cuts a head's walk (chip_smoke.uneven_split)
+BWD_MODEL_SPLIT_CASES = [c for c in BWD_MODEL_CASES if c[1] // c[2] >= 3]
+BWD_MODEL_SPLIT_CASES_D256 = [c for c in BWD_MODEL_CASES_D256 if c[1] // c[2] >= 3]
+
+
+def _forced_split(case, dtype):
+    b, h, kv, sq, skv, d, causal, window, q_offset = case
+    split = chip_smoke.uneven_split(h, kv, dkdv_walks(h, kv, sq, skv, d, dtype, causal, window,
+                                                      q_offset))
+    assert split > 1, case
+    return split
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal,window,q_offset", BWD_MODEL_SPLIT_CASES)
+@pytest.mark.parametrize("against", ["plain backward", "jax.vjp of the reference twin"])
+def test_bf16_backward_rounding_with_a_split_walk_holds_bf16_tolerance(
+        b, h, kv, sq, skv, d, causal, window, q_offset, against):
+    """The bf16 route with its dK/dV walk cut into an uneven number of
+    slices: each slice's dK and dV summed apart in fp32, the slices added in
+    order and rounded to bf16 once (csrc/flash_attention_bwd_sm90.cu's
+    reduction), within the bounds of the unsplit route
+    (``test_bf16_backward_rounding_holds_bf16_tolerance``)."""
+    tol = chip_smoke.BWD_TOL[torch.bfloat16] / 2 if against == "plain backward" else 2e-2
+    case = (b, h, kv, sq, skv, d, causal, window, q_offset)
+    split = _forced_split(case, torch.bfloat16)
+    model = lambda *args, **kw: _bf16_backward(*args, split=split, **kw)  # noqa: E731
+    for name, (err, scale) in zip(("dq", "dk", "dv"),
+                                  _model_errors(model, "bfloat16", case, against)):
+        assert err <= tol * scale, (name, split, err, scale)
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal,window,q_offset",
+                         BWD_MODEL_SPLIT_CASES + BWD_MODEL_SPLIT_CASES_D256)
+@pytest.mark.parametrize("against", ["plain backward", "jax.vjp of the reference twin"])
+def test_split_tf32_backward_with_a_split_walk_holds_fp32_tolerance(
+        b, h, kv, sq, skv, d, causal, window, q_offset, against):
+    """The fp32 route with its dK/dV walk cut into an uneven number of
+    slices: each slice summed apart in the route's order (at head_dim 256
+    tile by tile, ``_tf32_backward_d256``), the slices added in order
+    (csrc/flash_attention_bwd.cu's reduction), within the bounds of the
+    unsplit route (``test_split_tf32_backward_holds_fp32_tolerance``)."""
+    tol = chip_smoke.BWD_TOL[torch.float32] / 2 if against == "plain backward" else 2e-5
+    case = (b, h, kv, sq, skv, d, causal, window, q_offset)
+    split = _forced_split(case, torch.float32)
+    base = _tf32_backward_d256 if d == 256 else _tf32_backward
+    model = lambda *args, **kw: base(*args, split=split, **kw)  # noqa: E731
+    for name, (err, scale) in zip(("dq", "dk", "dv"),
+                                  _model_errors(model, "float32", case, against)):
+        assert err <= tol * scale, (name, split, err, scale)
 
 
 def test_one_tf32_product_misses_fp32_tolerance_in_the_backward():
@@ -767,14 +991,18 @@ def test_flash_gradients_on_card_match_the_plain_backward():
     The profiler (Kineto) drops the first GPU records of a session as out
     of its capture window (its log: "Record counts: Out-of-range = 1" or 2),
     so the session opens with one synchronized CUDA operation of its own,
-    whose record takes that drop; the backward's three kernels come after
-    it, and each must be seen exactly once."""
+    whose record takes that drop; the backward's kernels come after it
+    (three, or four where the planner splits the dK/dV walk: the parts'
+    reduction), and each must be seen exactly once."""
     _card()
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import bwd_plan
 
     for case in BWD_CARD_CASES:
         for dtype in DTYPES:
             q, k, v, do, kw = _grad_inputs(case, dtype)
+            n_kernels = len(chip_smoke.bwd_kernels(DTYPES[dtype][1], bwd_plan(q, k, **kw)))
             tol = DTYPES[dtype][2]
             leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
             before = ops.launch_counts()
@@ -789,9 +1017,10 @@ def test_flash_gradients_on_card_match_the_plain_backward():
                     and e.device_type == torch.autograd.DeviceType.CUDA}
             kernels = {name for name, _ in seen}
             route = [n for n in kernels if "_sm90" in n]
-            assert len(kernels) == 3, (case, dtype, kernels)  # the Δ pass, dK/dV, dQ
-            assert len(seen) == 3, (case, dtype, seen)  # each once
-            assert len(route) == (3 if dtype == "bfloat16" else 0), (case, dtype, kernels)
+            # the Δ pass, dK/dV, dQ (and the reduction of a split walk)
+            assert len(kernels) == n_kernels, (case, dtype, kernels)
+            assert len(seen) == n_kernels, (case, dtype, seen)  # each once
+            assert len(route) == (n_kernels if dtype == "bfloat16" else 0), (case, dtype, kernels)
             after = ops.launch_counts()
             assert after["flash_attention"] - before["flash_attention"] == 1
             assert after["flash_attention_bwd"] - before["flash_attention_bwd"] == 1
@@ -805,6 +1034,42 @@ def test_flash_gradients_on_card_match_the_plain_backward():
                 err = (got.float() - exp.float()).abs().max().item()
                 assert err <= tol * max(scale, 1.0), (case, dtype, err, scale)
                 assert torch.equal(got, rep), (case, dtype)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_forced_splits_on_card_match_the_plain_backward():
+    """The backward with its dK/dV walk unsplit (P = 1), split unevenly
+    (chip_smoke.uneven_split) and split as planned, on both routes: each
+    within 2e-5 (fp32) or 2e-2 (bf16) of the plain backward relative to the
+    gradients' magnitude, two launches at each P bit-equal, the planner's P
+    bit-equal to the same P forced; a P past the heaviest walk raises before
+    any launch."""
+    _card()
+    from repro_torch.kernels.flash_attention import bwd_plan
+
+    for case in BWD_CARD_CASES + [(2, 16, 2, 256, 256, 128, True, 0, 0)]:
+        for dtype in DTYPES:
+            q, k, v, do, kw = _grad_inputs(case, dtype)
+            tdt, tol = DTYPES[dtype][1:]
+            o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+            steps = dkdv_walks(*case[1:6], tdt, *case[6:])
+            planned = bwd_plan(q, k, **kw)
+            for split in (1, chip_smoke.uneven_split(case[1], case[2], steps), planned):
+                got = flash_attention_bwd_cuda(q, k, v, o, do, lse, split=split, **kw)
+                again = flash_attention_bwd_cuda(q, k, v, o, do, lse, split=split, **kw)
+                torch.cuda.synchronize()
+                for g, w, a in zip(got, want, again):
+                    scale = w.float().abs().max().item()
+                    err = (g.float() - w.float()).abs().max().item()
+                    assert err <= tol * max(scale, 1.0), (case, dtype, split, err, scale)
+                    assert torch.equal(g, a), (case, dtype, split)
+            by_plan = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(by_plan, got)), (case, dtype)
+            before = ops.launch_counts()["flash_attention_bwd"]
+            with pytest.raises(ValueError, match="split"):
+                flash_attention_bwd_cuda(q, k, v, o, do, lse, split=max(steps) + 1, **kw)
+            assert ops.launch_counts()["flash_attention_bwd"] == before
 
 
 @pytest.mark.gpu
