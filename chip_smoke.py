@@ -26,7 +26,8 @@ Phases; any failure makes the script exit non-zero:
    starts off 16 bytes); a misaligned contiguous view must raise
    ValueError in flash; two launches on the same inputs must agree bit
    for bit at each main-path shape of both kernels and at each fp32 flash
-   shape. Then CUDA-event times of the kernel, the
+   shape, and there the flash output with the rows' logsumexp must equal
+   the output without it bit for bit. Then CUDA-event times of the kernel, the
    plain version and, where there is one, the one PyTorch call that
    computes the same function (kernel and library call: device time over
    a replayed CUDA graph, and the eager time of a call, host included),
@@ -367,6 +368,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     dkdv_walks,
     flash_attention_bwd_cuda,
     flash_attention_cuda,
+    fwd_card_slots,
+    fwd_meta_slots,
     meta_slots,
     smem_bytes,
 )
@@ -456,6 +459,30 @@ FLASH_MAIN = {
     "whisper enc B8 S1500": (8, 6, 6, 1500, 64, False, 0),
     "whisper dec B8 S448": (8, 6, 6, 448, 64, True, 0),
 }
+
+
+def fwd_bf16_cases():
+    """Every bf16 forward case ``phase_flash`` runs, as (label, (B, H, KV,
+    Sq, Skv, D), mask keywords): the case lists, q as the last 64 rows of
+    S256, a ragged Sq100 Skv300 with an offset and a window, both ragged
+    cases at every head dim, and the main shapes."""
+    cases = [(f"B{b} H{h} KV{kv} S{s} D{d} causal={c} window={w}", (b, h, kv, s, s, d),
+              dict(causal=c, window=w, q_offset=0))
+             for b, h, kv, s, d, c, w in FLASH_CASES + EXTRA_CASES]
+    offset = dict(causal=True, window=96, q_offset=200)
+    cases += [("q_offset suffix S256 last64", (1, 4, 4, 64, 256, 64),
+               dict(causal=True, window=0, q_offset=192)),
+              ("Sq100 Skv300 q_offset=200 window=96", (2, 6, 2, 100, 300, 64), offset)]
+    for d in HEAD_DIMS:
+        cases += [(f"ragged B1 H4 KV2 S1000 D{d} causal", (1, 4, 2, 1000, 1000, d),
+                   dict(causal=True, window=0, q_offset=0)),
+                  (f"ragged B2 H6 KV1 Sq100 Skv300 q_offset=200 window=96 D{d}",
+                   (2, 6, 1, 100, 300, d), offset)]
+    cases += [(label, (b, h, kv, s, s, d), dict(causal=c, window=w, q_offset=0))
+              for label, (b, h, kv, s, d, c, w) in FLASH_MAIN.items()]
+    return cases
+
+
 # The fp32 route's shapes: those the fp32 logits checks give it
 FLASH_FP32 = ("smollm B8 S512", "recurrentgemma B8 S512", "llama3 B8 S512",
               "qwen2.5 B8 S512", "granite B8 S512", "whisper enc B8 S1500",
@@ -879,6 +906,16 @@ def phase_flash(failures):
     shapes. Returns ({dtype: {label: timed row}}, {dtype: worst error})."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    # the bf16 route's persistent grid walks the order fwd_tile_order
+    # computes for an H100's blocks; the card must hold as many
+    slots = {d: (fwd_card_slots(d, torch.cuda.current_device()), fwd_meta_slots(d))
+             for d in HEAD_DIMS}
+    print(f"  {ROUTES[torch.bfloat16][0]} persistent blocks (card's SMs x blocks a SM, occupancy "
+          "calculator; fwd_tile_order's for an H100): "
+          + ", ".join(f"D={d}: {c} ({m})" for d, (c, m) in slots.items()))
+    if any(c != m for c, m in slots.values()):
+        failures.append(f"{ROUTES[torch.bfloat16][0]}: the card's persistent blocks {slots} "
+                        "differ from fwd_tile_order's")
 
     def check(label, q, k, v, want, **kw):
         out = ops.flash_attention(q, k, v, force="kernel", **kw)
@@ -955,7 +992,14 @@ def phase_flash(failures):
                   f"{'equal bit for bit' if same else 'DIFFER'}")
             if not same:
                 failures.append(f"flash_attention {label} {dt}: two launches differ")
-            del first, second
+            # the rows' logsumexp is written in the epilogue and moves no bit of O
+            with_lse, _ = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            same = torch.equal(first, with_lse)
+            print(f"case flash O with lse {label} {dt}: "
+                  f"{'equal bit for bit to' if same else 'DIFFERS from'} O without")
+            if not same:
+                failures.append(f"flash_attention {label} {dt}: O with lse differs from O without")
+            del first, second, with_lse
             if window and window < s:
                 mask = window_mask(s, window, q.device)
                 library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731

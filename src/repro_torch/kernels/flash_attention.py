@@ -2,7 +2,9 @@
 routes:
 
 - bf16 takes ``csrc/flash_attention_sm90.cu``: wgmma on the tensor cores,
-  TMA loads into swizzled shared memory, a two-stage K/V ring on mbarriers;
+  TMA loads into swizzled shared memory, a two-stage K/V ring on mbarriers,
+  a persistent grid walking (batch, head, query tile) work tiles heaviest
+  first (``fwd_tile_order`` is its twin);
 - fp32 takes ``csrc/flash_attention.cu``: mma.sync on the tensor cores, each
   fp32 product as three TF32 products of split operands (hi = tf32(x),
   lo = x - hi), which hold fp32's tolerance where one TF32 product does
@@ -108,6 +110,55 @@ def smem_bytes(head_dim: int, dtype: torch.dtype) -> int:
     fn = getattr(_build.load(source), f"{source}_smem_bytes")
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return fn(head_dim)
+
+
+def fwd_query_rows(head_dim: int) -> int:
+    """Query rows of one work tile of the bf16 forward (the source's
+    ``Cfg::BQ``): one consumer warpgroup of 64 rows up to head_dim 64, two
+    above."""
+    return 64 if head_dim <= 64 else 128
+
+
+def fwd_meta_slots(head_dim: int) -> int:
+    """The bf16 forward's blocks a launch holds at once on one H100: its SMs
+    times the blocks a SM the source's launch bounds set (two of one
+    consumer up to head_dim 64, one of two above)."""
+    return H100_SMS * (2 if head_dim <= 64 else 1)
+
+
+@functools.cache
+def fwd_card_slots(head_dim: int, index: int) -> int:
+    """The bf16 forward's persistent blocks on card ``index``: its SMs times
+    the kernel's blocks a SM, as the CUDA occupancy calculator gives them."""
+    source, _ = ROUTES[torch.bfloat16]
+    fn = getattr(_build.load(source), f"{source}_slots")
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    with torch.cuda.device(index):
+        slots = fn(head_dim)
+    if slots <= 0:
+        raise RuntimeError(f"{source}_slots({head_dim}) failed: {slots}")
+    return slots
+
+
+def fwd_tile_order(b: int, h: int, sq: int, head_dim: int, slots: int) -> list:
+    """The bf16 forward's walk, the kernel's ``work_index`` and
+    ``work_tile`` twin: for each block of its grid (``min(tiles, slots)``),
+    the (batch, q head, query tile) work tiles it takes, in order. Work tile
+    w is query tile ``q_tiles - 1 - w // (b h)`` (the last, heaviest under a
+    causal mask, first), batch ``w % (b h) // h``, head ``w % h`` (a KV
+    group's heads side by side). The blocks take them in rounds of ``grid``,
+    back and forth: in round k block i takes w = k grid + i for even k and
+    k grid + grid - 1 - i for odd k."""
+    q_tiles = -(-sq // fwd_query_rows(head_dim))
+    n = b * h * q_tiles
+    grid = min(n, slots)
+    order = [[] for _ in range(grid)]
+    for k in range(-(-n // grid)):
+        for i in range(grid):
+            w = k * grid + (grid - 1 - i if k % 2 else i)
+            if w < n:
+                order[i].append((w % (b * h) // h, w % h, q_tiles - 1 - w // (b * h)))
+    return order
 
 
 def _check(q, k, v, device="cuda"):

@@ -29,6 +29,9 @@ from repro_torch.kernels.flash_attention import (
     dkdv_walks,
     flash_attention_bwd_cuda,
     flash_attention_cuda,
+    fwd_meta_slots,
+    fwd_query_rows,
+    fwd_tile_order,
 )
 from repro_torch.kernels.rglru import rglru_scan_bwd_cuda, rglru_scan_cuda
 from repro_torch.nn import attention
@@ -322,6 +325,86 @@ def test_bwd_meta_route_allocates_the_split_workspace_and_reports_the_same_cost(
         assert counter.kernels["flash_attention_bwd"] == {
             "calls": 1, "flops": 10 * d * pairs * b * h,
             "bytes": (4 * b * h * s * d + 4 * b * kv * s * d) * isz + 2 * 4 * b * h * s}
+
+
+def _fwd_walk_tiles(q_tile, sq, d, causal, window):
+    """Key tiles of the bf16 forward's walk for a query tile (the source's
+    walk_of)."""
+    bq, bk = fwd_query_rows(d), (64 if d >= 256 else 128)
+    q_start = q_tile * bq
+    hi = -(-sq // bk)
+    if causal:
+        hi = min(hi, (q_start + bq - 1) // bk + 1)
+    lo = (q_start - window) // bk if window > 0 and q_start - window > 0 else 0
+    return max(hi - lo, 0)
+
+
+@pytest.mark.parametrize("shape", [*chip_smoke.FLASH_MAIN.values(), (2, 4, 2, 200, 16, True, 0),
+                                   (2, 10, 1, 1000, 256, True, 256), (1, 2, 1, 1, 32, True, 0)])
+@pytest.mark.parametrize("slots", ["h100", 1, 7, 100_000])
+def test_fwd_tile_order_visits_each_work_tile_once_heaviest_first(shape, slots):
+    """The bf16 forward's persistent walk (fwd_tile_order, the twin of the
+    kernel's work_index and work_tile): every (batch, head, query tile) once;
+    a block's query tiles, and each round's, never rise (the last query
+    tile, the heaviest under a causal mask, first); a grid of min(tiles,
+    slots) blocks; and, on the main shapes at an H100's blocks, no block's key tiles past
+    the mean by more than the heaviest tile's."""
+    b, h, _, s, d, causal, window = shape
+    slots = fwd_meta_slots(d) if slots == "h100" else slots
+    order = fwd_tile_order(b, h, s, d, slots)
+    q_tiles = -(-s // fwd_query_rows(d))
+    n = b * h * q_tiles
+    assert len(order) == min(n, slots)
+    seen = [t for block in order for t in block]
+    assert sorted(seen) == [(bi, hi, qi) for bi in range(b) for hi in range(h)
+                            for qi in range(q_tiles)]
+    for block in order:
+        assert all(x[2] >= y[2] for x, y in zip(block, block[1:]))
+    rounds = max(len(block) for block in order)
+    for k in range(rounds - 1):
+        this = [block[k][2] for block in order if len(block) > k]
+        later = [block[k + 1][2] for block in order if len(block) > k + 1]
+        assert min(this) >= max(later)
+    if shape in chip_smoke.FLASH_MAIN.values() and slots == fwd_meta_slots(d):
+        weight = [_fwd_walk_tiles(qt, s, d, causal, window) for qt in range(q_tiles)]
+        loads = [sum(weight[qt] for _, _, qt in block) for block in order]
+        assert max(loads) <= sum(loads) / len(loads) + max(weight)
+
+
+def test_fwd_variants_edit_the_shipped_source():
+    """Each variant of benchmarks/torch_flash_fwd_variants.py changes the
+    shipped bf16 forward source at lines it holds once, and each differs
+    from the source and from every other variant."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(chip_smoke.__file__).parent / "benchmarks" / "torch_flash_fwd_variants.py"
+    spec = importlib.util.spec_from_file_location("torch_flash_fwd_variants", path)
+    variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(variants)
+    text = (_build.CSRC / "flash_attention_sm90.cu").read_text()
+    sources = {name: variants.variant_source(text, edits)
+               for name, edits in variants.VARIANTS.items()}
+    assert sources["base"] == text
+    assert len(set(sources.values())) == len(sources)
+    with pytest.raises(RuntimeError, match="once"):
+        variants.variant_source(text.replace("PINGPONG_HEAD_DIMS", "X"), [variants.NOPINGPONG])
+
+
+def test_fwd_bf16_cases_hold_every_bf16_forward_case_of_chip_smoke():
+    """chip_smoke.fwd_bf16_cases, which the forward's A/B and variants
+    scripts hold bit for bit, has every case list, the main shapes and both
+    ragged cases at every head dim."""
+    cases = chip_smoke.fwd_bf16_cases()
+    shapes = {(shape, kw["causal"], kw["window"], kw["q_offset"]) for _, shape, kw in cases}
+    assert len(shapes) == len(cases)
+    for b, h, kv, s, d, causal, window in (chip_smoke.FLASH_CASES + chip_smoke.EXTRA_CASES
+                                           + list(chip_smoke.FLASH_MAIN.values())):
+        assert ((b, h, kv, s, s, d), causal, window, 0) in shapes
+    for d in HEAD_DIMS:
+        assert ((1, 4, 2, 1000, 1000, d), True, 0, 0) in shapes
+        assert ((2, 6, 1, 100, 300, d), True, 96, 200) in shapes
+    assert ((1, 4, 4, 64, 256, 64), True, 0, 192) in shapes
 
 
 def test_reset_launch_counts():
@@ -1111,6 +1194,25 @@ def test_flash_lse_on_card_matches_plain():
             assert torch.equal(o, flash_attention_cuda(q, k, v, **kw))  # lse changes no bit of o
             np.testing.assert_allclose(lse.cpu().numpy(), want.cpu().numpy(),
                                        atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_bf16_forward_schedule_keeps_o_equal_with_and_without_lse_on_card():
+    """The bf16 forward's schedule (a persistent walk of work tiles, the
+    pipeline inside a consumer warpgroup, the ping-pong of two) only moves
+    when independent work runs: at the main paths' bf16 shapes, a ragged
+    head_dim 16 case and a ragged head_dim 256 MQA window case, O without
+    the rows' lse equals O with it bit for bit, and two launches agree."""
+    _card()
+    cases = [(b, h, kv, s, s, d, c, w, 0) for b, h, kv, s, d, c, w in chip_smoke.FLASH_MAIN.values()]
+    cases += [(2, 4, 2, 200, 200, 16, True, 0, 0), (2, 10, 1, 1000, 1000, 256, True, 256, 0)]
+    for case in cases:
+        q, k, v, _, kw = _grad_inputs(case, "bfloat16", seed=4)
+        o = flash_attention_cuda(q, k, v, **kw)
+        with_lse, _ = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        again = flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(o, with_lse) and torch.equal(o, again), case
 
 
 @pytest.mark.gpu
