@@ -10,10 +10,12 @@ backward wrapper (``kernels/flash_attention.py``) builds its own ``csrc/``
 into its own ``build/kernels/``, and both run on the same inputs:
 
 - on every case of ``chip_smoke.BWD_CASES`` and ``BWD_CASES_D256`` and
-  every ``BWD_MAIN`` shape, whether this tree's gradients with the dK/dV
+  every ``BWD_MAIN`` shape, whether this tree's dK and dV with the dK/dV
   walk unsplit (P = 1) equal the other tree's bit for bit, and whether
-  they do at this tree's planned P (a split walk adds its parts in another
-  order);
+  they do at this tree's planned P, the other tree's forced to the same P
+  where it takes a split; apart from them, whether dQ does, and each tree's dQ error
+  against the plain backward (``ref.flash_attention_bwd_ref``) over the
+  largest magnitude of dQ (the fused route sums dQ in another order);
 - at the ``BWD_MAIN`` shapes in bf16, and at ``BWD_FP32``'s and qwen2.5's
   in fp32, the device time of one call (``chip_smoke.device_ms``: a
   replayed CUDA graph) of the other tree, this tree at its planned P, this
@@ -36,6 +38,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (puts src/ on the path)
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 
 FP32_TIMED = (*chip_smoke.BWD_FP32, "qwen2.5 train B8 S512")
 
@@ -84,11 +87,20 @@ def main(argv) -> int:
             mine = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, split=1, **kw)
             planned = fa.bwd_plan(q, k, **kw)
             mine_planned = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+            theirs_planned = (other.flash_attention_bwd_cuda(q, k, v, o, do, lse, split=planned,
+                                                             **kw) if unsplit else theirs)
+            want_dq = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)[0].float()
             torch.cuda.synchronize()
-            same = all(torch.equal(a, b_) for a, b_ in zip(mine, theirs))
-            same_planned = all(torch.equal(a, b_) for a, b_ in zip(mine_planned, theirs))
-            print(f"bits {dt} {label}: P=1 {'equal' if same else 'NOT equal'} to the other "
-                  f"tree's; planned P={planned} {'equal' if same_planned else 'not equal'}")
+            same = all(torch.equal(a, b_) for a, b_ in zip(mine[1:], theirs[1:]))
+            same_planned = all(torch.equal(a, b_)
+                               for a, b_ in zip(mine_planned[1:], theirs_planned[1:]))
+            rel = [(g.float() - want_dq).abs().max().item() / want_dq.abs().max().item()
+                   for g in (mine[0], mine_planned[0], theirs[0])]
+            print(f"bits {dt} {label}: dK/dV P=1 {'equal' if same else 'NOT equal'} to the "
+                  f"other tree's; planned P={planned} {'equal' if same_planned else 'NOT equal'}; "
+                  f"dQ P=1 {'equal' if torch.equal(mine[0], theirs[0]) else 'not equal'}, "
+                  f"max_abs_err/max|dQ| against plain: this P=1 {rel[0]:.2e}, planned "
+                  f"{rel[1]:.2e}, other {rel[2]:.2e} (tol {chip_smoke.BWD_TOL[dtype]:g})")
             timed = label in chip_smoke.BWD_MAIN and (dtype == torch.bfloat16
                                                       or label in FP32_TIMED)
             if not timed:

@@ -1,15 +1,28 @@
 #!/usr/bin/env python3
-"""Tile-shape variants of the port's flash-attention backward on one NVIDIA
+"""Variants of the port's flash-attention backward on one NVIDIA
 H100, either route. Run from the root of a checkout:
 
     python3 benchmarks/torch_flash_bwd_variants.py [bf16|fp32] [VARIANT ...]
 
-Each variant is a route's source with some of its tile constants changed;
-``base`` is the source as it ships. bf16 (the default,
-``src/repro_torch/csrc/flash_attention_bwd_sm90.cu``): a 3-stage ring
-(``st3``), 128-key tiles streamed through the dQ kernel (``qbn128``),
-128-query tiles streamed through the dK/dV kernel (``kvbn128``, at D <=
-64), and their pairs. fp32 (``src/repro_torch/csrc/flash_attention_bwd.cu``):
+Each variant is a route's source with some of its constants or lines
+changed; ``base`` is the source as it ships. bf16 (the default,
+``src/repro_torch/csrc/flash_attention_bwd_sm90.cu``, whose dK/dV kernel
+computes dQ too at FUSED_DQ_HEAD_DIMS, 16 to 64): ``split3``, no head dim
+fused (the Δ, dK/dV and dQ kernels of the split route, the design before
+the fusion); a 3-stage ring (``st3``, fused, and ``split3_st3``); on the
+split route at D <= 64, 128-key tiles streamed through the dQ kernel
+(``split3_qbn128``) and 128-query tiles streamed through the dK/dV kernel
+(``split3_kvbn128``, which the fused route's 64 x 64 tiles rule out); the
+fused route with its dQ sum in ascending key-tile order at every launch
+size, the grid's order before the fusion (``ascending``), and in groups of
+a wave's key tiles at every size (``grouped``: base's library,
+``flash_attention.dq_group`` replaced), and in groups of 2 or 3 past two
+waves (``group2``, ``group3``); each dQ part written to shared
+memory while the next step's S and dP run instead of after its own step's
+products (``dqearly``); and two of the fused route with a part of its dQ
+sum taken out, to read what the sum costs, whose dQ is wrong: ``noorder``
+adds without waiting its turn, ``noadd`` adds
+nothing. fp32 (``src/repro_torch/csrc/flash_attention_bwd.cu``):
 two D tiles folded at once, not four (``fold2``), three blocks a SM up to
 D = 64 (``mb3``, which caps ptxas at 168 registers), 16-row streamed tiles
 at every head dim (``bs16``), their pairs, and the score products' K-major
@@ -56,7 +69,20 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
 STAGES3 = ("constexpr int STAGES = 2;", "constexpr int STAGES = 3;")
-QBN128 = ("static constexpr int Q_BN = 64;", "static constexpr int Q_BN = 128;")
+UNFUSED = ("constexpr int FUSED_DQ_HEAD_DIMS = 16 | 32 | 64;", "constexpr int FUSED_DQ_HEAD_DIMS = 0;")
+NOORDER = ("          wait_turn(ctr, turn);\n", "")
+ASCENDING = ("C::FUSED ? group : 1,", "1,")
+# each dQ part written to shared memory while the next step's S and dP run,
+# not after its own step's products
+DQ_EARLY = (("      issue_ss<D, BN>(dp, s_v, BM, do_st);  // dPᵀ = V dOᵀ\n      wgmma_commit();\n",
+             "      issue_ss<D, BN>(dp, s_v, BM, do_st);  // dPᵀ = V dOᵀ\n      wgmma_commit();\n"
+             "      if constexpr (C::FUSED) {\n        if (step > 0) put_dq(step - 1);\n      }\n"),
+            ("        put_dq(step);\n      }\n    }\n",
+             "      }\n    }\n    if constexpr (C::FUSED) {\n      if (n_steps > 0) put_dq(n_steps - 1);\n"
+             "    }\n"))
+NOADD = ("            tma_store_or_add(&tm_dqw,", "            if (false) tma_store_or_add(&tm_dqw,")
+QBN128 = ("static constexpr int Q_BN = D <= 128 ? 64 : 32;",
+          "static constexpr int Q_BN = D <= 64 ? 128 : D <= 128 ? 64 : 32;")
 KVBN128 = ("static constexpr int KV_BN = D <= 64 ? 64 : 32;",
            "static constexpr int KV_BN = D <= 64 ? 128 : 32;")
 FOLD2 = ("static constexpr int FOLD = 4 < DT ? 4 : DT;",
@@ -106,12 +132,25 @@ REDUNDANT_Q = ("""    if constexpr (C::SPLIT == 1) {
       scores<D, NS>(s, qw, kst);""")
 # variants launched with the dK/dV walk's split forced (P = 1: unsplit)
 FORCED = {"nosplit": 1, "p2": 2, "p3": 3, "p6": 6}
+# bf16 variants that launch base's library with the fused route's dQ order
+# planned otherwise: groups of a wave's key tiles at every launch size
+# (``grouped``; base groups them only within DQ_GROUP_WAVES waves), and
+# groups of 2 or 3 key tiles past that
+ORDERS = {"grouped": lambda b, kv, split, k_tiles, slots: max(1, slots // (b * kv * split)),
+          **{f"group{g}": (lambda g: lambda b, kv, split, k_tiles, slots: (
+              g if b * kv * split * k_tiles > fa.DQ_GROUP_WAVES * slots
+              else max(1, slots // (b * kv * split))))(g) for g in (2, 3)}}
+PLANNER_ONLY = {**FORCED, **ORDERS}
 # route -> (dtype, source, {variant: edits}, {label: (B, H, KV, S, D, causal)} timed)
 ROUTES = {
     "bf16": (torch.bfloat16, "flash_attention_bwd_sm90",
-             {"base": (), **dict.fromkeys(FORCED, ()), "st3": (STAGES3,), "qbn128": (QBN128,),
-              "st3_qbn128": (STAGES3, QBN128), "kvbn128": (KVBN128,),
-              "kvbn128_qbn128": (KVBN128, QBN128)},
+             {"base": (), **dict.fromkeys(FORCED, ()), **dict.fromkeys(ORDERS, ()),
+              "split3": (UNFUSED,), "st3": (STAGES3,),
+              "split3_st3": (UNFUSED, STAGES3), "split3_qbn128": (UNFUSED, QBN128),
+              "split3_kvbn128": (UNFUSED, KVBN128), "ascending": (ASCENDING,), "dqearly": DQ_EARLY,
+
+              "noorder": (NOORDER,),
+              "noadd": (NOADD,)},
              chip_smoke.BWD_MAIN),
     "fp32": (torch.float32, "flash_attention_bwd",
              {"base": (), **dict.fromkeys(FORCED, ()), "fold2": (FOLD2,), "mb3": (MB3,),
@@ -122,6 +161,16 @@ ROUTES = {
 }
 
 
+def variant_source(text: str, edits) -> str:
+    """The source with each (old, new) edit made; raises unless each old
+    text is in it once."""
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{old!r} is not in the source once")
+        text = text.replace(old, new)
+    return text
+
+
 def build_variants(source, variants) -> dict[str, tuple[Path, list[str]]]:
     """{variant: (library, ptxas lines reporting a spill or serialized
     wgmma)}; raises with nvcc's output if a build fails."""
@@ -130,11 +179,7 @@ def build_variants(source, variants) -> dict[str, tuple[Path, list[str]]]:
     text = (_build.CSRC / f"{source}.cu").read_text()
     procs = {}
     for name, edits in variants.items():
-        src = text
-        for old, new in edits:
-            if src.count(old) != 1:
-                raise RuntimeError(f"variant {name}: {old!r} is not in the source once")
-            src = src.replace(old, new)
+        src = variant_source(text, edits)
         path = out_dir / f"{source}_{name}.cu"
         path.write_text(src)
         lib = path.with_suffix(".so")
@@ -154,11 +199,10 @@ def build_variants(source, variants) -> dict[str, tuple[Path, list[str]]]:
     return built
 
 
-def entry_point(lib: Path, source: str):
+def entry_point(lib: Path, source: str, dtype):
     """The variant's C entry point, typed as the wrapper types the shipped one."""
     fn = getattr(ctypes.CDLL(str(lib)), source)
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    fn.argtypes = fa.bwd_argtypes(dtype)
     fn.restype = ctypes.c_int
     return fn
 
@@ -178,12 +222,12 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"card: {chip_smoke.card_line()}; route {route}: {source}.cu")
     # the forced splits launch base's library
-    built = build_variants(source, {n: e for n, e in variants.items() if n not in FORCED})
+    built = build_variants(source, {n: e for n, e in variants.items() if n not in PLANNER_ONLY})
     for name, (_, problems) in built.items():
         print(f"{name}: ptxas spills / serialized wgmma: {problems or 'none'}")
-    fns = {name: entry_point(built[name if name in built else "base"][0], source)
+    fns = {name: entry_point(built[name if name in built else "base"][0], source, dtype)
            for name in variants}
-    shipped = fa._bwd
+    shipped, shipped_group = fa._bwd, fa.dq_group
     gen = torch.Generator(device="cuda").manual_seed(2)
     try:
         for label, (b, h, kv, s, d, causal) in shapes.items():
@@ -194,6 +238,7 @@ def main(argv) -> int:
             split = {name: FORCED.get(name) for name in fns}
             for name, fn in fns.items():
                 fa._bwd = lambda dtype, fn=fn: fn
+                fa.dq_group = ORDERS.get(name, shipped_group)
                 try:
                     grads[name] = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
                                                               split=split[name])
@@ -203,6 +248,7 @@ def main(argv) -> int:
             for order in (list(grads), list(reversed(grads))):
                 for name in order:
                     fa._bwd = lambda dtype, fn=fns[name]: fn
+                    fa.dq_group = ORDERS.get(name, shipped_group)
                     times[name].append(chip_smoke.device_ms(
                         lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
                                                             split=split[name]),
@@ -225,6 +271,7 @@ def main(argv) -> int:
                           ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)))
         for name, fn in fns.items():
             fa._bwd = lambda dtype, fn=fn: fn
+            fa.dq_group = ORDERS.get(name, shipped_group)
             rels = []
             for args, kw, want in cases:
                 try:
@@ -238,7 +285,7 @@ def main(argv) -> int:
             print(f"{name}: max_abs_err/max|grad| against plain on chip_smoke.BWD_CASES + "
                   f"BWD_CASES_D256 {', '.join(rels)}")
     finally:
-        fa._bwd = shipped
+        fa._bwd, fa.dq_group = shipped, shipped_group
     return 0
 
 

@@ -362,6 +362,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     BWD_ROUTES,
     HEAD_DIMS,
     ROUTES,
+    bwd_fuses_dq,
     bwd_plan,
     bwd_smem_bytes,
     card_slots,
@@ -594,8 +595,10 @@ BWD_MAIN = {"smollm train B8 S512": (8, 15, 5, 512, 64, True),
             "whisper dec train B8 S448": (8, 6, 6, 448, 64, True)}
 BWD_FP32 = ("smollm train B8 S512", "recurrentgemma train B8 S512")
 # The backward's kernels by their names in the sources (the profiler's names
-# carry template arguments): flash_bwd_{delta,dkdv,dq}, and flash_bwd_reduce
-# where the dK/dV walk is split (P > 1), with _sm90 on the bf16 route
+# carry template arguments): flash_bwd_{delta,dkdv,dq}, flash_bwd_dqsum in
+# place of flash_bwd_dq where the bf16 route fuses dQ into the dK/dV kernel
+# (head_dim 16 to 64), and flash_bwd_reduce where the dK/dV walk is split
+# (P > 1), with _sm90 on the bf16 route
 SPLIT_SESSIONS = 3  # profiler sessions for a complete split of the backward
 BWD_KERNEL = re.compile(r"flash_bwd_[a-z0-9]+(?:_sm90)?")
 # Full-width training: B x S tokens a step, the steps of each run, and the
@@ -1022,10 +1025,13 @@ def grad_inputs(gen, b, h, kv, sq, skv, d, dtype):
     return q, k, v, randn(gen, (b, h, sq, d), dtype)
 
 
-def bwd_kernels(dtype, split) -> set:
-    """The backward's kernels a call at the dK/dV walk's split ``split``."""
+def bwd_kernels(dtype, d, split) -> set:
+    """The backward's kernels a call at head_dim ``d`` and the dK/dV walk's
+    split ``split``: dQ's own kernel, or on the fused route the pass that
+    scales and rounds its sums."""
     tail = "_sm90" if dtype == torch.bfloat16 else ""
-    return {f"flash_bwd_{n}{tail}" for n in ("delta", "dkdv", "dq")
+    dq = "dqsum" if bwd_fuses_dq(d, dtype) else "dq"
+    return {f"flash_bwd_{n}{tail}" for n in ("delta", "dkdv", dq)
             + (("reduce",) if split > 1 else ())}
 
 
@@ -1106,6 +1112,10 @@ def phase_flash_bwd(failures):
         if any(c != m for c, m in slots.values()):
             failures.append(f"{source}: the card's dK/dV slots {slots} differ from the meta "
                             "route's, whose workspace then differs from the card's")
+        print(f"  {source} dQ by head dim: " + ", ".join(
+            f"D={d}: " + ("fused into dK/dV, its parts summed in order, flash_bwd_dqsum"
+                          if bwd_fuses_dq(d, dtype) else "its own kernel, flash_bwd_dq")
+            for d in HEAD_DIMS))
 
     def check(label, q, k, v, do, **kw):
         """The case at P = 1, an uneven forced P and the planner's P."""
@@ -1201,7 +1211,7 @@ def phase_flash_bwd(failures):
         # again, up to SPLIT_SESSIONS. A kernel missing from a session, one
         # that is not the call's, or one seen more than once a call fails at
         # once. Every session's counts go into the kernels line.
-        want_kernels = bwd_kernels(dtype, row["split"])
+        want_kernels = bwd_kernels(dtype, d, row["split"])
         row["split_sessions"] = []
         for _ in range(SPLIT_SESSIONS):
             row["kernel_split_ms"], runs = device_split(kernel)

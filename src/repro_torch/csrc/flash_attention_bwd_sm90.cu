@@ -29,22 +29,27 @@
 // applied in fp32: folded with log2(e) into the exponent of P, and on the
 // fp32 sums of dQ and dK before they are rounded to bf16.
 //
-// Deterministic, with no atomics: the FlashAttention-2 split into three
-// kernels, each output element summed by one thread in a fixed order, and
-// a fourth where the dK/dV walk is split (below).
+// Deterministic: every output element is summed in a fixed order. Two
+// routes by head dim. At D = 128 and 256, the FlashAttention-2 split into a
+// Δ pass, a dK/dV kernel and a dQ kernel, no atomics. At D = 16, 32 and 64
+// (FUSED_DQ_HEAD_DIMS, the fused route) the dK/dV kernel also computes dQ
+// and adds its parts across blocks in a fixed order (below), and a pass
+// scales and rounds the sums. The kernels:
 //   1. flash_bwd_delta_sm90: Δ, D/8 threads a row, 16 bytes each, summed
-//      over a fixed shuffle tree.
+//      over a fixed shuffle tree; fused, it also zeroes the turn counters.
 //   2. flash_bwd_dkdv_sm90: one block a (b, kv head, key tile of 64, slice
 //      of the walk). It keeps its K and V tiles and the dK, dV accumulators
 //      (registers) and walks its slice of the key tile's walk: the G query
 //      heads of its group, then the query tiles that see any of its keys,
 //      in that order, streaming Q, dO and the rows' lse and Δ through the
-//      ring.
+//      ring; fused, each step's dQ part too.
 //   3. flash_bwd_reduce_sm90 (split > 1 only): dK = scale·Σ parts, dV = Σ
 //      parts, in fp32, each rounded to bf16 once.
-//   4. flash_bwd_dq_sm90: one block a (b, q head, query tile of 64). It keeps
-//      Q, dO, the rows' lse and Δ and walks the key tiles its rows see,
-//      streaming K and V through the ring.
+//   4. flash_bwd_dq_sm90 (D = 128, 256): one block a (b, q head, query tile
+//      of 64). It keeps Q, dO, the rows' lse and Δ and walks the key tiles
+//      its rows see, streaming K and V through the ring. Fused,
+//      flash_bwd_dqsum_sm90 instead: dQ = scale·(the fp32 sum) in bf16, and
+//      zeros for a query tile no key tile's walk holds.
 // The split of the dK/dV walk (the caller's `split`, P; the plan is
 // kernels/flash_attention.py:bwd_split), as in flash_attention_bwd.cu: under
 // MQA (recurrentgemma, G = 10) and GQA 8:1 (qwen2.5) the grid had 64 and 128
@@ -64,6 +69,54 @@
 // the forward's do; partial tiles are masked per element. Rows past Sq and
 // keys past Skv load as zeros (TMA fills them) and get probability 0.
 //
+// The fused route (D <= 64, where the dK/dV tile is 64 queries wide, as the
+// dQ tile is). The split route computes S = Q·Kᵀ and dP = dO·Vᵀ twice, in
+// both tile kernels: seven products a (query, key) pair where five are
+// needed. The dK/dV kernel already holds dSᵀ for every pair it visits, so
+// after probs packs it the consumer stores it as bf16 into one of two
+// 64 x 64 tiles (key rows of 64 queries, 128-byte swizzle; keys past Skv as
+// zeros: their P, unmasked, may be inf and their K rows are zero), meets
+// its warpgroup on named barrier 1, and issues dQ_part = dS·K as SS wgmma
+// m64nDk16 with both transpose bits (dS MN-major from the tile, K MN-major
+// from the resident tile), in the commit group of dV and dK. Those two
+// products, their order and their inputs are the split route's: dK and dV
+// keep its bits at every P. The part, fp32 and unscaled, goes into one of
+// two buffers of 64 x D in panels of 32 columns (128-byte swizzle; 16 at D
+// = 16, 64-byte), one adder warp each (producer warps 1 and 2).
+// The ordered sum. Each (b, q head, query tile) has an int32 turn counter.
+// The key tiles whose walks hold a query tile are one run (dq_run): the
+// walks' query tiles rise with the key tile at both ends. The grid puts the
+// key tiles in groups of `group` (key_tile_at): groups ascending, the tiles
+// of a group descending, and a key tile's turn is how many of the run's key
+// tiles come before it in that order (dq_turn). The adder waits until the
+// counter equals its turn (ld.acquire.gpu), writes the part into the fp32
+// workspace (TMA store) at turn 0 or adds it there (cp.reduce.async.bulk
+// .add.f32) after, waits until the bulk operation is complete (not only
+// read), and moves the counter on (red.release.gpu), async-proxy fences on
+// both sides. So each element of dQ is first part + second + ... in fp32,
+// in one order for given shapes and `group`. The caller's plan
+// (flash_attention.py:dq_group): `group` the key tiles one wave of blocks
+// holds where the launch is within two waves, else 1 (ascending). A causal
+// walk reaches a query tile sooner the later its key tile; ascending, every
+// key tile of a wave waits on the heaviest's pace (+12% at smollm S512, +19%
+// at whisper's decoder, on the card), while grouped, a wave's tiles add in
+// the order they arrive. Past two waves ascending keeps the blocks of a
+// wave on the same query tiles: grouped, smollm S2048's adds spread over
+// its 63 MB workspace, past L2, and took 20% longer.
+// Why no block waits forever. A block waits only on adds by key tiles
+// before its own in key_tile_at's order, whose blocks have lower linear
+// indices (blockIdx.x fastest, then y = position·P + slice). The one
+// assumption, which CUTLASS's stream-K and FlashAttention-3's deterministic
+// backward also rest on: the card dispatches a grid's blocks in order of
+// linear index, a block only once every lower one has been. Then the
+// lowest unfinished block has been dispatched and waits on no unfinished
+// block, so it finishes; by induction every block does, at any number of
+// slots, however the adds are timed. tests/test_torch_kernels.py's
+// schedule model checks it at 1 to 264 slots on every backward shape of
+// chip_smoke.py at D <= 64. A wait that does not end in about 2^35 cycles,
+// or a counter past the turn, traps (wait_turn): the launch fails instead
+// of holding the card.
+//
 // What bounds it on this card. The five products (S, dP, dV, dQ, dK) are
 // 10·D FLOP per unmasked (query, key) pair and head; the bytes are q, o, do,
 // dq, k, v, dk, dv once each and the fp32 lse. At smollm-360m's training
@@ -72,9 +125,10 @@
 // B8 S2048 it is 161.1 GFLOP (0.163 ms) and 168.8 MB (0.050 ms): the
 // operations. At recurrentgemma-2b's, B8 H10 KV1 S512 D256 bf16 causal, it
 // is 26.90 GFLOP (0.0272 ms) and 92.44 MB (0.0276 ms): the bytes, barely.
-// The split does seven products a pair, not five (S and dP in both tile
-// kernels; nine at D = 256, below), and computes whole tiles on the causal
-// diagonal, so this design's own floor is 1.4× the operations bound and more.
+// The split route does seven products a pair, not five (S and dP in both
+// tile kernels; nine at D = 256, below); the fused route five, plus the
+// parts' adds (16 KB a step through L2: 1.04 GB at B8 S2048) and the
+// workspace's pass. Both compute whole tiles on the causal diagonal.
 //
 // What the design does about what made the first bf16 backward slow (it ran
 // on the CUDA cores in flash_attention_bwd.cu, which now serves fp32 inputs
@@ -102,8 +156,10 @@
 //     the stage, so the next tile's copy overlaps this tile's products.
 //   * 98 KB of fp32 tiles a block: a block now holds two resident 64 x D
 //     tiles and two stages of two streamed tiles, all bf16 (Cfg::SMEM_KV,
-//     SMEM_Q): 50.0 KB at D = 64, 97.0 KB at D = 128, so two blocks share a
-//     SM at every head dim and one's exponentials overlap the other's
+//     SMEM_Q): 50.0 KB at D = 64, 97.0 KB at D = 128; fused, two dSᵀ tiles
+//     (16 KB) and two fp32 dQ buffers (2 x 64 x D x 4 B) more, 98.1 KB at D
+//     = 64 (38.1 and 58.1 at 16 and 32). So two blocks share a SM at every
+//     head dim up to 128 and one's exponentials overlap the other's
 //     products.
 //   * unequal blocks in key order: the dK/dV grid puts the key tile on its
 //     slowest axis, key tile 0 first, which under a causal mask is the
@@ -112,7 +168,9 @@
 // Registers of a consumer: dK and dV D/2 each, Sᵀ and dPᵀ KV_BN/2 each and
 // the bf16 fragments of Pᵀ and dSᵀ KV_BN/4 each; the dK/dV tile is 64
 // queries wide up to D = 64 and 32 at D = 128, so they stay under 216
-// (160 at D = 64, 176 at D = 128, before indices and addresses). Between
+// (160 at D = 64, 176 at D = 128, before indices and addresses); fused, the
+// dQ part's D/2 more, in the place of Sᵀ and dPᵀ, dead by then. ptxas: 128
+// registers at launch (setmaxnreg 40 / 216), no spill, at every head dim. Between
 // wgmma.fence and wait_group only wgmma instructions run (sm90.cuh:
 // fence_regs), and each group is waited out before its accumulators are
 // read: the forward's rule against ptxas serializing the wgmma (C7513).
@@ -146,6 +204,11 @@ namespace {
 
 constexpr int STAGES = 2;  // streamed-tile ring depth
 constexpr int REDUCE_THREADS = 256;
+// Head dims whose dK/dV kernel also computes dQ (the fused route, a bit a
+// head dim): dQ_part = dS·K from the dSᵀ it holds, summed across key tiles
+// in ascending order; the dQ kernel is not launched there.
+constexpr int FUSED_DQ_HEAD_DIMS = 16 | 32 | 64;
+constexpr int DQ_BUFS = 2;  // fp32 dQ parts a fused block holds, one adder warp each
 
 template <int D>
 struct Cfg {
@@ -184,10 +247,24 @@ struct Cfg {
   static constexpr int KV_STREAM = KV_BN * D * 2;        // a streamed Q or dO tile
   static constexpr int Q_STREAM = Q_BN * D * 2;          // a streamed K or V tile
   static constexpr int STAT_BYTES = 2 * KV_BN * 4;       // a dK/dV stage's lse and Δ
-  static constexpr int BARRIERS = 1 + 2 * STAGES;        // resident full; full, empty per stage
+  // The fused route: the dK/dV tile is as wide as the dQ tile (64 queries),
+  // dSᵀ goes through a bf16 tile of 64 x 64 (128-byte rows, 128-byte
+  // swizzle) to the dQ product, and each fp32 dQ part through one of
+  // DQ_BUFS buffers of 64 x D, in panels of FPW columns (FSPAN bytes: the
+  // swizzle the TMA reduction reads), to the adder.
+  static constexpr bool FUSED = (FUSED_DQ_HEAD_DIMS & D) != 0;
+  static_assert(!FUSED || (KV_BN == BM && KV_CONSUMERS == 1), "fused dQ: 64 x 64 tiles, one consumer");
+  static constexpr int FPW = D < 32 ? D : 32;
+  static constexpr int FSPAN = FPW * 4;
+  static constexpr CUtensorMapSwizzle FSWIZZLE = tma_swizzle(FSPAN);
+  static constexpr int DS_BYTES = FUSED ? BM * KV_BN * 2 : 0;  // one of two dSᵀ tiles
+  static constexpr uint64_t DS_LAYOUT = desc_layout(128);  // dSᵀ's 128-byte rows
+  static constexpr int DQ_BUF = FUSED ? KV_BN * D * 4 : 0;
+  // resident full; full, empty per stage; fused: full, empty per dQ buffer
+  static constexpr int BARRIERS = 1 + 2 * STAGES + (FUSED ? 2 * DQ_BUFS : 0);
   // 1024 bytes of slack to align the tiles to the 128-byte swizzle's period.
-  static constexpr int SMEM_KV =
-      1024 + 2 * RES_BYTES + STAGES * (2 * KV_STREAM + STAT_BYTES) + 8 * BARRIERS;
+  static constexpr int SMEM_KV = 1024 + 2 * RES_BYTES + STAGES * (2 * KV_STREAM + STAT_BYTES) +
+                                 2 * DS_BYTES + DQ_BUFS * DQ_BUF + 8 * BARRIERS;
   static constexpr int SMEM_Q = 1024 + 2 * RES_BYTES + STAGES * 2 * Q_STREAM + 8 * BARRIERS;
 };
 
@@ -204,6 +281,144 @@ __device__ __forceinline__ int slice_start(int p, int n, int P) {
 // Whether a query at absolute position qpos sees the key at kpos.
 __device__ __forceinline__ bool visible(int qpos, int kpos, int causal, int window) {
   return (!causal || qpos >= kpos) && (window <= 0 || qpos - kpos < window);
+}
+
+// Byte `off` of a tile of `span`-byte rows, at a 1024-byte-aligned base, as
+// the span's swizzle (what TMA writes and wgmma and TMA read) places it: the
+// 16-byte chunk XORed with bits 7 and up of the offset.
+__device__ __forceinline__ uint32_t swizzled(uint32_t off, int span) {
+  return off ^ (((off >> 7) & (span / 16 - 1)) << 4);
+}
+
+__device__ __forceinline__ void fence_async_shared() {  // generic writes -> async-proxy reads
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The consumer warpgroup meets on named barrier 1 (the producer's warps do
+// not take part).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(WG_THREADS) : "memory");
+}
+
+// D (m64 x N, fp32) (+)= A (m64 x k16) . B (k16 x N), both bf16 in shared
+// memory and read MN-major (both transpose bits set); scale_d = 0
+// overwrites D.
+template <int N>
+__device__ void wgmma_ss_tt(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tt<16>(float (&d)[8], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tt<32>(float (&d)[16], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, "
+      "1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tt<64>(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, "
+      "1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// ---- the ordered dQ sum (fused route) ------------------------------------------
+
+// The key tile of launch position `pos` (blockIdx.y / split) of k_tiles:
+// groups of `group` key tiles, groups in ascending order, the tiles of a
+// group in descending order (group 1: ascending, the split route's order).
+__device__ __forceinline__ int key_tile_at(int pos, int k_tiles, int group) {
+  const int g0 = pos / group * group, hi = min(k_tiles, g0 + group);
+  return hi - 1 - (pos - g0);
+}
+
+// The key tiles (of 64 keys) whose walks hold query tile t (BN queries a
+// tile): the walks' query tiles rise with the key tile at both ends, so
+// they are one run, (first, last), empty if last < first. Only a window
+// keeps early key tiles off t (key tile m reaches it iff its last key, 64m
+// + 63 or the last tile's Skv - 1, is within the window of the tile's first
+// query, t·BN + q_offset), and only a causal mask late ones (m reaches it
+// iff its first key, 64m, is before the tile's end, min(Sq, (t + 1)·BN), as
+// a query position).
+__device__ __forceinline__ int2 dq_run(int t, int bn, int k_tiles, int Sq, int Skv, int causal,
+                                       int window, int q_offset) {
+  const int x = t * bn + q_offset - window;  // first: its last key past x
+  int first = window <= 0 || x < 63 ? 0 : (x - 63) / 64 + 1;
+  if (first >= k_tiles - 1 && window > 0 && Skv - 1 <= x) first = k_tiles;
+  const int last = causal ? min(k_tiles, (min(Sq, (t + 1) * bn) + q_offset + 63) / 64) - 1
+                          : k_tiles - 1;
+  return make_int2(first, last);
+}
+
+// Key tile n's turn in the sum of a query tile's dQ whose run is `run`
+// (dq_run): how many of the run's key tiles come before n in launch order
+// (key_tile_at).
+__device__ __forceinline__ int dq_turn(int n, int2 run, int k_tiles, int group) {
+  const int g0 = n / group * group, hi = min(k_tiles, g0 + group);
+  return max(0, min(run.y, g0 - 1) - run.x + 1) + max(0, min(run.y, hi - 1) - n);
+}
+
+// Wait until the int at ctr (global) equals turn, acquiring what its writer
+// released. A value past turn is an order fault; one not reached after about
+// 2^35 cycles (some 20 s) is a stall fault: either traps, so the launch fails
+// instead of holding the card.
+__device__ __forceinline__ void wait_turn(const int* ctr, int turn) {
+  long long start = 0;
+  while (true) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(ctr) : "memory");
+    if (v == turn) return;
+    if (v > turn) __trap();
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 35)) __trap();
+  }
+}
+
+// One box of a 3-D fp32 tensor map from shared memory: written over the
+// box (first) or added into it, element by element in fp32 (later turns);
+// rows past the map's end are not touched. Tracked by the bulk group.
+__device__ __forceinline__ void tma_store_or_add(const CUtensorMap* map, uint32_t src, bool add,
+                                                 int c0, int c1, int c2) {
+  if (add)
+    asm volatile(
+        "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group "
+        "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+        "r"(src), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+        "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+        "r"(src), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
 }
 
 // acc (64 x N, fp32) = A . Bᵀ over D in k16 steps (no wait): A is 64 rows
@@ -232,6 +447,19 @@ __device__ __forceinline__ void issue_rs(float (&acc)[N / 2], const uint32_t (&a
 #pragma unroll
   for (int ks = 0; ks < K / 16; ++ks)
     wgmma_rs<N>(acc, a[ks], smem_desc(b + ks * 16 * C::SPAN, K * C::SPAN, 8 * C::SPAN, C::LAYOUT));
+}
+
+// acc (64 queries x D, fp32) = dS . K over the tile's 64 keys in k16 steps
+// (no wait): dS from the dSᵀ tile at `ds` (key rows of 64 queries, 128-byte
+// swizzle), K from the resident tile at `k` (key rows of D), both MN-major.
+template <int D>
+__device__ __forceinline__ void issue_dq(float (&acc)[D / 2], uint32_t ds, uint32_t k) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int ks = 0; ks < C::BM / 16; ++ks)
+    wgmma_ss_tt<D>(acc, smem_desc(ds + ks * 16 * 128, C::KV_BN * 128, 8 * 128, C::DS_LAYOUT),
+                   smem_desc(k + ks * 16 * C::SPAN, C::BM * C::SPAN, 8 * C::SPAN, C::LAYOUT),
+                   ks > 0);
 }
 
 // One score tile's P and dS from S and dP, fragments of a 64 x N wgmma
@@ -325,10 +553,13 @@ __device__ __forceinline__ void store_part(float* __restrict__ out, const float 
 // ---- the kernels -------------------------------------------------------------
 
 // Δ = rowsum(dO∘O) in fp32: D/8 threads a row, 8 elements (16 bytes) each.
+// On the fused route (counters not null) the first row of each query tile
+// of 64 also zeroes that tile's turn counter.
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_sm90(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
-                     float* __restrict__ delta, long long rows) {
+                     float* __restrict__ delta, long long rows, int* __restrict__ counters,
+                     int Sq, int q_tiles) {
   constexpr int TPR = D / 8;
   const long long row = (long long)blockIdx.x * (256 / TPR) + threadIdx.x / TPR;
   const int part = threadIdx.x % TPR;
@@ -347,7 +578,9 @@ flash_bwd_delta_sm90(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* _
   }
 #pragma unroll
   for (int off = TPR / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (row < rows && part == 0) delta[row] = acc;
+  if (row >= rows || part != 0) return;
+  delta[row] = acc;
+  if (counters != nullptr && row % Sq % 64 == 0) counters[row / Sq * q_tiles + row % Sq / 64] = 0;
 }
 
 template <int D>
@@ -357,9 +590,10 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_v,
                     const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
                     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                    __nv_bfloat16* __restrict__ dv, float* __restrict__ parts, int split, int H,
-                    int KV, int Sq, int Skv, int causal, int window, int q_offset, float scale,
-                    float scale_log2) {
+                    __nv_bfloat16* __restrict__ dv, float* __restrict__ parts, int split,
+                    const __grid_constant__ CUtensorMap tm_dqw, int* __restrict__ counters,
+                    int q_tiles, int group, int H, int KV, int Sq, int Skv, int causal,
+                    int window, int q_offset, float scale, float scale_log2) {
   using C = Cfg<D>;
   constexpr int BM = C::BM, BN = C::KV_BN, SPAN = C::SPAN, PW = C::PW, DC = C::DC;
   extern __shared__ uint8_t smem_raw[];
@@ -368,14 +602,21 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t s_v = s_k + C::RES_BYTES;
   const uint32_t s_q = s_v + C::RES_BYTES;  // STAGES x NP panels of BN rows
   const uint32_t s_do = s_q + STAGES * C::KV_STREAM;
-  const uint32_t s_stat = s_do + STAGES * C::KV_STREAM;  // a stage: BN lse2, then BN Δ
+  const uint32_t s_ds = s_do + STAGES * C::KV_STREAM;  // fused: two dSᵀ tiles, the dQ buffers
+  const uint32_t s_dq = s_ds + 2 * C::DS_BYTES;         // each D / FPW panels of BN rows
+  const uint32_t s_stat = s_dq + DQ_BUFS * C::DQ_BUF;  // a stage: BN lse2, then BN Δ
   float* const stat = reinterpret_cast<float*>(smem_raw + (s_stat - raw));
   const uint32_t bars = s_stat + STAGES * C::STAT_BYTES;
   const uint32_t kv_full = bars, full = bars + 8, empty = full + 8 * STAGES;
+  const uint32_t dq_full = empty + 8 * STAGES, dq_empty = dq_full + 8 * DQ_BUFS;
 
   const int bkv = blockIdx.x, G = H / KV;
   const int part = blockIdx.y % split;  // the block's slice of its key tile's walk
-  const int n0 = (blockIdx.y / split) * BM;  // the block's first key: tile 0 first (causal: heaviest)
+  const int k_tiles = gridDim.y / split;
+  // The block's key tile: with group = 1 tile 0 first (causal: the
+  // heaviest), then ascending; the fused route's groups below.
+  const int tile = key_tile_at(blockIdx.y / split, k_tiles, group);
+  const int n0 = tile * BM;  // the block's first key
   // Query rows that see any key of the tile: at or past its first key
   // (causal), before its last key's window ends.
   const int n_last = min(n0 + BM, Skv) - 1;
@@ -393,12 +634,19 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(full + 8 * s, 1 + 32);  // the TMA's expect_tx, then the producer warp's 32 lanes
       mbar_init(empty + 8 * s, 4 * C::KV_CONSUMERS);  // lane 0 of every consumer warp
     }
+    if constexpr (C::FUSED) {
+      for (int b = 0; b < DQ_BUFS; ++b) {
+        mbar_init(dq_full + 8 * b, 4);  // lane 0 of every consumer warp
+        mbar_init(dq_empty + 8 * b, 1);  // its adder
+      }
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x < WG_THREADS) {
-    // Producer: thread 0 issues the TMA loads, warp 0 copies lse and Δ.
+    // Producer: thread 0 issues the TMA loads, warp 0 copies lse and Δ;
+    // fused, warps 1 and 2 add the dQ parts.
     setmaxnreg_dec<C::PRODUCER_REGS>();
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
@@ -432,6 +680,38 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
         }
         mbar_arrive(full + 8 * s);
       }
+    } else if (C::FUSED && threadIdx.x < 32 * (1 + DQ_BUFS)) {
+      // Adder b (warp 1 + b), the steps of dQ buffer b: each step's dQ part
+      // into the fp32 workspace, once every key tile before this one in
+      // launch order that visits the same (q head, query tile) has added its
+      // own, so each element's sum runs over the key tiles in that fixed
+      // order, and waits only on blocks launched earlier. The first turn
+      // writes, the others add; the counter moves on once the add is
+      // complete in global memory. With an adder a buffer, one add's wait
+      // and latency overlap the next's.
+      const int b = threadIdx.x / 32 - 1, lane = threadIdx.x % 32;
+      for (int step = b; step < n_steps; step += DQ_BUFS) {
+        const int it = it0 + step;
+        const int bh = bkv * G + it / per_head, t = t_lo + it % per_head;
+        const int turn =
+            dq_turn(tile, dq_run(t, BN, k_tiles, Sq, Skv, causal, window, q_offset), k_tiles, group);
+        mbar_wait(dq_full + 8 * b, (step / DQ_BUFS) & 1);
+        if (lane == 0) {
+          int* const ctr = counters + (size_t)bh * q_tiles + t;
+          wait_turn(ctr, turn);
+          asm volatile("fence.proxy.async.global;\n" ::: "memory");  // the add after the acquire
+#pragma unroll
+          for (int p = 0; p < D / C::FPW; ++p)
+            tma_store_or_add(&tm_dqw, s_dq + b * C::DQ_BUF + p * BN * C::FSPAN, turn > 0,
+                             p * C::FPW, t * BN, bh);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+          asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");  // written, not only read
+          asm volatile("fence.proxy.async.global;\n" ::: "memory");  // the add before the release
+          asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(ctr) : "memory");
+          mbar_arrive(dq_empty + 8 * b);
+        }
+        __syncwarp();
+      }
     }
   } else {
     // Consumer cw: keys n0 .. n0 + 63, the rows of every tile it computes,
@@ -449,6 +729,34 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = 0; i < DC / 2; ++i) dka[i] = dva[i] = 0.f;
     mbar_wait(kv_full, 0);
+    const int row0 = 16 * warp + lane / 4;  // this thread's rows of a tile: row0, row0 + 8
+    // Fused: key rows past Skv go into the dSᵀ tile as zeros. Their P is
+    // unmasked (only dK and dV rows past Skv, which are not stored, read
+    // it) and can be inf, for a query whose lse is very low or -inf, and
+    // inf times their zero K rows would be NaN in dQ.
+    const bool key_past[2] = {key0 >= Skv, key0 + 8 >= Skv};
+    // Fused: step st's dQ part, fp32 and unscaled, into its free buffer for
+    // the adder, once its products are done.
+    [[maybe_unused]] float dqa[C::FUSED ? D / 2 : 1];
+    [[maybe_unused]] auto put_dq = [&](int st) {
+      const int b = st % DQ_BUFS;
+      const uint32_t buf = s_dq + b * C::DQ_BUF;
+      mbar_wait(dq_empty + 8 * b, ((st / DQ_BUFS) & 1) ^ 1);  // first round passes
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int c = 8 * j + 2 * quad;
+          const uint32_t off = (row0 + 8 * hh) * C::FSPAN + (c % C::FPW) * 4;
+          asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(
+                           buf + (c / C::FPW) * BN * C::FSPAN + swizzled(off, C::FSPAN)),
+                       "f"(dqa[4 * j + 2 * hh]), "f"(dqa[4 * j + 2 * hh + 1])
+                       : "memory");
+        }
+      fence_async_shared();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(dq_full + 8 * b);
+    };
 
     for (int step = 0; step < n_steps; ++step) {
       const int s = step % STAGES;
@@ -468,14 +776,36 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
                              (window > 0 && qpos0 + BN - 1 - n0 >= window);
       probs<BN, true>(sc, dp, pa, da, scale_log2, stat + s * 2 * BN + 2 * quad, unused, unused,
                       need_mask, key0, qpos0 + 2 * quad, Skv, causal, window);
+      const uint32_t ds_t = s_ds + (step % 2) * C::DS_BYTES;
+      if constexpr (C::FUSED) {
+        // dSᵀ as bf16 into this step's tile (key rows of 64 queries), for
+        // dQ = dS K. The tile of two steps back is free: every consumer warp
+        // passed the last step's barrier, so its wait for that step's
+        // products too.
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                             ds_t + swizzled((row0 + 8 * hh) * 128 + (8 * j + 2 * quad) * 2, 128)),
+                         "r"(key_past[hh] ? 0u : da[j / 2][2 * (j % 2) + hh])
+                         : "memory");
+        fence_async_shared();
+        consumers_sync();
+      }
       wgmma_fence();
       issue_rs<D, BN, DC>(dva, pa, do_st + col_off);  // dV += Pᵀ dO, this consumer's columns
       issue_rs<D, BN, DC>(dka, da, q_st + col_off);   // dK += dSᵀ Q
+      if constexpr (C::FUSED) issue_dq<D>(dqa, ds_t, s_k);  // this step's dQ part = dS K
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dva);
       fence_regs(dka);
       if (lane == 0) mbar_arrive(empty + 8 * s);
+      if constexpr (C::FUSED) {
+        fence_regs(dqa);
+        put_dq(step);
+      }
     }
     if (split == 1) {
       store_rows<D, DC>(dk + (size_t)bkv * Skv * D + col0, dka, key0, Skv, quad, scale);
@@ -512,6 +842,28 @@ flash_bwd_reduce_sm90(const float* __restrict__ parts, __nv_bfloat16* __restrict
   __nv_bfloat162 out[2] = {__floats2bfloat162_rn(acc.x * mul, acc.y * mul),
                            __floats2bfloat162_rn(acc.z * mul, acc.w * mul)};
   reinterpret_cast<uint2*>(is_v ? dv : dk)[j] = *reinterpret_cast<const uint2*>(out);
+}
+
+// The fused route's dQ: the fp32 sums of the workspace (B, H, Sq, D) times
+// the scale, each rounded to bf16 once; a query tile of 64 that no key tile
+// visited (its turn counter still 0) gets zeros. 8 elements a thread, n8 =
+// B·H·Sq·D / 8.
+template <int D>
+__global__ void __launch_bounds__(REDUCE_THREADS)
+flash_bwd_dqsum_sm90(const float* __restrict__ ws, const int* __restrict__ counters,
+                     __nv_bfloat16* __restrict__ dq, long long n8, int Sq, int q_tiles,
+                     float scale) {
+  const long long i = (long long)blockIdx.x * REDUCE_THREADS + threadIdx.x;
+  if (i >= n8) return;
+  const long long row = i / (D / 8);  // of the B·H·Sq rows
+  uint4 out = make_uint4(0u, 0u, 0u, 0u);
+  if (counters[row / Sq * q_tiles + (row % Sq) / 64] > 0) {
+    const float4 a = reinterpret_cast<const float4*>(ws)[2 * i];
+    const float4 c = reinterpret_cast<const float4*>(ws)[2 * i + 1];
+    out = make_uint4(pack_bf16(a.x * scale, a.y * scale), pack_bf16(a.z * scale, a.w * scale),
+                     pack_bf16(c.x * scale, c.y * scale), pack_bf16(c.z * scale, c.w * scale));
+  }
+  reinterpret_cast<uint4*>(dq)[i] = out;
 }
 
 template <int D>
@@ -632,19 +984,39 @@ bool make_map(CUtensorMap* map, const void* ptr, int S, int BH, int rows) {
   return make_map_bf16(map, ptr, D, S, BH, Cfg<D>::PW, rows, Cfg<D>::SWIZZLE);
 }
 
+// A map over a contiguous (BH, S, D) fp32 tensor, boxes of rows x FPW
+// columns in the fused route's swizzle.
+template <int D>
+bool make_map_f32(CUtensorMap* map, const void* ptr, int S, int BH, int rows) {
+  EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 4, (cuuint64_t)S * D * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)Cfg<D>::FPW, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, Cfg<D>::FSWIZZLE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const float* lse, float* delta, void* dq, void* dk, void* dv, float* parts,
-                   int split, int B, int H, int KV, int Sq, int Skv, int causal, int window,
-                   int q_offset, float scale, cudaStream_t stream) {
+                   float* dq_ws, int* counters, int group, int split, int B, int H, int KV,
+                   int Sq, int Skv, int causal, int window, int q_offset, float scale,
+                   cudaStream_t stream) {
   using C = Cfg<D>;
   const long long rows = (long long)B * H * Sq;
   const long long delta_blocks = (rows * (D / 8) + 255) / 256;
   const int q_tiles = (Sq + C::BM - 1) / C::BM, k_tiles = (Skv + C::BM - 1) / C::BM;
   const long long n4 = (long long)B * KV * Skv * D / 4;  // 4-element groups of dK
   const long long reduce_blocks = (2 * n4 + REDUCE_THREADS - 1) / REDUCE_THREADS;
-  if (delta_blocks > 0x7fffffffLL || reduce_blocks > 0x7fffffffLL || q_tiles > 65535 ||
-      (long long)k_tiles * split > 65535)
+  const long long n8 = rows * D / 8;  // 8-element groups of dQ
+  const long long dqsum_blocks = (n8 + REDUCE_THREADS - 1) / REDUCE_THREADS;
+  if (delta_blocks > 0x7fffffffLL || reduce_blocks > 0x7fffffffLL ||
+      dqsum_blocks > 0x7fffffffLL || q_tiles > 65535 || (long long)k_tiles * split > 65535 ||
+      (C::FUSED && (dq_ws == nullptr || counters == nullptr || group < 1)))
     return cudaErrorInvalidValue;
   // Resident tiles of BM rows; streamed tiles of KV_BN queries and Q_BN keys.
   CUtensorMap q_res, do_res, k_res, v_res, q_kv, do_kv, k_q, v_q;
@@ -654,22 +1026,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
       !make_map<D>(&do_kv, dout, Sq, B * H, C::KV_BN) ||
       !make_map<D>(&k_q, k, Skv, B * KV, C::Q_BN) || !make_map<D>(&v_q, v, Skv, B * KV, C::Q_BN))
     return cudaErrorInvalidValue;
+  CUtensorMap dq_map{};  // the fused route's fp32 dQ workspace, boxes of a query tile
+  if (C::FUSED && !make_map_f32<D>(&dq_map, dq_ws, Sq, B * H, C::KV_BN))
+    return cudaErrorInvalidValue;
   static unsigned long long kv_set = 0, q_set = 0;  // bit d: the limit is set on device d
   cudaError_t err = allow_smem(flash_bwd_dkdv_sm90<D>, C::SMEM_KV, kv_set);
   if (err != cudaSuccess) return err;
-  err = allow_smem(flash_bwd_dq_sm90<D>, C::SMEM_Q, q_set);
-  if (err != cudaSuccess) return err;
+  if constexpr (!C::FUSED) {
+    err = allow_smem(flash_bwd_dq_sm90<D>, C::SMEM_Q, q_set);
+    if (err != cudaSuccess) return err;
+  }
+  int* const ctr = C::FUSED ? counters : nullptr;
 
   flash_bwd_delta_sm90<D><<<(unsigned)delta_blocks, 256, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), delta, rows);
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), delta, rows,
+      ctr, Sq, q_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const float scale_log2 = scale * LOG2E;
-  // key tile on the slowest axis, then its slices: tile 0's first
+  // key tile on the slowest axis, then its slices: the split route tile 0's
+  // first, the fused route in the dQ sum's order (its adds wait only on
+  // blocks earlier in it)
   flash_bwd_dkdv_sm90<D><<<dim3(B * KV, k_tiles * split), C::KV_THREADS, C::SMEM_KV, stream>>>(
       q_kv, k_res, v_res, do_kv, lse, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), parts, split, H, KV, Sq, Skv, causal, window, q_offset,
-      scale, scale_log2);
+      static_cast<__nv_bfloat16*>(dv), parts, split, dq_map, ctr, q_tiles, C::FUSED ? group : 1,
+      H, KV, Sq, Skv, causal, window, q_offset, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (split > 1) {  // right after the parts are written, while L2 holds them
@@ -679,15 +1060,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  flash_bwd_dq_sm90<D><<<dim3(B * H, q_tiles), C::Q_THREADS, C::SMEM_Q, stream>>>(
-      q_res, k_q, v_q, do_res, lse, delta, static_cast<__nv_bfloat16*>(dq), H, KV, Sq, Skv,
-      causal, window, q_offset, scale, scale_log2);
+  if constexpr (C::FUSED) {
+    flash_bwd_dqsum_sm90<D><<<(unsigned)dqsum_blocks, REDUCE_THREADS, 0, stream>>>(
+        dq_ws, counters, static_cast<__nv_bfloat16*>(dq), n8, Sq, q_tiles, scale);
+  } else {
+    flash_bwd_dq_sm90<D><<<dim3(B * H, q_tiles), C::Q_THREADS, C::SMEM_Q, stream>>>(
+        q_res, k_q, v_q, do_res, lse, delta, static_cast<__nv_bfloat16*>(dq), H, KV, Sq, Skv,
+        causal, window, q_offset, scale, scale_log2);
+  }
   return cudaGetLastError();
 }
 
 template <int D>
-constexpr int smem_bytes() {
-  return Cfg<D>::SMEM_KV > Cfg<D>::SMEM_Q ? Cfg<D>::SMEM_KV : Cfg<D>::SMEM_Q;
+constexpr int smem_bytes() {  // the fused route launches no dQ kernel
+  return Cfg<D>::FUSED || Cfg<D>::SMEM_KV > Cfg<D>::SMEM_Q ? Cfg<D>::SMEM_KV : Cfg<D>::SMEM_Q;
 }
 
 // dK/dV blocks the current device holds at once: its SMs times the blocks a
@@ -721,8 +1107,9 @@ extern "C" int flash_attention_bwd_sm90_slots(int D) {
   }
 }
 
-// Dynamic shared memory of the larger of the two tile kernels' blocks at
-// head dim D, in bytes (-1 if D is not supported).
+// Dynamic shared memory of the larger of the tile kernels' blocks at head
+// dim D (the fused route's dK/dV kernel alone), in bytes (-1 if D is not
+// supported).
 extern "C" int flash_attention_bwd_sm90_smem_bytes(int D) {
   switch (D) {
     case 16: return smem_bytes<16>();
@@ -738,14 +1125,18 @@ extern "C" int flash_attention_bwd_sm90_smem_bytes(int D) {
 // contiguous, 16-byte aligned. lse and the scratch delta: (B, H, Sq) fp32.
 // split: the slices of each key tile's dK/dV walk (>= 1); with split > 1,
 // parts is the workspace (2, split, B, KV, Skv, D) fp32, 16-byte aligned
-// (unused at split = 1). Three launches on `stream` (four with split > 1);
-// returns cudaGetLastError() after the last (0 on success).
+// (unused at split = 1). At a fused head dim (FUSED_DQ_HEAD_DIMS), dq_ws is
+// the fp32 dQ workspace (B, H, Sq, D) and counters the int32 turn counters
+// (B, H, ceil(Sq / 64)), both scratch, and group (>= 1) the key tiles of a
+// group of the dQ sum's order (dq_turn); all three unused elsewhere. Three
+// launches on `stream` (four with split > 1); returns cudaGetLastError()
+// after the last (0 on success).
 extern "C" int flash_attention_bwd_sm90(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, const void* lse,
                                         void* delta, void* dq, void* dk, void* dv, int B, int H,
                                         int KV, int Sq, int Skv, int D, int causal, int window,
                                         int q_offset, float scale, int split, void* parts,
-                                        void* stream) {
+                                        void* dq_ws, void* counters, int group, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Skv <= 0 || q_offset < 0 ||
       window < 0 || (long long)B * H > 0x7fffffffLL || split < 1 ||
       (split > 1 && parts == nullptr))
@@ -754,18 +1145,20 @@ extern "C" int flash_attention_bwd_sm90(const void* q, const void* k, const void
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
        reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
        reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv) |
-       reinterpret_cast<uintptr_t>(parts)) % 16)
+       reinterpret_cast<uintptr_t>(parts) | reinterpret_cast<uintptr_t>(dq_ws)) % 16)
     return (int)cudaErrorMisalignedAddress;
   const float* lf = static_cast<const float*>(lse);
   float* df = static_cast<float*>(delta);
   float* pf = static_cast<float*>(parts);
+  float* wf = static_cast<float*>(dq_ws);
+  int* cf = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return (int)launch<16>(q, k, v, o, dout, lf, df, dq, dk, dv, pf, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 32: return (int)launch<32>(q, k, v, o, dout, lf, df, dq, dk, dv, pf, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 64: return (int)launch<64>(q, k, v, o, dout, lf, df, dq, dk, dv, pf, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 128: return (int)launch<128>(q, k, v, o, dout, lf, df, dq, dk, dv, pf, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
-    case 256: return (int)launch<256>(q, k, v, o, dout, lf, df, dq, dk, dv, pf, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 16: return (int)launch<16>(q, k, v, o, dout, lf, df, dq, dk, dv, pf, wf, cf, group, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 32: return (int)launch<32>(q, k, v, o, dout, lf, df, dq, dk, dv, pf, wf, cf, group, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 64: return (int)launch<64>(q, k, v, o, dout, lf, df, dq, dk, dv, pf, wf, cf, group, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 128: return (int)launch<128>(q, k, v, o, dout, lf, df, dq, dk, dv, pf, wf, cf, group, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
+    case 256: return (int)launch<256>(q, k, v, o, dout, lf, df, dq, dk, dv, pf, wf, cf, group, split, B, H, KV, Sq, Skv, causal, window, q_offset, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -21,20 +21,28 @@ The backward has no TPU counterpart: the JAX package trains through
 autodiff of its jnp twin. It takes one of two routes too (``BWD_ROUTES``),
 at the forward's head dims:
 
-- bf16 takes ``csrc/flash_attention_bwd_sm90.cu`` (head_dim 16 to 256): all
-  seven products on wgmma, Q/K/V/dO tiles loaded by TMA into swizzled
-  shared memory, a ring of streamed tiles on mbarriers; at head_dim 256 two
-  consumer warpgroups split dK and dV by columns;
+- bf16 takes ``csrc/flash_attention_bwd_sm90.cu`` (head_dim 16 to 256): its
+  products on wgmma, Q/K/V/dO tiles loaded by TMA into swizzled shared
+  memory, a ring of streamed tiles on mbarriers; at head_dim 16 to 64
+  (``FUSED_DQ_HEAD_DIMS``) the dK/dV kernel also computes dQ from the dS it
+  holds, five products a (query, key) pair, and sums it across key tiles in
+  a fixed order; at 128 and 256 a dQ kernel recomputes S and dP, seven
+  products (nine at 256, where two consumer warpgroups split dK and dV by
+  columns);
 - fp32 takes ``csrc/flash_attention_bwd.cu`` (head_dim 16 to 256): mma.sync
   on the tensor cores, each fp32 product as three TF32 products of split operands (P and
   dS kept fp32), a two-stage cp.async ring of streamed tiles; at head_dim
   256 two warps share each 16-row slab, splitting dK, dV and dQ by columns;
   the forward's TF32 helpers are shared through ``csrc/tf32.cuh``.
 
-Both are deterministic (the FlashAttention-2 split into a Δ pass, a dK/dV
-kernel and a dQ kernel, no atomics) and recompute the probabilities from
-the forward's fp32 logsumexp, which the forward writes when asked
-(``return_lse``). ``FlashAttentionFn`` binds forward and backward for
+Both are deterministic and recompute the probabilities from the forward's
+fp32 logsumexp, which the forward writes when asked (``return_lse``): the
+FlashAttention-2 split into a Δ pass, a dK/dV kernel and a dQ kernel, no
+atomics; on the fused route a Δ pass, the dK/dV kernel with dQ, whose
+parts each query tile adds into an fp32 workspace in a fixed key-tile
+order, one turn counter a (batch, q head, query tile) (``key_tile_order``,
+``dq_run`` and ``dq_turn`` are the order's twins), and a pass that scales
+and rounds the sums. ``FlashAttentionFn`` binds forward and backward for
 autograd; the backward's plain version is ``ref.flash_attention_bwd_ref``.
 
 The dK/dV kernel walks, for each (batch, kv head, key tile of 64 keys), the
@@ -90,6 +98,20 @@ MIN_SLICE = 16
 # (``meta_slots``). The card route asks the card
 # (``flash_attention_bwd*_slots``); chip_smoke.py checks the two agree.
 H100_SMS = 132
+# The bf16 backward's head dims whose dK/dV kernel also computes dQ: the
+# source's FUSED_DQ_HEAD_DIMS, which a test holds this twin to. There the
+# call takes an fp32 dQ workspace (B, H, Sq, D) and int32 turn counters (B,
+# H, ceil(Sq / BWD_KEYS)) beside its other scratch.
+FUSED_DQ_HEAD_DIMS = (16, 32, 64)
+# The fused route orders its dQ sums by groups of a wave's key tiles up to
+# this many waves a launch, ascending key tiles past it (``dq_group``). On
+# the card (benchmarks/torch_flash_bwd_variants.py, PERF.md):
+# grouped, smollm's S512 (1.2 waves) 0.0715 ms against 0.0803 ascending and
+# whisper's decoder (1.3) 0.0308 against 0.0365, where ascending holds
+# every key tile of a causal wave to the heaviest one's pace; ascending,
+# smollm's S2048 (4.8 waves, a 63 MB fp32 workspace) 0.60 against 0.72
+# grouped, whose concurrent blocks add into query tiles spread past L2.
+DQ_GROUP_WAVES = 2
 
 
 @functools.cache
@@ -242,16 +264,79 @@ def flash_attention_meta(q, k, v, *, causal=True, window=0, q_offset=0,
     return (o, lse) if return_lse else o
 
 
+def bwd_argtypes(dtype) -> list:
+    """The ctypes of the backward route's C entry point: ten pointers, nine
+    ints, the scale, the split, the parts' pointer, on the bf16 route the dQ
+    workspace's and the counters' pointers and the dQ order's group, and the
+    stream."""
+    fused = [ctypes.c_void_p] * 2 + [ctypes.c_int] if dtype == torch.bfloat16 else []
+    return ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
+                                                           ctypes.c_void_p] + fused
+            + [ctypes.c_void_p])
+
+
 @functools.cache
 def _bwd(dtype):
     """The backward route's C entry point, typed; its library is built at
     the first call."""
     source, _ = BWD_ROUTES[dtype]
     fn = getattr(_build.load(source), source)
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    fn.argtypes = bwd_argtypes(dtype)
     fn.restype = ctypes.c_int
     return fn
+
+
+def bwd_fuses_dq(d: int, dtype: torch.dtype) -> bool:
+    """Whether ``dtype``'s backward at head_dim ``d`` computes dQ in its
+    dK/dV kernel (the bf16 route at FUSED_DQ_HEAD_DIMS)."""
+    return dtype == torch.bfloat16 and d in FUSED_DQ_HEAD_DIMS
+
+
+def dq_group(b: int, kv: int, split: int, k_tiles: int, slots: int) -> int:
+    """Key tiles a group of the fused route's dQ order (``key_tile_order``)
+    on a launch of B·KV·P blocks a key tile over ``slots``: as many as one
+    wave holds, at least one, where the launch is within DQ_GROUP_WAVES
+    waves; else 1, ascending order. Within a group the order is the walks'
+    natural one (a causal walk reaches a query tile sooner the later its
+    key tile), so no block waits on a heavier one's pace; across groups
+    the heaviest go first."""
+    per_tile = b * kv * split
+    if per_tile * k_tiles > DQ_GROUP_WAVES * slots:
+        return 1
+    return max(1, slots // per_tile)
+
+
+def key_tile_order(k_tiles: int, group: int) -> list:
+    """The dK/dV grid's key tiles in launch order, the source's
+    key_tile_at: groups of ``group`` tiles ascending, each group's tiles
+    descending (group 1: 0, 1, 2, ...)."""
+    return [min(k_tiles, g0 + group) - 1 - i for g0 in range(0, k_tiles, group)
+            for i in range(min(group, k_tiles - g0))]
+
+
+def dq_run(t, bs, k_tiles, sq, skv, causal, window, q_offset) -> tuple[int, int]:
+    """The source's dq_run: the key tiles whose walks hold query tile t
+    (``bs`` queries a tile) are one run, (first, last), none if last <
+    first: from the first whose last key is within the window of the
+    tile's first query, to the last whose first key is before the tile's
+    end."""
+    x = t * bs + q_offset - window
+    first = 0 if window <= 0 or x < BWD_KEYS - 1 else (x - BWD_KEYS + 1) // BWD_KEYS + 1
+    if first >= k_tiles - 1 and window > 0 and skv - 1 <= x:
+        first = k_tiles
+    last = (min(k_tiles, (min(sq, (t + 1) * bs) + q_offset + BWD_KEYS - 1) // BWD_KEYS) - 1
+            if causal else k_tiles - 1)
+    return first, last
+
+
+def dq_turn(n, run, k_tiles, group) -> int:
+    """The source's dq_turn: key tile n's turn in the sum of a query
+    tile's dQ whose run is ``run`` (``dq_run``), the number of the run's key
+    tiles that come before n in ``key_tile_order``."""
+    first, last = run
+    g0 = n // group * group
+    hi = min(k_tiles, g0 + group)
+    return max(0, min(last, g0 - 1) - first + 1) + max(0, min(last, hi - 1) - n)
 
 
 def bwd_query_tile(d: int, dtype: torch.dtype) -> int:
@@ -355,17 +440,20 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal=True, window=0,
     otherwise) and the forward's fp32 ``lse`` (B, H, Sq). head_dim 16 to
     256 on both routes. ``split``: the dK/dV walk's P (``bwd_plan``; None:
     the planner's). Two launches on the same inputs give the same bits."""
-    dq, dk, dv, delta, parts, split = _bwd_outputs(q, k, v, o, do, lse, causal, window,
-                                                   q_offset, "cuda", split)
+    dq, dk, dv, delta, parts, dq_ws, turns, split = _bwd_outputs(
+        q, k, v, o, do, lse, causal, window, q_offset, "cuda", split)
     b, h, sq, d = q.shape
     n_kv, skv = k.shape[1], k.shape[2]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    group = (dq_group(b, n_kv, split, -(-skv // BWD_KEYS),
+                      card_slots(q.dtype, d, q.device.index)) if turns is not None else 1)
+    fused = (ptr(dq_ws), ptr(turns), group) if q.dtype == torch.bfloat16 else ()
     with torch.cuda.device(q.device):
         err = _bwd(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                             dk.data_ptr(), dv.data_ptr(), b, h, n_kv, sq, skv, d,
                             int(bool(causal)), int(window), int(q_offset), float(d ** -0.5),
-                            split, None if parts is None else parts.data_ptr(),
-                            torch.cuda.current_stream().cuda_stream)
+                            split, ptr(parts), *fused, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{BWD_ROUTES[q.dtype][0]} launch failed (split {split}): "
                            f"cudaError {err}")
@@ -383,11 +471,12 @@ def flash_attention_bwd_meta(q, k, v, o, do, lse, *, causal=True, window=0,
                              q_offset=0, split=None):
     """The backward's shape function on meta tensors (the dry-run's): the
     checks and allocations of ``flash_attention_bwd_cuda`` (dq, dk, dv, the
-    fp32 Δ scratch and, with a split walk, the fp32 parts, planned for an
-    H100's slots), its cost reported (``cost``: what the kernels must do,
-    the parts not counted), no launch."""
-    dq, dk, dv, delta, _, _ = _bwd_outputs(q, k, v, o, do, lse, causal, window, q_offset,
-                                           "meta", split)
+    fp32 Δ scratch, with a split walk the fp32 parts, planned for an H100's
+    slots, and on the fused route the fp32 dQ workspace and the turn
+    counters), its cost reported (``cost``: what the kernels must do, the
+    scratch not counted), no launch."""
+    dq, dk, dv, delta, *_ = _bwd_outputs(q, k, v, o, do, lse, causal, window, q_offset,
+                                         "meta", split)
     cost.report_attention(q, k, v, (dq, dk, dv, delta), (o, do, lse), causal=causal,
                           window=window, q_offset=q_offset, backward=True)
     return dq, dk, dv
@@ -396,7 +485,9 @@ def flash_attention_bwd_meta(q, k, v, o, do, lse, *, causal=True, window=0,
 def _bwd_outputs(q, k, v, o, do, lse, causal, window, q_offset, device, split):
     """The backward's checks on ``device``'s tensors, and its outputs and
     scratch, allocated: (dq, dk, dv, the fp32 Δ, the fp32 parts (2, P, B,
-    KV, Skv, D) of dK and dV or None at P = 1, P)."""
+    KV, Skv, D) of dK and dV or None at P = 1, on the fused route the fp32
+    dQ workspace (B, H, Sq, D) and the int32 turn counters (B, H, ceil(Sq /
+    64)) or None twice, P)."""
     _check(q, k, v, device)
     b, h, sq, _ = q.shape
     if window < 0 or q_offset < 0:
@@ -420,7 +511,11 @@ def _bwd_outputs(q, k, v, o, do, lse, causal, window, q_offset, device, split):
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     parts = (torch.empty((2, split, *k.shape), dtype=torch.float32, device=q.device)
              if split > 1 else None)
-    return dq, dk, dv, delta, parts, split
+    dq_ws = turns = None
+    if bwd_fuses_dq(q.shape[-1], q.dtype):  # both scratch: the kernels write before they read
+        dq_ws = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        turns = torch.empty((b, h, -(-sq // BWD_KEYS)), dtype=torch.int32, device=q.device)
+    return dq, dk, dv, delta, parts, dq_ws, turns, split
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -286,11 +286,14 @@ def test_bwd_split_plan_covers_each_walk_once_and_balances_the_card(shape, dtype
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_bwd_meta_route_allocates_the_split_workspace_and_reports_the_same_cost(dtype):
     """The meta shape function allocates what the card route allocates
-    (``_bwd_outputs``: dq, dk, dv, the fp32 Δ and, where the dK/dV walk is
-    split, the fp32 parts (2, P, B, KV, Skv, D)), with P planned for an
+    (``_bwd_outputs``: dq, dk, dv, the fp32 Δ, where the dK/dV walk is
+    split the fp32 parts (2, P, B, KV, Skv, D), and on the bf16 route's
+    fused head dims (16 to 64) the fp32 dQ workspace (B, H, Sq, D) and the
+    int32 turn counters (B, H, ceil(Sq / 64))), with P planned for an
     H100's slots as on the card: recurrentgemma's MQA at P = 4, a forced P =
-    3, and smollm's shape unsplit with no parts. Its reported cost stays
-    what the kernels must do, the parts not counted."""
+    3, and smollm's shape unsplit with no parts (fused in bf16, with a
+    ragged Sq too). Its reported cost stays what the kernels must do, the
+    scratch not counted."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from repro_torch.kernels import flash_attention as fa
@@ -309,7 +312,8 @@ def test_bwd_meta_route_allocates_the_split_workspace_and_reports_the_same_cost(
 
     for (b, h, kv, s, d), split, want in (((8, 10, 1, 512, 256), None, 4),
                                           ((8, 10, 1, 512, 256), 3, 3),
-                                          ((8, 15, 5, 512, 64), None, 1)):
+                                          ((8, 15, 5, 512, 64), None, 1),
+                                          ((4, 6, 6, 300, 32), None, 1)):
         q, o, do = (torch.empty((b, h, s, d), dtype=dtype, device="meta") for _ in range(3))
         k, v = (torch.empty((b, kv, s, d), dtype=dtype, device="meta") for _ in range(2))
         lse = torch.empty((b, h, s), dtype=torch.float32, device="meta")
@@ -318,13 +322,175 @@ def test_bwd_meta_route_allocates_the_split_workspace_and_reports_the_same_cost(
         with counter, seen:
             fa.flash_attention_bwd_meta(q, k, v, o, do, lse, causal=True, split=split)
         parts = [((2, want, b, kv, s, d), torch.float32)] if want > 1 else []
+        fused = ([((b, h, s, d), torch.float32), ((b, h, -(-s // 64)), torch.int32)]
+                 if fa.bwd_fuses_dq(d, dtype) else [])
+        assert fa.bwd_fuses_dq(d, dtype) == (dtype == torch.bfloat16 and d <= 64)
         assert seen.made == [((b, h, s, d), dtype), ((b, kv, s, d), dtype),
-                             ((b, kv, s, d), dtype), ((b, h, s), torch.float32), *parts]
+                             ((b, kv, s, d), dtype), ((b, h, s), torch.float32), *parts,
+                             *fused]
         pairs = chip_smoke.unmasked_pairs(s, s, True, 0)
         isz = torch.empty((), dtype=dtype).element_size()
         assert counter.kernels["flash_attention_bwd"] == {
             "calls": 1, "flops": 10 * d * pairs * b * h,
             "bytes": (4 * b * h * s * d + 4 * b * kv * s * d) * isz + 2 * 4 * b * h * s}
+
+
+# The fused route's ordered dQ sum (csrc/flash_attention_bwd_sm90.cu's
+# adders) on every bf16 backward shape of chip_smoke.py at head_dim <= 64,
+# at slot counts from one to an H100's (264 at these head dims)
+FUSED_ORDER_SHAPES = [c for c in BWD_PLAN_SHAPES if c[5] <= 64]
+FUSED_ORDER_SLOTS = (1, 2, 3, 5, 8, 21, 64, 131, 263, 264)
+
+
+def _fused_dq_schedule(shape, slots, split, group, ordered=True, latency=0.0):
+    """A schedule model of the fused dK/dV launch: its blocks (batch x kv
+    head fastest, then key tiles in ``key_tile_order``, each cut into
+    ``split`` slices) dispatched greedily in launch order onto ``slots``
+    slots; a step (one query tile of one head) takes one unit; the step's
+    dQ part goes to one of two buffers, each with its own adder, and is
+    added once its turn (``dq_turn``) has come: ``latency`` units after
+    every earlier part of its (head, query tile) is added (``ordered``; else
+    at once). A block
+    ends with its last add. Blocks are modelled in launch order, so a part
+    whose turn needed a block not modelled yet (one launched later) fails
+    the assertion: every wait is on an earlier block, which in-order
+    dispatch has already placed. Returns (the launch's makespan, {(batch x
+    kv head, head, query tile): [(key tile, turn), ...] in add order}).
+    The key tiles of a walk come from the masks, position by position."""
+    import heapq
+
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, kv, sq, skv, d, causal, window, q_offset = shape
+    g, k_tiles = h // kv, -(-skv // 64)
+    q_pos, k_pos = q_offset + np.arange(sq), np.arange(skv)
+    keep = np.ones((sq, skv), bool)
+    if causal:
+        keep &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        keep &= q_pos[:, None] - k_pos[None, :] < window
+    free = [0.0] * slots
+    added, end = {}, 0.0
+    for n in fa.key_tile_order(k_tiles, group):
+        seen = [m // 64 for m in range(0, sq, 64) if keep[m:m + 64, 64 * n:64 * n + 64].any()]
+        walk = [(j, t) for j in range(g) for t in seen]
+        for part in range(split):
+            steps = walk[part * len(walk) // split:(part + 1) * len(walk) // split]
+            for x in range(b * kv):
+                start = heapq.heappop(free)
+                computed, adds = start, []
+                for i, (j, t) in enumerate(steps):
+                    # a free buffer: the add of two steps back is done
+                    computed = max(computed, adds[i - 2] if i >= 2 else start) + 1.0
+                    done = added.setdefault((x, j, t), [])
+                    run = fa.dq_run(t, 64, k_tiles, sq, skv, causal, window, q_offset)
+                    turn = fa.dq_turn(n, run, k_tiles, group)
+                    assert turn == len(done), (shape, slots, group, n, t, turn, done)
+                    ready = max(computed, adds[i - 2] if i >= 2 else start)
+                    if ordered and done:
+                        ready = max(ready, done[-1][2] + latency)
+                    done.append((n, turn, ready))
+                    adds.append(ready)
+                finish = max(adds, default=start)
+                end = max(end, finish)
+                heapq.heappush(free, finish)
+    return end, {key: [(n, turn) for n, turn, _ in v] for key, v in added.items()}
+
+
+def test_fused_dq_run_is_the_key_tiles_whose_walks_hold_a_query_tile():
+    """``dq_run`` (the source's, which the adders' turns and the Δ pass's
+    zeros follow) is exactly the key tiles whose dK/dV walks (the kernels'
+    t_lo, t_hi) hold a query tile, on 3,000 random lengths, masks, windows
+    and offsets, query tiles that no walk holds among them."""
+    import random
+
+    from repro_torch.kernels import flash_attention as fa
+
+    rng, empty = random.Random(0), 0
+    for _ in range(3000):
+        sq, skv = rng.randint(1, 400), rng.randint(1, 400)
+        causal, q_offset = rng.random() < 0.7, rng.randint(0, 300)
+        window = rng.choice([0, 0, rng.randint(1, 300)])
+        k_tiles, walks = -(-skv // 64), {}
+        for n in range(k_tiles):
+            n0, n_last = 64 * n, min(64 * n + 64, skv) - 1
+            m_lo = max(0, n0 - q_offset) if causal else 0
+            m_hi = min(sq, n_last + window - q_offset) if window > 0 else sq
+            t_lo = m_lo // 64
+            for t in range(t_lo, -(-m_hi // 64) if m_hi > m_lo else t_lo):
+                walks.setdefault(t, []).append(n)
+        for t in range(-(-sq // 64)):
+            first, last = fa.dq_run(t, 64, k_tiles, sq, skv, causal, window, q_offset)
+            assert walks.get(t, []) == list(range(first, last + 1)), \
+                (sq, skv, causal, window, q_offset, t)
+            empty += t not in walks
+    assert empty > 100
+
+
+@pytest.mark.parametrize("shape", FUSED_ORDER_SHAPES, ids=str)
+def test_fused_dq_order_adds_each_part_once_in_order_and_every_launch_completes(shape):
+    """The fused route's dQ sum in a schedule model of its launch
+    (``_fused_dq_schedule``), at slot counts from 1 to an H100's, the
+    planner's P and a forced uneven one, the planner's dQ order
+    (``dq_group``) and groups of 3 (the last two on the launches of under
+    10,000 steps, and at every slot count the first two): every part of
+    every (head, query tile)
+    that a key tile's walk holds (from the masks) is added exactly once, in
+    launch order with turns 0, 1, 2, ..., the last being the run's length
+    less one (``dq_run``: the adder of that turn writes the tile's dQ; a
+    query tile no walk holds has an empty run, and the Δ pass writes its
+    zeros); no part waits on a block launched after its own, so the model,
+    which dispatches in order and waits only on modelled blocks, completes
+    every launch. At whisper's encoder shape
+    it reports the order's modelled stall: the makespan against the same
+    launch with no order, with no latency between two parts' adds and with
+    a step's."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, kv, sq, skv, d, causal, window, q_offset = shape
+    k_tiles = -(-skv // 64)
+    steps = dkdv_walks(h, kv, sq, skv, d, torch.bfloat16, causal, window, q_offset)
+    q = torch.empty((b, h, sq, d), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((b, kv, skv, d), dtype=torch.bfloat16, device="meta")
+    planned = fa.bwd_plan(q, k, causal=causal, window=window, q_offset=q_offset)
+    uneven = chip_smoke.uneven_split(h, kv, steps)
+    q_pos, k_pos = q_offset + np.arange(sq), np.arange(skv)
+    keep = np.ones((sq, skv), bool)
+    if causal:
+        keep &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        keep &= q_pos[:, None] - k_pos[None, :] < window
+    visits = [{n for n in range(k_tiles) if keep[64 * t:64 * t + 64, 64 * n:64 * n + 64].any()}
+              for t in range(-(-sq // 64))]
+    for t, v in enumerate(visits):
+        first, last = fa.dq_run(t, 64, k_tiles, sq, skv, causal, window, q_offset)
+        assert sorted(v) == list(range(first, last + 1)), (shape, t, first, last, v)
+    small = b * kv * sum(steps) < 10_000
+    for slots in FUSED_ORDER_SLOTS:
+        for split in dict.fromkeys((planned, uneven) if small else (planned,)):
+            planned_group = fa.dq_group(b, kv, split, k_tiles, slots)
+            for group in dict.fromkeys((planned_group, 3) if small else (planned_group,)):
+                _, added = _fused_dq_schedule(shape, slots, split, group)
+                order = fa.key_tile_order(k_tiles, group)
+                want = [[(n, i) for i, n in enumerate(m for m in order if m in v)]
+                        for v in visits]
+                for x in range(b * kv):
+                    for j in range(h // kv):
+                        for t, w in enumerate(want):
+                            assert added.get((x, j, t), []) == w, \
+                                (shape, slots, split, group, t, added.get((x, j, t)), w)
+    if shape == (*chip_smoke.BWD_MAIN["whisper enc train B8 S1500"][:4],
+                 chip_smoke.BWD_MAIN["whisper enc train B8 S1500"][3],
+                 *chip_smoke.BWD_MAIN["whisper enc train B8 S1500"][4:], 0, 0):
+        slots = fa.meta_slots(d, torch.bfloat16)
+        group = fa.dq_group(b, kv, 1, k_tiles, slots)
+        free, _ = _fused_dq_schedule(shape, slots, 1, group, ordered=False)
+        for latency in (0.0, 1.0):
+            ordered, _ = _fused_dq_schedule(shape, slots, 1, group, latency=latency)
+            print(f"whisper encoder, {slots} slots, group {group}, {latency:g} step between "
+                  f"adds: makespan {ordered:.0f} steps against {free:.0f} with no order, "
+                  f"modelled stall {100 * (ordered / free - 1):.1f}%")
+            assert ordered <= (1.02 + 0.02 * latency) * free
 
 
 def _fwd_walk_tiles(q_tile, sq, d, causal, window):
@@ -389,6 +555,47 @@ def test_fwd_variants_edit_the_shipped_source():
     assert len(set(sources.values())) == len(sources)
     with pytest.raises(RuntimeError, match="once"):
         variants.variant_source(text.replace("PINGPONG_HEAD_DIMS", "X"), [variants.NOPINGPONG])
+
+
+def test_fused_dq_head_dims_twin_equals_the_source():
+    """kernels/flash_attention.py's FUSED_DQ_HEAD_DIMS, which sizes the
+    wrapper's and the meta route's fused scratch, is the bf16 backward
+    source's constexpr mask, head dim for head dim."""
+    import re
+
+    from repro_torch.kernels import flash_attention as fa
+
+    text = (_build.CSRC / "flash_attention_bwd_sm90.cu").read_text()
+    found = re.findall(r"^constexpr int FUSED_DQ_HEAD_DIMS = ([0-9| ]+);$", text, re.M)
+    assert len(found) == 1, found
+    mask = eval(found[0])  # noqa: S307 (an int mask written as 16 | 32 | 64)
+    assert tuple(d for d in HEAD_DIMS if mask & d) == fa.FUSED_DQ_HEAD_DIMS
+
+
+def test_bwd_variants_edit_the_shipped_source():
+    """Each variant of benchmarks/torch_flash_bwd_variants.py, on both
+    routes, changes its route's shipped source at text it holds once; the
+    variants that change the source each give another source; those that
+    only change the plan (a forced split, another dQ order) change none."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(chip_smoke.__file__).parent / "benchmarks" / "torch_flash_bwd_variants.py"
+    spec = importlib.util.spec_from_file_location("torch_flash_bwd_variants", path)
+    variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(variants)
+    for route, (_, source, table, _) in variants.ROUTES.items():
+        text = (_build.CSRC / f"{source}.cu").read_text()
+        sources = {name: variants.variant_source(text, edits) for name, edits in table.items()}
+        assert sources["base"] == text
+        planner = [n for n in table if n in variants.PLANNER_ONLY]
+        assert planner and all(sources[n] == text for n in planner), route
+        edited = [sources[n] for n in table if n not in variants.PLANNER_ONLY and n != "base"]
+        assert text not in edited and len(set(edited)) == len(edited), route
+    assert {"split3", "ascending", "grouped", "dqearly", "noorder", "noadd", "st3"} <= set(
+        variants.ROUTES["bf16"][2])
+    with pytest.raises(RuntimeError, match="once"):
+        variants.variant_source("", [variants.UNFUSED])
 
 
 def test_fwd_bf16_cases_hold_every_bf16_forward_case_of_chip_smoke():
@@ -555,14 +762,17 @@ def _walk_slices(g, sq, skv, causal, window, q_offset, tile, split):
 
 
 def _model_backward(q, k, v, o, do, lse, product, *, causal, window, q_offset=0,
-                    round_p=lambda x: x, round_ds=lambda x: x, split=1, tile=None):
+                    round_p=lambda x: x, round_ds=lambda x: x, split=1, tile=None,
+                    dq_order=None):
     """A backward route's arithmetic (not its tile schedule), fp32 inside:
     every product is ``product(eq, x, y)``; P = exp(S·scale − lse) in fp32,
     ``round_p`` applied to it for dV = Pᵀ·dO; dS = P∘(dP − Δ), ``round_ds``
     applied to it for dQ = dS·K and dK = dSᵀ·Q, whose fp32 sums take the
     scale. With ``split`` > 1 the dK/dV walk (query tiles of ``tile`` rows)
     is cut into slices (``_walk_slices``): each slice's dK and dV sum in
-    fp32, and the slices are added in order before dK takes the scale.
+    fp32, and the slices are added in order before dK takes the scale. With
+    ``dq_order`` (key tiles of 64), dQ is the fused route's: each key
+    tile's part dS·K summed in fp32 apart, the parts added in that order.
     Returns fp32 (dq, dk, dv)."""
     b, h, sq, d = q.shape
     n_kv, skv = k.shape[1], k.shape[2]
@@ -581,7 +791,15 @@ def _model_backward(q, k, v, o, do, lse, product, *, causal, window, q_offset=0,
     p = torch.exp(s * scale - lse.reshape(b, n_kv, g, sq, 1)) * keep
     delta = (dog * og).sum(-1, keepdim=True)
     ds = round_ds(p * (product("bkgsd,bkcd->bkgsc", dog, vf) - delta))
-    dq = product("bkgsc,bkcd->bkgsd", ds, kf) * scale
+    if dq_order is None:
+        dq = product("bkgsc,bkcd->bkgsd", ds, kf) * scale
+    else:
+        dq = None
+        for n in dq_order:
+            keys = slice(64 * n, min(64 * n + 64, skv))
+            part = product("bkgsc,bkcd->bkgsd", ds[..., keys], kf[:, :, keys])
+            dq = part if dq is None else dq + part
+        dq = dq * scale
     if split == 1:
         dv = product("bkgsc,bkgsd->bkcd", round_p(p), dog)
         dk = product("bkgsc,bkgsd->bkcd", ds, qg) * scale
@@ -600,10 +818,22 @@ def _bf16_backward(q, k, v, o, do, lse, *, causal, window, q_offset=0, split=1):
     bf16 for dQ and dK, whose fp32 sums take the scale before they are
     rounded to bf16; with ``split`` > 1 the dK/dV walk's slices sum apart
     in fp32 and are added in order, dK and dV rounded once, after the sum.
-    Returns bf16 (dq, dk, dv)."""
+    At the fused head dims (FUSED_DQ_HEAD_DIMS) dQ is summed as the fused
+    route sums it: a fp32 part a key tile, the parts added in the dK/dV
+    grid's launch order (``key_tile_order`` at the group an H100 plans), so
+    ascending key tiles past two waves. Returns bf16 (dq, dk, dv)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, sq, d = q.shape
+    n_kv, skv = k.shape[1], k.shape[2]
+    order = None
+    if fa.bwd_fuses_dq(d, torch.bfloat16):
+        k_tiles = -(-skv // fa.BWD_KEYS)
+        group = fa.dq_group(b, n_kv, split, k_tiles, fa.meta_slots(d, torch.bfloat16))
+        order = fa.key_tile_order(k_tiles, group)
     grads = _model_backward(q, k, v, o, do, lse, torch.einsum, causal=causal, window=window,
                             q_offset=q_offset, round_p=_bf16, round_ds=_bf16, split=split,
-                            tile=bwd_query_tile(q.shape[-1], torch.bfloat16))
+                            tile=bwd_query_tile(d, torch.bfloat16), dq_order=order)
     return tuple(t.to(torch.bfloat16) for t in grads)
 
 
@@ -1076,7 +1306,9 @@ def test_flash_gradients_on_card_match_the_plain_backward():
     so the session opens with one synchronized CUDA operation of its own,
     whose record takes that drop; the backward's kernels come after it
     (three, or four where the planner splits the dK/dV walk: the parts'
-    reduction), and each must be seen exactly once."""
+    reduction; on the bf16 route at head_dim 16 to 64 the dQ kernel's place
+    taken by the pass over the fused route's dQ sums, chip_smoke.bwd_kernels),
+    and each must be seen exactly once, by name."""
     _card()
     from torch.profiler import ProfilerActivity, profile
 
@@ -1085,7 +1317,9 @@ def test_flash_gradients_on_card_match_the_plain_backward():
     for case in BWD_CARD_CASES:
         for dtype in DTYPES:
             q, k, v, do, kw = _grad_inputs(case, dtype)
-            n_kernels = len(chip_smoke.bwd_kernels(DTYPES[dtype][1], bwd_plan(q, k, **kw)))
+            kernels_want = chip_smoke.bwd_kernels(DTYPES[dtype][1], q.shape[-1],
+                                                  bwd_plan(q, k, **kw))
+            n_kernels = len(kernels_want)
             tol = DTYPES[dtype][2]
             leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
             before = ops.launch_counts()
@@ -1100,8 +1334,11 @@ def test_flash_gradients_on_card_match_the_plain_backward():
                     and e.device_type == torch.autograd.DeviceType.CUDA}
             kernels = {name for name, _ in seen}
             route = [n for n in kernels if "_sm90" in n]
-            # the Δ pass, dK/dV, dQ (and the reduction of a split walk)
+            # the Δ pass, dK/dV, dQ or on the fused route its sums' pass (and
+            # the reduction of a split walk), by head dim
             assert len(kernels) == n_kernels, (case, dtype, kernels)
+            assert {chip_smoke.BWD_KERNEL.search(n).group(0) for n in kernels} == kernels_want, \
+                (case, dtype, kernels)
             assert len(seen) == n_kernels, (case, dtype, seen)  # each once
             assert len(route) == (n_kernels if dtype == "bfloat16" else 0), (case, dtype, kernels)
             after = ops.launch_counts()
@@ -1153,6 +1390,43 @@ def test_flash_bwd_forced_splits_on_card_match_the_plain_backward():
             with pytest.raises(ValueError, match="split"):
                 flash_attention_bwd_cuda(q, k, v, o, do, lse, split=max(steps) + 1, **kw)
             assert ops.launch_counts()["flash_attention_bwd"] == before
+
+
+@pytest.mark.gpu
+def test_fused_dq_route_on_card_is_deterministic_at_whisper_shape():
+    """The bf16 backward's fused route (dQ from the dK/dV kernel, its parts
+    summed in a fixed order across blocks) at whisper-tiny's encoder shape
+    (B8 H6 S1500 D64, bidirectional) and its decoder's (S448, causal), at
+    the planner's P and a forced uneven P: two launches give the same bits,
+    and dq, dk and dv hold 2e-2 of the plain backward's largest magnitude.
+    Also query tiles that no key tile's walk holds (a window past the
+    keys): their dQ is zero, as on the split route, and no NaN."""
+    _card()
+    from repro_torch.kernels.flash_attention import bwd_fuses_dq, bwd_plan
+
+    enc = chip_smoke.BWD_MAIN["whisper enc train B8 S1500"]
+    dec = chip_smoke.BWD_MAIN["whisper dec train B8 S448"]
+    for b, h, kv, s, d, causal in (enc, dec):
+        assert bwd_fuses_dq(d, torch.bfloat16)
+        case = (b, h, kv, s, s, d, causal, 0, 0)
+        q, k, v, do, kw = _grad_inputs(case, "bfloat16")
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+        steps = dkdv_walks(h, kv, s, s, d, torch.bfloat16, causal, 0, 0)
+        for split in dict.fromkeys((bwd_plan(q, k, **kw), chip_smoke.uneven_split(h, kv, steps))):
+            got = flash_attention_bwd_cuda(q, k, v, o, do, lse, split=split, **kw)
+            again = flash_attention_bwd_cuda(q, k, v, o, do, lse, split=split, **kw)
+            torch.cuda.synchronize()
+            for g, w, a in zip(got, want, again):
+                assert torch.equal(g, a), (case, split)
+                scale = w.float().abs().max().item()
+                assert (g.float() - w.float()).abs().max().item() <= 2e-2 * scale, (case, split)
+    q, k, v, do, kw = _grad_inputs((2, 3, 1, 358, 345, 32, True, 30, 81), "bfloat16")
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    dq = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)[0]
+    torch.cuda.synchronize()
+    assert torch.isfinite(dq).all()
+    assert not dq[:, :, 320:].any()  # query tile 5: positions 401-438, keys end at 344
 
 
 @pytest.mark.gpu
